@@ -1,0 +1,161 @@
+"""Decode-arch transformer policy (port of
+``repro.core.policies.make_transformer_policy(arch="decode")``).
+
+Per-layer K/V come from frozen token + position embeddings, and a learned
+latent query reads the state out (see :mod:`repro_torch.nn.transformer`).
+The parameter tree is the JAX package's: ``embed/table``, ``pos/pos``,
+``bos``, ``decoder/layer_{i}/...``, ``readout/{w,b}``, ``log_z``.  The pad
+(empty) token is ``vocab_size - 1``.  The readout has the heads of the
+bitseq recipe: A forward logits and one state-flow head (the JAX factory's
+defaults; its learned backward head is not ported yet).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Union
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, cpu_generator, resolve_device
+from ..kernels.ops import decode_step
+from ..nn.core import (ParamTree, dense_apply, dense_init, embedding_apply,
+                       embedding_init, normal_init)
+from ..nn.transformer import (Cache, cache_init, decode_encoder_init,
+                              decoder_stacked_weights, encoder_apply_bank,
+                              encoder_apply_cached)
+
+
+class TransformerPolicy(nn.Module):
+    """The latent-query policy with KV-cache entry points.
+
+    Weights are drawn from ``torch.Generator`` seeded with ``seed`` on the
+    CPU and moved to ``device``; :meth:`load_params` replaces them with
+    parameters carried across from JAX (:mod:`repro_torch.convert`).
+    """
+
+    def __init__(self, vocab_size: int, max_len: int, action_dim: int, *,
+                 num_layers: int = 3, dim: int = 64, num_heads: int = 8,
+                 seed: int = 0, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.vocab_size, self.max_len = vocab_size, max_len
+        self.action_dim, self.dim, self.num_heads = action_dim, dim, num_heads
+        self.pad_id = vocab_size - 1
+        g = cpu_generator(seed)
+        kw = dict(generator=g, device=dev)
+        self.params = ParamTree({
+            "embed": embedding_init(vocab_size, dim, **kw),
+            "pos": {"pos": normal_init((max_len, dim), std=0.02, **kw)},
+            "bos": normal_init((dim,), std=0.02, **kw),
+            "decoder": decode_encoder_init(num_layers=num_layers, dim=dim,
+                                           num_heads=num_heads, **kw),
+            "readout": dense_init(dim, action_dim + 1, **kw),
+            "log_z": torch.zeros((), device=dev),
+        })
+        self._kernel_weights: Optional[Dict[str, torch.Tensor]] = None
+
+    # -- parameters ------------------------------------------------------------
+    def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``/``-keyed parameters (every leaf, same shapes) in."""
+        own = self.params.flat()
+        if set(flat) != set(own):
+            raise KeyError(f"parameter names differ: missing "
+                           f"{sorted(set(own) - set(flat))}, unexpected "
+                           f"{sorted(set(flat) - set(own))}")
+        with torch.no_grad():
+            for name, p in own.items():
+                src = torch.as_tensor(flat[name])
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(src.shape)}, "
+                                     f"expected {tuple(p.shape)}")
+                p.copy_(src)
+        self._kernel_weights = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None          # .to(device) moves the params
+        return super()._apply(fn, *args, **kwargs)
+
+    def kernel_weights(self) -> Dict[str, torch.Tensor]:
+        """The fused step's operands, made once per parameter load: the
+        stacked decoder weights and the contiguous forward-logit slice
+        ``w_out = readout.w[:, :A]``, ``b_out = readout.b[:A]``."""
+        if self._kernel_weights is None:
+            r = self.params["readout"]
+            self._kernel_weights = {
+                "stacked": decoder_stacked_weights(self.params["decoder"]),
+                "w_out": r["w"][:, :self.action_dim].detach().contiguous(),
+                "b_out": r["b"][:self.action_dim].detach().contiguous()}
+        return self._kernel_weights
+
+    # -- heads -----------------------------------------------------------------
+    def heads(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Readout of the decoder output y (B, D) into the heads dict:
+        ``logits`` (B, A) and ``log_flow`` (B,)."""
+        out = dense_apply(self.params["readout"], y)
+        return {"logits": out[..., :self.action_dim],
+                "log_flow": out[..., self.action_dim]}
+
+    def _embed(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return (embedding_apply(self.params["embed"], tokens.long())
+                + embedding_apply({"table": self.params["pos"]["pos"]},
+                                  pos.long().clamp(0, self.max_len - 1)))
+
+    # -- full pass ---------------------------------------------------------------
+    def apply(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Uncached pass over (B, S) token observations."""
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        xs = self._embed(tokens, pos)
+        bos = self.params["bos"][None, None, :].expand(B, 1, self.dim)
+        xs = torch.cat([bos, xs], dim=1)
+        mask = torch.cat([torch.ones(B, 1, dtype=torch.bool,
+                                     device=tokens.device),
+                          tokens != self.pad_id], dim=1)
+        return self.heads(encoder_apply_bank(self.params["decoder"], xs, mask,
+                                             num_heads=self.num_heads))
+
+    # -- KV-cache protocol --------------------------------------------------------
+    def cache_init(self, batch_size: int) -> Cache:
+        """Stacked (num_layers, B, max_len + 1, H, hd) cache, BOS at slot 0."""
+        x0 = self.params["bos"][None, :].expand(batch_size, self.dim)
+        return cache_init(self.params["decoder"], x0, self.max_len + 1,
+                          num_heads=self.num_heads)
+
+    def _slot(self, step: Union[int, torch.Tensor]):
+        """The token added at step t-1 lives in slot t; ``step`` is a scalar
+        (lockstep rollouts) or (B,) (serve lanes).  Clipped to
+        [1, max_len]: at t = 0 a throwaway K/V lands in slot 1, masked out
+        and overwritten by the next step."""
+        if isinstance(step, torch.Tensor):
+            return step.clamp(1, self.max_len).to(torch.int32)
+        return min(max(int(step), 1), self.max_len)
+
+    def apply_cached(self, cache: Cache, token: torch.Tensor,
+                     pos: torch.Tensor, length: torch.Tensor,
+                     step: Union[int, torch.Tensor]):
+        """Append the newest token's K/V (in place) and query the cache;
+        the plain path.  Returns ``(heads dict, cache)``."""
+        y, cache = encoder_apply_cached(
+            self.params["decoder"], self._embed(token, pos), cache, length,
+            num_heads=self.num_heads, slot=self._slot(step))
+        return self.heads(y), cache
+
+    def sample_cached(self, cache: Cache, token: torch.Tensor,
+                      pos: torch.Tensor, length: torch.Tensor,
+                      gumbel: torch.Tensor, fwd_mask: torch.Tensor,
+                      step: Union[int, torch.Tensor],
+                      logit_temp: Optional[torch.Tensor] = None):
+        """Fused step (append + query + masked Gumbel-max sampling) through
+        :func:`repro_torch.kernels.ops.decode_step`: the CUDA kernel on a
+        CUDA tensor, its plain version on a CPU tensor.
+
+        ``gumbel``: (B, A) noise; ``fwd_mask``: (B, A) bool legal actions
+        (callers pass their already-safe mask); ``logit_temp``: optional
+        (B,) logit scale.  Returns ``(actions int32, log_pf, y, cache)``;
+        ``self.heads(y)`` gives the heads dict."""
+        kw = self.kernel_weights()
+        return decode_step(
+            kw["stacked"], self._embed(token, pos).contiguous(), cache,
+            length.to(torch.int32), self._slot(step), gumbel,
+            fwd_mask, kw["w_out"], kw["b_out"], logit_temp,
+            num_heads=self.num_heads)

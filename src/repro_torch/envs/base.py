@@ -1,0 +1,95 @@
+"""Environment contract of the port (port of ``repro.envs.base``).
+
+Environments are stateless objects; every method is a function of
+``(state, action, params)`` with a leading batch dimension on every state
+field.  As in the JAX package:
+
+- ``step`` on an already-terminal row is a no-op, so fixed-length rollouts
+  handle variable-length episodes;
+- ``step`` emits the log-reward on the rows that became terminal in that
+  step and 0 on every other row.  (The JAX package skips the reward call
+  when no row became terminal, behind a ``lax.cond``; the port computes it
+  for the batch and keeps it on the newly terminal rows only, since asking
+  whether any row finished would cost a device-to-host sync every step.
+  The values are the same.)
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+EnvState = Any
+EnvParams = Any
+
+
+def select_state(pred: torch.Tensor, old: EnvState, new: EnvState) -> EnvState:
+    """Per-row select between two states of one dataclass type: ``old``
+    where ``pred``, else ``new``."""
+    def sel(o, n):
+        p = pred.reshape(pred.shape + (1,) * (o.dim() - pred.dim()))
+        return torch.where(p, o, n)
+
+    return type(old)(**{f.name: sel(getattr(old, f.name), getattr(new, f.name))
+                        for f in dataclasses.fields(old)})
+
+
+class Environment(abc.ABC):
+    """Vectorised GFlowNet environment."""
+
+    #: number of forward actions
+    action_dim: int
+    #: maximum trajectory length
+    max_steps: int
+    #: True when each forward step adds at most one observation token,
+    #: exposed through :meth:`observe_last` (the KV-cache rollout path)
+    supports_incremental_obs: bool = False
+
+    @abc.abstractmethod
+    def reset(self, num_envs: int, params: EnvParams
+              ) -> Tuple[torch.Tensor, EnvState]:
+        ...
+
+    @abc.abstractmethod
+    def _forward(self, state: EnvState, action: torch.Tensor,
+                 params: EnvParams) -> EnvState:
+        """Apply forward actions unconditionally (``step`` guards
+        terminals)."""
+
+    @abc.abstractmethod
+    def is_terminal(self, state: EnvState, params: EnvParams) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def log_reward(self, state: EnvState, params: EnvParams) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def observe(self, state: EnvState, params: EnvParams) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def forward_mask(self, state: EnvState, params: EnvParams) -> torch.Tensor:
+        ...
+
+    def observe_last(self, state: EnvState, params: EnvParams,
+                     last_action: torch.Tensor):
+        """``(token, position, length)`` of the observation entry the last
+        forward step added; see ``repro.envs.base.Environment``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the incremental "
+            "observation protocol")
+
+    def step(self, state: EnvState, action: torch.Tensor, params: EnvParams):
+        """Returns ``(obs, new_state, log_r, done)``."""
+        was_done = self.is_terminal(state, params)
+        new_state = select_state(was_done, state,
+                                 self._forward(state, action, params))
+        done = self.is_terminal(new_state, params)
+        newly_done = done & ~was_done
+        log_r = torch.where(newly_done,
+                            self.log_reward(new_state, params).float(),
+                            torch.zeros((), device=newly_done.device))
+        return self.observe(new_state, params), new_state, log_r, done

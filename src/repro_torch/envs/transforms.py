@@ -1,0 +1,54 @@
+"""Reward exponent transform (port of the part of ``repro.envs.transforms``
+the serving engine uses).
+
+:class:`RewardExponent` maps log R to beta * log R.  beta lives in a
+:class:`TransformedParams` layer of the env params, so it can be a (B,)
+vector, one value per row: the engine serves requests at different reward
+temperatures side by side in one batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from .base import Environment
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformedParams:
+    """The wrapped env's params plus the transform's own tensors."""
+    inner: Any
+    extra: Dict[str, torch.Tensor]
+
+
+class RewardExponent(Environment):
+    """log R -> beta * log R; everything else is the wrapped env's."""
+
+    def __init__(self, env: Environment):
+        self.env = env
+        self.action_dim = env.action_dim
+        self.max_steps = env.max_steps
+        self.supports_incremental_obs = env.supports_incremental_obs
+
+    def reset(self, num_envs, params):
+        return self.env.reset(num_envs, params.inner)
+
+    def _forward(self, state, action, params):
+        return self.env._forward(state, action, params.inner)
+
+    def is_terminal(self, state, params):
+        return self.env.is_terminal(state, params.inner)
+
+    def log_reward(self, state, params):
+        return params.extra["beta"] * self.env.log_reward(state, params.inner)
+
+    def observe(self, state, params):
+        return self.env.observe(state, params.inner)
+
+    def forward_mask(self, state, params):
+        return self.env.forward_mask(state, params.inner)
+
+    def observe_last(self, state, params, last_action):
+        return self.env.observe_last(state, params.inner, last_action)

@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
+
+Each function here computes what its kernel computes, in batched torch ops.
+The CPU path of every wrapper in :mod:`repro_torch.kernels.ops` runs it, the
+CPU tests hold it against ``repro.kernels.ref``, and ``chip_smoke.py`` holds
+the kernel against it on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+
+from ..nn.core import gelu
+
+
+def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def ref_decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    lengths: torch.Tensor, slot: torch.Tensor,
+                    gumbel: torch.Tensor, action_mask: torch.Tensor,
+                    w_out: torch.Tensor, b_out: torch.Tensor,
+                    logit_temp: Optional[torch.Tensor] = None, *,
+                    num_heads: int):
+    """One fused cached-rollout step: cache append + latent-query decode +
+    masked Gumbel-max sampling.  Functional: the caches are not modified.
+
+    w: stacked decoder weights (``nn.transformer.decoder_stacked_weights``);
+    x_new: (B, D); k/v_cache: (num_layers, B, C, D) merged-head layout;
+    lengths/slot: (B,) int (``slot`` may be a scalar); gumbel: (B, A);
+    action_mask: (B, A) nonzero = legal; w_out/b_out: (D, A)/(A,);
+    logit_temp: optional (B,) logit scale (None = 1).
+    Returns ``(action (B,) int32, log_pf (B,), y (B, D), new_k, new_v)``.
+    """
+    L, B, C, D = k_cache.shape
+    hd = D // num_heads
+    f32 = torch.float32
+    dev = x_new.device
+    x = x_new.to(f32)
+
+    kv = torch.einsum("bd,lde->lbe", x, w["kv_w"].to(f32)) \
+        + w["kv_b"].to(f32)[:, None]                        # (L, B, 2D)
+    rows = torch.arange(B, device=dev)
+    slot = torch.as_tensor(slot, device=dev).long().expand(B)
+    new_k = k_cache.clone()
+    new_v = v_cache.clone()
+    new_k[:, rows, slot] = kv[..., :D].to(k_cache.dtype)
+    new_v[:, rows, slot] = kv[..., D:].to(v_cache.dtype)
+
+    live = (torch.arange(C, device=dev)[None, :]
+            < (lengths.to(dev)[:, None] + 1))               # (B, C)
+    h = w["q0"].to(f32)[None].expand(B, D)
+    for l in range(L):
+        g = _layernorm(h, w["ln1_scale"][l].to(f32), w["ln1_bias"][l].to(f32))
+        q = g @ w["q_w"][l].to(f32) + w["q_b"][l].to(f32)
+        qh = q.reshape(B, num_heads, hd)
+        kl = new_k[l].to(f32).reshape(B, C, num_heads, hd)
+        vl = new_v[l].to(f32).reshape(B, C, num_heads, hd)
+        s = torch.einsum("bhd,bshd->bhs", qh, kl) / math.sqrt(hd)
+        s = torch.where(live[:, None, :], s,
+                        torch.tensor(-1e30, dtype=f32, device=dev))
+        a = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhs,bshd->bhd", a, vl).reshape(B, D)
+        h = h + o @ w["proj_w"][l].to(f32) + w["proj_b"][l].to(f32)
+        g2 = _layernorm(h, w["ln2_scale"][l].to(f32),
+                        w["ln2_bias"][l].to(f32))
+        ff = gelu(g2 @ w["ff1_w"][l].to(f32) + w["ff1_b"][l].to(f32))
+        h = h + ff @ w["ff2_w"][l].to(f32) + w["ff2_b"][l].to(f32)
+    y = _layernorm(h, w["ln_f_scale"].to(f32), w["ln_f_bias"].to(f32))
+
+    logits = y @ w_out.to(f32) + b_out.to(f32)
+    if logit_temp is not None:
+        logits = logits * logit_temp.to(f32)[:, None]
+    neg = torch.tensor(torch.finfo(f32).min, dtype=f32, device=dev)
+    ml = torch.where(action_mask != 0, logits, neg)
+    logp = ml - torch.logsumexp(ml, dim=-1, keepdim=True)
+    # torch.argmax, like jnp.argmax, resolves ties to the lowest index
+    action = torch.argmax(logp + gumbel.to(f32), dim=-1)
+    log_pf = torch.gather(logp, 1, action[:, None])[:, 0]
+    return (action.to(torch.int32), log_pf, y.to(x_new.dtype), new_k,
+            new_v)

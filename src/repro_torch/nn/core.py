@@ -1,0 +1,110 @@
+"""Minimal functional layers over dicts of tensors (port of ``repro.nn.core``).
+
+Every layer is a pair ``*_init(...) -> params`` / ``*_apply(params, x)``
+over plain dicts, with the JAX package's layouts: dense weights are
+``(in, out)`` and ``y = x @ w + b``.  Initialisers draw from an explicit CPU
+``torch.Generator`` and move the result to ``device``, so one seed gives the
+same parameters on every device.  :class:`ParamTree` holds such a nested
+dict as an ``nn.Module`` whose parameter names, with ``.`` read as ``/``,
+are the JAX checkpoint's leaf names.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, Mapping, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Mapping[str, Any]
+
+
+def lecun_normal(shape: Sequence[int], *, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Normal with std 1/sqrt(fan_in), fan_in = shape[0]."""
+    std = 1.0 / math.sqrt(max(shape[0], 1))
+    return (std * torch.randn(tuple(shape), generator=generator)).to(device)
+
+
+def normal_init(shape: Sequence[int], *, generator: torch.Generator,
+                device: torch.device, std: float = 0.02) -> torch.Tensor:
+    return (std * torch.randn(tuple(shape), generator=generator)).to(device)
+
+
+def dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
+               device: torch.device) -> Dict[str, Any]:
+    return {"w": lecun_normal((in_dim, out_dim), generator=generator,
+                              device=device),
+            "b": torch.zeros(out_dim, device=device)}
+
+
+def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def layernorm_init(dim: int, device: torch.device) -> Dict[str, Any]:
+    return {"scale": torch.ones(dim, device=device),
+            "bias": torch.zeros(dim, device=device)}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Population variance and ``rsqrt(var + eps)``, as ``jnp.var``."""
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def embedding_init(vocab: int, dim: int, *, generator: torch.Generator,
+                   device: torch.device) -> Dict[str, Any]:
+    return {"table": normal_init((vocab, dim), generator=generator,
+                                 device=device)}
+
+
+def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as an ``nn.Module``.
+
+    Subtrees become submodules and tensors become parameters under the same
+    keys, so ``tree["layer_0"]["q"]["w"]`` reads like the dict it was built
+    from and the functional layers above accept either.  Parameters do not
+    require grad: the ported path only samples.
+    """
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key: object) -> bool:
+        return key in self._keys
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._keys)
+
+    def flat(self) -> Dict[str, torch.Tensor]:
+        """Parameters keyed by ``/``-joined path (the checkpoint names)."""
+        return {name.replace(".", "/"): p
+                for name, p in self.named_parameters()}

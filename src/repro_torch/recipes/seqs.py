@@ -1,0 +1,23 @@
+"""Sequence recipes of the port (port of the bitseq part of
+``repro.recipes.seqs``)."""
+from __future__ import annotations
+
+from ..core.policies import TransformerPolicy
+from ..device import DeviceLike
+from ..envs.bitseq import BitSeqEnvironment
+
+
+def bitseq_env(n: int = 120, k: int = 8, beta: float = 3.0,
+               seed: int = 0) -> BitSeqEnvironment:
+    """Paper-scale default: n=120, k=8, so L=15 words of m=256 and
+    A = 3840 actions."""
+    return BitSeqEnvironment(n=n, k=k, beta=beta, seed=seed)
+
+
+def bitseq_policy(env: BitSeqEnvironment, *, seed: int = 0,
+                  device: DeviceLike = None) -> TransformerPolicy:
+    """The bitseq_tb policy: decode arch, 3 layers, dim 64, 8 heads, MLP
+    width 256, readout of A logits + 1 flow head."""
+    return TransformerPolicy(env.vocab_size, env.L, env.action_dim,
+                             num_layers=3, dim=64, num_heads=8, seed=seed,
+                             device=device)
