@@ -8,14 +8,31 @@ imports nothing of JAX or of the JAX package ``repro``.  Phases, each
 printing one JSON line:
 
 1. device  - ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
+             (one ``nvcc`` per source, in parallel), and times one
+             ``nvcc -shared`` call over all sources beside it;
 3. kernel  - each kernel against its plain PyTorch version on the card, at
-             the serving shapes, with its time, the plain version's time and
-             the least time the card could take (``bound``);
+             the main paths' shapes and at odd ones, with its device time,
+             the plain version's, the least time the card could take
+             (``bound``) and, where one PyTorch call computes the same
+             function, that call's (``library_us``);
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
-             ``forward_rollout`` and the kernel's launches are counted;
+             ``forward_rollout`` and the kernels' launches are counted;
+   serve_profile - the serving loop's device idle share, device and host
+             tops;
+5. train   - ``bitseq_tb`` training at full width (16 envs) for 50
+             iterations through ``repro_torch.run.run_recipe``, the
+             launches of every kernel counted (45 decode_attention, 2
+             traj_logprob forward and 1 backward per iteration);
+   train_hold - one iteration on the card and on the CPU (plain versions)
+             from the same parameters and noise: actions, loss, gradients;
+   train_profile - one iteration's device idle share, device and host tops;
+   trained_fused_step - after the optimizer steps of the two phases
+             before it, the fused step's weight cache (filled before them)
+             holds the live weights, and the fused step equals its plain
+             chain;
 
 then a ``kernels`` line, the card's ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -28,6 +45,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,9 +57,36 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 #: kernel vs plain version: fp32 with another reduction order
 TOL = 1e-4
+#: traj_logprob backward vs plain, entry by entry (``bwd_excess``)
+BWD_RTOL = 1e-4
+BWD_ATOL = 1e-8
 #: lanes whose two best Gumbel scores lie this close may pick either
 TIE_GAP = 1e-5
 SERVE_LANES = 64
+TRAIN_ITERS = 50
+#: bitseq_tb at full width: 3 layers x 15 steps of cached queries, and
+#: traj_logprob forward for P_F and P_B, backward for P_F, per iteration
+TRAIN_LAUNCHES_PER_ITER = {"decode_attention": 45, "traj_logprob_fwd": 2,
+                           "traj_logprob_bwd": 1, "decode_step": 0}
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper of the port by kernel name; each counts its own
+    launches."""
+    from repro_torch.kernels import ops
+    return {"decode_step": ops.decode_step,
+            "decode_attention": ops.decode_attention,
+            "traj_logprob_fwd": ops.traj_logprob,
+            "traj_logprob_bwd": ops.traj_logprob_backward}
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
 
 
 def emit(phase: str, **fields) -> None:
@@ -195,18 +240,204 @@ def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
     # launch included) between CUDA events
     kernel_us = profiled_device_us(kernel)
     wrapper_us = cuda_time_us(kernel)
-    plain_us = cuda_time_us(plain, iters=20, warmup=3)
+    plain_us = profiled_device_us(plain, iters=10)
+    plain_wall_us = cuda_time_us(plain, iters=20, warmup=3)
     row = {"B": B, "L": L, "C": C, "D": D, "H": H, "F": F, "A": A,
            "actions_equal": int(same.sum()), "near_ties": int(tie.sum()),
            "mismatched_actions": mismatched, "max_abs_err": err,
            "kernel_us": kernel_us, "wrapper_us": wrapper_us,
-           "plain_us": plain_us, **step_bound(inp)}
+           "plain_us": plain_us, "plain_wall_us": plain_wall_us,
+           **step_bound(inp)}
     emit("kernel", name="decode_step", **row)
     if mismatched or max(err.values()) > TOL or not all(
             math.isfinite(v) for v in err.values()):
         raise AssertionError(f"decode_step disagrees with its plain version "
                              f"at B={B}: {mismatched} actions, errors {err}")
     return row
+
+
+def timings(kernel, plain, library) -> dict:
+    """Device time per call (``torch.profiler``, the kernels' own time) of
+    the kernel, its plain version and the library call, so the three
+    compare like for like; and each one's time per call between CUDA
+    events over back-to-back calls (``*_wall_us``: host dispatch included,
+    which for a chain of small ops is most of it)."""
+    out = {"kernel_us": profiled_device_us(kernel),
+           "wrapper_us": cuda_time_us(kernel),
+           "plain_us": profiled_device_us(plain, iters=20),
+           "plain_wall_us": cuda_time_us(plain, iters=50, warmup=5),
+           "library_us": None, "library_wall_us": None}
+    if library is not None:
+        out["library_us"] = profiled_device_us(library)
+        out["library_wall_us"] = cuda_time_us(library)
+    return out
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The larger of the byte time and the fp32 operation time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOP_PER_S
+    return {"bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+# -- phase 3: decode_attention against its plain version ------------------------
+
+def check_decode_attention(B, S, H, hd, kv_valid, seed, device) -> dict:
+    """The kernel and its plain version on the same inputs; the library
+    yardstick is ``F.scaled_dot_product_attention`` with a boolean mask over
+    the rows that attend at least one slot (it gives NaN on an empty row)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_decode_attention
+
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=g).to(device)
+    q, k, v = rn(B, H, hd), rn(B, S, H, hd), rn(B, S, H, hd)
+    kv = torch.as_tensor(kv_valid, dtype=torch.int32).to(device)
+
+    def plain():
+        return ref_decode_attention(q, k, v, kv)
+
+    def kernel():
+        return ops.decode_attention(q, k, v, kv)
+
+    want, got = plain(), kernel()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    empty_exact = bool(torch.all(got[kv <= 0] == 0))
+    rows = (kv >= 1).nonzero()[:, 0]
+    lq, lk, lv = q[rows][:, :, None], k[rows].transpose(1, 2), \
+        v[rows].transpose(1, 2)
+    lmask = (torch.arange(S, device=device)[None, :]
+             < kv[rows][:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
+
+    library_err = float((library()[:, :, 0] - want[rows]).abs().max())
+    live = int(torch.clamp(kv, 0, S).sum())
+    nbytes = 4 * (2 * B * H * hd + 2 * live * H * hd + B)
+    flops = live * H * (4 * hd + 3) + B * H * hd
+    row = {"B": B, "S": S, "H": H, "hd": hd, "kv_valid": list(kv_valid),
+           "max_abs_err": err, "empty_rows_exact_zero": empty_exact,
+           **timings(kernel, plain, library),
+           "library_call": "F.scaled_dot_product_attention(bool mask), "
+                           "rows with kv_valid >= 1",
+           "library_max_abs_err": library_err, **bound(nbytes, flops)}
+    emit("kernel", name="decode_attention", **row)
+    if not (err <= TOL) or not empty_exact:
+        raise AssertionError(f"decode_attention disagrees with its plain "
+                             f"version at {(B, S, H, hd)}: error {err}, "
+                             f"empty rows exact zero {empty_exact}")
+    return row
+
+
+# -- phase 3: traj_logprob forward and backward against their plain versions -----
+
+def traj_inputs(B, T, A, seed, device):
+    """Time-major (T+1, B, A) logits and mask handed over as the (B, T, A)
+    transposed views the training loss passes; the taken action is legal,
+    and each row has a valid prefix."""
+    g = torch.Generator().manual_seed(seed)
+    logits = 3 * torch.randn(T + 1, B, A, generator=g)
+    mask = torch.rand(T + 1, B, A, generator=g) < 0.6
+    actions = torch.randint(0, A, (T, B), generator=g)
+    mask[torch.arange(T)[:, None], torch.arange(B)[None, :], actions] = True
+    valid = torch.arange(T)[:, None] < torch.randint(1, T + 1, (1, B),
+                                                     generator=g)
+    return (logits.to(device)[:-1].transpose(0, 1), actions.to(device).T,
+            mask.to(device)[:-1].transpose(0, 1), valid.to(device).T,
+            torch.randn(B, generator=g).to(device),
+            torch.randn(T, B, generator=g).to(device).T)
+
+
+def bwd_excess(d_k, d_p, actions, valid, g_total, g_step):
+    """The backward's largest error over its allowance, entry by entry.
+    Most entries are ``coeff * softmax`` terms of ~1e-5, so each is held to
+    BWD_RTOL of its own size (plus BWD_ATOL), not only the largest error
+    to TOL.  The taken action's entry is ``coeff * (1 - p)``, which cancels
+    as p nears 1; it is held to BWD_RTOL of ``|coeff|``."""
+    coeff = ((g_total[:, None] + g_step) * valid).abs()
+    scale = d_p.abs().scatter(-1, actions.long()[..., None],
+                              coeff[..., None])
+    return ((d_k - d_p).abs() / (BWD_ATOL + BWD_RTOL * scale)).max()
+
+
+def check_traj_logprob(B, T, A, seed, device):
+    """Forward and backward kernels against their plain versions; returns
+    the two rows.  The forward's library yardstick is one
+    ``F.cross_entropy(reduction="none")`` over logits masked beforehand
+    (timed alone); the backward has none."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (ref_traj_logprob,
+                                         ref_traj_logprob_backward)
+
+    logits, actions, mask, valid, g_total, g_step = traj_inputs(
+        B, T, A, seed, device)
+    nbt, nbta = B * T, B * T * A
+    shape = {"B": B, "T": T, "A": A}
+
+    def fwd_kernel():
+        with torch.no_grad():
+            return ops.traj_logprob(logits, actions, mask, valid)
+
+    def fwd_plain():
+        return ref_traj_logprob(logits, actions, mask, valid)
+
+    (t_k, s_k), (t_p, s_p) = fwd_kernel(), fwd_plain()
+    again = fwd_kernel()
+    torch.cuda.synchronize()
+    err = max(float((t_k - t_p).abs().max()), float((s_k - s_p).abs().max()))
+    bitwise = bool(torch.equal(again[0], t_k) and torch.equal(again[1], s_k))
+    premasked = torch.where(mask, logits, torch.finfo(torch.float32).min
+                            ).reshape(nbt, A)
+    flat_actions = actions.reshape(nbt)
+
+    def library():
+        return F.cross_entropy(premasked, flat_actions, reduction="none")
+
+    library_err = float((-library().reshape(B, T) - s_p)[valid].abs().max())
+    fwd = {**shape, "max_abs_err": err, "repeat_bitwise_equal": bitwise,
+           **timings(fwd_kernel, fwd_plain, library),
+           "library_call": "F.cross_entropy(reduction='none') on logits "
+                           "masked beforehand, timed alone",
+           "library_max_abs_err": library_err,
+           **bound(4 * nbta + nbta + 8 * nbt + nbt + 4 * (B + nbt),
+                   5 * nbta)}
+    emit("kernel", name="traj_logprob_fwd", **fwd)
+
+    def bwd_kernel():
+        return ops.traj_logprob_backward(logits, actions, mask, valid,
+                                         g_total, g_step)
+
+    def bwd_plain():
+        return ref_traj_logprob_backward(logits, actions, mask, valid,
+                                         g_total, g_step)
+
+    d_k, d_p = bwd_kernel(), bwd_plain()
+    torch.cuda.synchronize()
+    berr = float((d_k - d_p).abs().max())
+    b_excess = float(bwd_excess(d_k, d_p, actions, valid, g_total, g_step))
+    bwd = {**shape, "max_abs_err": berr,
+           "max_err_over_allowed": b_excess,
+           "allowed": f"{BWD_ATOL} + {BWD_RTOL} * |plain| (the taken "
+                      f"action's entry: * |coeff|)",
+           **timings(bwd_kernel, bwd_plain, None),
+           **bound(4 * nbta + nbta + 8 * nbt + nbt + 4 * (B + nbt)
+                   + 4 * nbta, 9 * nbta)}
+    emit("kernel", name="traj_logprob_bwd", **bwd)
+    if not (err <= TOL and berr <= TOL and b_excess <= 1 and bitwise):
+        raise AssertionError(f"traj_logprob disagrees with its plain "
+                             f"version at {(B, T, A)}: forward {err}, "
+                             f"backward {berr} ({b_excess} of the "
+                             f"element-wise allowance), repeat bitwise "
+                             f"{bitwise}")
+    return fwd, bwd
 
 
 # -- phase 4: the serving path -------------------------------------------------
@@ -218,7 +449,6 @@ def serve_phase(device) -> dict:
     import numpy as np
 
     from repro_torch.core.rollout import forward_rollout
-    from repro_torch.kernels import ops
     from repro_torch.serve import SampleRequest, Scheduler
 
     smi = nvidia_smi()
@@ -241,13 +471,13 @@ def serve_phase(device) -> dict:
     engine = sched.engine_for(reqs[0])
     steps0, blocks0 = engine.steps_run, engine.blocks_run
 
-    ops.decode_step.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     rids = [sched.submit(r) for r in reqs]
     results = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_step": ops.decode_step.launches}
+    launches = read_launches()
 
     env, params, policy = engine.env.env, engine.inner_params, engine.policy
     n_samples = 0
@@ -336,6 +566,222 @@ def profile_serve(sched, device) -> None:
                    for (f, ln, fn), v in top])
 
 
+# -- phase 5: bitseq_tb training --------------------------------------------------
+
+def train_phase(device) -> dict:
+    """``bitseq_tb`` at full width for TRAIN_ITERS iterations through the
+    user's entry point, with every kernel's launches counted."""
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_recipe("bitseq_tb", iterations=TRAIN_ITERS, seed=0,
+                     device=device, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    hist = out["history"]
+    want = {k: n * TRAIN_ITERS for k, n in TRAIN_LAUNCHES_PER_ITER.items()}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, expected "
+                             f"{want}")
+    if len(hist) != TRAIN_ITERS or not all(
+            math.isfinite(r[k]) for r in hist
+            for k in ("loss", "log_z", "mean_log_reward")):
+        raise AssertionError(f"training rows not finite: {hist[-3:]}")
+
+    steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+    first, last = hist[0], hist[-1]
+    emit("train", nvidia_smi=smi, recipe="bitseq_tb",
+         env="bitseq n=120 k=8 (L=15, A=3840, A_b=15)",
+         policy="decode arch, 3 layers, dim 64, 8 heads, F 256",
+         num_envs=16, iterations=TRAIN_ITERS, wall_s=wall,
+         iterations_per_s=TRAIN_ITERS / wall,
+         steady_iterations_per_s=steady,
+         samples_per_s=16 * TRAIN_ITERS / wall,
+         steady_samples_per_s=16 * steady,
+         first={k: first[k] for k in ("it", "loss", "log_z",
+                                      "mean_log_reward")},
+         last={k: last[k] for k in ("it", "loss", "log_z",
+                                    "mean_log_reward")},
+         launches=launches,
+         launches_per_iteration={k: v / TRAIN_ITERS
+                                 for k, v in launches.items()})
+    return launches
+
+
+def _to_cpu(batch):
+    import dataclasses
+    return type(batch)(**{f.name: getattr(batch, f.name).cpu()
+                          for f in dataclasses.fields(batch)})
+
+
+def train_hold_phase(device):
+    """One bitseq_tb iteration on the card (kernels) and on the host's
+    CPU (plain versions) from the same parameters and noise.  Actions: the
+    card's rollout against the CPU's, except a row whose first difference
+    sits at a step where the top two scores lie within TIE_GAP (counted).
+    Loss and gradients: both devices teacher-force the card's batch, so a
+    tie cannot move them; loss to 1e-5 relative, each gradient to 1e-4 of
+    its own tensor's largest entry (no floor)."""
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.types import (hash_step_noise, masked_logprobs,
+                                        train_seed)
+
+    recipe = recipes.get_train("bitseq_tb")
+    cpu = torch.device("cpu")
+    env = recipe.make_env(seed=0)
+    cfg = recipe.make_config(env, 16)
+    pol_g = recipe.make_policy(env, seed=1, device=device,
+                               requires_grad=True)
+    pol_c = recipe.make_policy(env, seed=1, device=cpu, requires_grad=True)
+    pol_c.load_params({k: v.detach().cpu()
+                       for k, v in pol_g.params.flat().items()})
+    # the fused step's weight cache, filled before the optimizer runs
+    before = {k: v.clone() for k, v in
+              pol_g.kernel_weights()["stacked"].items()}
+    loop_g = TrainLoop(env, env.init(device), pol_g, cfg)
+    loop_c = TrainLoop(env, env.init(cpu), pol_c, cfg)
+    st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+    batch_g = loop_g.sample(st_g)
+    batch_c = loop_c.sample(st_c)
+    a_g, a_c = batch_g.actions.cpu(), batch_c.actions
+    T, B = a_c.shape
+    differ = (a_g != a_c)
+    ties, mismatched = 0, 0
+    if differ.any():
+        with torch.no_grad():
+            logits = pol_c.apply(batch_c.obs.reshape(
+                (T + 1) * B, -1))["logits"].reshape(T + 1, B, -1)
+        for b in range(B):
+            rows = differ[:, b].nonzero()
+            if not len(rows):
+                continue
+            t = int(rows[0])
+            noise = hash_step_noise(
+                torch.tensor([train_seed(5, 0)]), torch.tensor([b]),
+                torch.tensor([t]), env.action_dim)
+            mask = batch_c.fwd_mask[t, b] | batch_c.done[t, b]
+            if float(noise.explore_u[0]) < cfg.exploration_eps:
+                score = torch.where(mask, 0.0, float("-inf")) \
+                    + noise.gumbel_u[0]
+            else:
+                score = masked_logprobs(logits[t, b], mask) + noise.gumbel[0]
+            top2 = torch.topk(score, 2).values
+            if float(top2[0] - top2[1]) < TIE_GAP:
+                ties += 1
+            else:
+                mismatched += 1
+    loss_g = float(loop_g.loss_and_grads(batch_g))
+    loss_c = float(loop_c.loss_and_grads(_to_cpu(batch_g)))
+    grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
+    grad_err = {}
+    for k, p in pol_g.params.flat().items():
+        scale = float(grads_c[k].abs().max())
+        diff = float((p.grad.cpu() - grads_c[k]).abs().max())
+        grad_err[k] = diff / scale if scale else (0.0 if diff == 0
+                                                  else math.inf)
+    worst = max(grad_err, key=grad_err.get)
+    rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
+    emit("train_hold", steps=T, envs=B, actions_equal=int((~differ).sum()),
+         rows_differing=int(differ.any(0).sum()), near_tie_rows=ties,
+         mismatched_rows=mismatched, loss_cuda=loss_g, loss_cpu=loss_c,
+         loss_rel_err=rel, grad_max_err_over_scale=grad_err[worst],
+         grad_worst_param=worst)
+    if mismatched or not rel <= 1e-5 or not grad_err[worst] <= 1e-4:
+        raise AssertionError(
+            f"train_hold: {mismatched} rows differ off a tie, loss rel "
+            f"error {rel}, gradient error {grad_err[worst]} ({worst})")
+    return loop_g, st_g, before
+
+
+def train_profile(loop, state) -> None:
+    """Where one training iteration's time goes: timed plain, then under
+    ``torch.profiler`` (device time by kernel; the device's idle share of
+    the plain iteration's wall time), then under ``cProfile`` (host
+    functions by own time; read shares, not times)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        loop.step(state)
+        torch.cuda.synchronize()
+
+    one()                                   # warm: allocator, cuBLAS
+    t0 = time.perf_counter()
+    one()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    host = cProfile.Profile()
+    host.runcall(one)
+    stats = pstats.Stats(host).stats
+    total = sum(v[2] for v in stats.values())
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    emit("train_profile", iterations=1, wall_us=wall_us,
+         device_busy_us=busy, device_idle_share=1 - busy / wall_us,
+         device_kernels=sum(r[2] for r in rows),
+         device_top=[{"name": k[:70], "device_us": t, "calls": c}
+                     for k, t, c in rows[:10]],
+         host_top=[{"function": f"{Path(f).name}:{ln}:{fn}",
+                    "own_share": v[2] / total, "calls": v[1]}
+                   for (f, ln, fn), v in top])
+
+
+def trained_fused_step(loop, state, before: dict, device) -> None:
+    """After the optimizer steps of train_hold and train_profile (torch's
+    Adam on the card), the fused step's weight cache, filled before them,
+    must hold the live weights, and the fused step (the serving kernel)
+    must equal the plain ``apply_cached`` + ``sample_masked`` chain on the
+    same noise, one step from the initial state."""
+    from repro_torch import recipes
+    from repro_torch.core.types import hash_gumbel, sample_masked
+    from repro_torch.nn.transformer import decoder_stacked_weights
+
+    policy, optimizer = loop.policy, state.optimizer
+    live = decoder_stacked_weights(policy.params["decoder"])
+    cached = policy.kernel_weights()["stacked"]
+    moved = all(not torch.equal(before[k], live[k]) for k in
+                ("q_w", "ff1_w", "ff2_w"))
+    fresh = all(torch.equal(cached[k], live[k]) for k in live)
+    env = recipes.get_train("bitseq_tb").make_env(seed=0)
+    params = env.init(device)
+    B = 16
+    _, state = env.reset(B, params)
+    prev = torch.zeros(B, dtype=torch.int64, device=device)
+    token, pos, length = env.observe_last(state, params, prev)
+    ids = torch.arange(B, dtype=torch.int64, device=device)
+    gumbel = hash_gumbel(torch.full_like(ids, 99), ids, torch.zeros_like(ids),
+                         env.action_dim)
+    mask = env.forward_mask(state, params)
+    with torch.no_grad():
+        out_p, _ = policy.apply_cached(policy.cache_init(B), token, pos,
+                                       length, step=0)
+        a_p, lp_p = sample_masked(out_p["logits"], mask, gumbel)
+        a_f, lp_f, _, _ = policy.sample_cached(policy.cache_init(B), token,
+                                               pos, length, gumbel, mask,
+                                               step=0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a_f.long(), a_p))
+    err = float((lp_f - lp_p).abs().max())
+    emit("trained_fused_step", optimizer=type(optimizer).__name__,
+         foreach=optimizer.defaults.get("foreach"),
+         fused=optimizer.defaults.get("fused"), weights_moved=moved,
+         cache_equals_live_weights=fresh,
+         actions_equal=same, log_pf_err=err)
+    if not (moved and fresh and same and err <= TOL):
+        raise AssertionError(
+            f"trained fused step: weights moved {moved}, cache equals live "
+            f"weights {fresh}, actions equal {same}, log_pf error {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -360,7 +806,15 @@ def main() -> int:
     t0 = time.perf_counter()
     path, log = build.build()
     build.library()
-    emit("build", seconds=time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                        str(Path(tmp) / "single.so"),
+                        *map(str, build.SOURCES)],
+                       check=True, capture_output=True, timeout=600)
+        single_s = time.perf_counter() - t0
+    emit("build", seconds=seconds, single_nvcc_call_seconds=single_s,
          library=str(Path(path).relative_to(ROOT)),
          ptxas=[ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "smem" in ln])
@@ -371,20 +825,51 @@ def main() -> int:
     rows.append(check_decode_step(5, 2, 9, 48, 6, 80, 203, seed=99,
                                   device=device))
     main_row = next(r for r in rows if r["B"] == SERVE_LANES)
+    attn = [check_decode_attention(16, 16, 8, 8, list(range(1, 17)), seed=0,
+                                   device=device),
+            check_decode_attention(5, 37, 3, 8, [0, 1, 36, 37, 0], seed=1,
+                                   device=device),
+            check_decode_attention(16, 100, 8, 8,
+                                   [(7 * i) % 101 for i in range(16)],
+                                   seed=2, device=device)]
+    traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device),
+            check_traj_logprob(16, 15, 15, seed=1, device=device),
+            check_traj_logprob(3, 50, 203, seed=2, device=device)]
 
-    launches = serve_phase(device)
+    serve = serve_phase(device)
+    train = train_phase(device)
+    loop, state, before = train_hold_phase(device)
+    train_profile(loop, state)
+    trained_fused_step(loop, state, before, device)
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_step", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_step.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:239",
-        "launches": launches["decode_step"],
-        "max_abs_err": max(max(r["max_abs_err"].values()) for r in rows),
-        "ms": main_row["kernel_us"] / 1e3,
-        "plain_ms": main_row["plain_us"] / 1e3,
-        "bound_ms": main_row["bound_us"] / 1e3,
-        "bound_by": main_row["bound_by"], "library_ms": None}]}),
-        flush=True)
+    def entry(name, source, replaces, launches, rows, main):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] if not isinstance(
+                    r["max_abs_err"], dict) else max(r["max_abs_err"].values())
+                    for r in rows),
+                "ms": main["kernel_us"] / 1e3,
+                "plain_ms": main["plain_us"] / 1e3,
+                "bound_ms": main["bound_us"] / 1e3,
+                "bound_by": main["bound_by"],
+                "library_ms": None if main.get("library_us") is None
+                else main["library_us"] / 1e3}
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    print(json.dumps({"kernels": [
+        entry("decode_step", csrc + "decode_step.cu",
+              "src/repro/kernels/decode_attention.py:239",
+              serve["decode_step"], rows, main_row),
+        entry("decode_attention", csrc + "decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:98",
+              train["decode_attention"], attn, attn[0]),
+        entry("traj_logprob_fwd", csrc + "traj_logprob.cu",
+              "src/repro/kernels/traj_logprob.py:61",
+              train["traj_logprob_fwd"], [f for f, _ in traj], traj[0][0]),
+        entry("traj_logprob_bwd", csrc + "traj_logprob.cu",
+              "src/repro/kernels/ops.py:130",
+              train["traj_logprob_bwd"], [b for _, b in traj], traj[0][1]),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

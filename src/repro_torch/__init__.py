@@ -1,8 +1,9 @@
 """PyTorch port of ``repro`` for NVIDIA Hopper GPUs.
 
 The package mirrors ``repro``'s layout (``core/``, ``nn/``, ``envs/``,
-``rewards/``, ``kernels/``, ``serve/``, ``launch/``, ``recipes/``) so each
-module's counterpart sits at the same path.  It imports torch and numpy
+``rewards/``, ``kernels/``, ``algo/``, ``serve/``, ``launch/``,
+``recipes/``, ``run.py``) so each module's counterpart sits at the same
+path.  It imports torch and numpy
 only.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` they raise
 (:func:`repro_torch.device.resolve_device`).
@@ -10,5 +11,9 @@ only.  Entry points run on ``cuda`` unless the caller passes
 Ported so far: the bitseq serving path — env, reward, decode-arch
 transformer policy, cached forward rollout, continuously batched sampling
 engine and scheduler — with the fused decode step as a hand-written CUDA
-kernel (``kernels/csrc/decode_step.cu``).
+kernel (``kernels/csrc/decode_step.cu``); and ``bitseq_tb`` training —
+exploring rollout, TB objective, Adam, ``algo.TrainLoop`` and the
+``repro_torch.run`` CLI — with the cached attention and the trajectory
+log-probabilities (forward and gradient) as hand-written CUDA kernels
+(``kernels/csrc/decode_attention.cu``, ``kernels/csrc/traj_logprob.cu``).
 """

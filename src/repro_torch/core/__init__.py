@@ -1,1 +1,2 @@
-"""Core GFlowNet pieces of the port: sampling primitives, policies, rollouts."""
+"""Core GFlowNet pieces of the port: sampling primitives, policies,
+rollouts, objectives and the trainer's config, optimizer and loss."""

@@ -31,11 +31,14 @@ class TransformerPolicy(nn.Module):
     Weights are drawn from ``torch.Generator`` seeded with ``seed`` on the
     CPU and moved to ``device``; :meth:`load_params` replaces them with
     parameters carried across from JAX (:mod:`repro_torch.convert`).
+    ``requires_grad=True`` makes them trainable (the training recipes);
+    a served policy's are not.
     """
 
     def __init__(self, vocab_size: int, max_len: int, action_dim: int, *,
                  num_layers: int = 3, dim: int = 64, num_heads: int = 8,
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, device: DeviceLike = None,
+                 requires_grad: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.vocab_size, self.max_len = vocab_size, max_len
@@ -51,8 +54,10 @@ class TransformerPolicy(nn.Module):
                                            num_heads=num_heads, **kw),
             "readout": dense_init(dim, action_dim + 1, **kw),
             "log_z": torch.zeros((), device=dev),
-        })
+        }, requires_grad=requires_grad)
         self._kernel_weights: Optional[Dict[str, torch.Tensor]] = None
+        self._kernel_weights_key: Optional[tuple] = None
+        self._param_seq = tuple(self.params.parameters())
 
     # -- parameters ------------------------------------------------------------
     def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
@@ -69,22 +74,32 @@ class TransformerPolicy(nn.Module):
                     raise ValueError(f"{name}: shape {tuple(src.shape)}, "
                                      f"expected {tuple(p.shape)}")
                 p.copy_(src)
-        self._kernel_weights = None
 
     def _apply(self, fn, *args, **kwargs):
-        self._kernel_weights = None          # .to(device) moves the params
-        return super()._apply(fn, *args, **kwargs)
+        out = super()._apply(fn, *args, **kwargs)
+        # .to(device) moves (or may replace) the parameters
+        self._param_seq = tuple(self.params.parameters())
+        self._kernel_weights = None
+        return out
 
     def kernel_weights(self) -> Dict[str, torch.Tensor]:
-        """The fused step's operands, made once per parameter load: the
-        stacked decoder weights and the contiguous forward-logit slice
-        ``w_out = readout.w[:, :A]``, ``b_out = readout.b[:A]``."""
-        if self._kernel_weights is None:
+        """The fused step's operands: the stacked decoder weights and the
+        contiguous forward-logit slice ``w_out = readout.w[:, :A]``,
+        ``b_out = readout.b[:A]``.  They are copies, so they are kept only
+        while no parameter's in-place version counter has moved (an
+        optimizer step, ``load_params`` or any other in-place write bumps
+        it) and the module has not been moved with ``.to()``: the fused
+        step never runs weights that differ from ``self.params``."""
+        key = tuple(p._version for p in self._param_seq)
+        if self._kernel_weights is None or key != self._kernel_weights_key:
             r = self.params["readout"]
-            self._kernel_weights = {
-                "stacked": decoder_stacked_weights(self.params["decoder"]),
-                "w_out": r["w"][:, :self.action_dim].detach().contiguous(),
-                "b_out": r["b"][:self.action_dim].detach().contiguous()}
+            with torch.no_grad():
+                self._kernel_weights = {
+                    "stacked": decoder_stacked_weights(
+                        self.params["decoder"]),
+                    "w_out": r["w"][:, :self.action_dim].contiguous(),
+                    "b_out": r["b"][:self.action_dim].contiguous()}
+            self._kernel_weights_key = key
         return self._kernel_weights
 
     # -- heads -----------------------------------------------------------------

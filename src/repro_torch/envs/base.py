@@ -41,6 +41,8 @@ class Environment(abc.ABC):
 
     #: number of forward actions
     action_dim: int
+    #: number of backward actions
+    backward_action_dim: int
     #: maximum trajectory length
     max_steps: int
     #: True when each forward step adds at most one observation token,
@@ -73,6 +75,20 @@ class Environment(abc.ABC):
     @abc.abstractmethod
     def forward_mask(self, state: EnvState, params: EnvParams) -> torch.Tensor:
         ...
+
+    def backward_mask(self, state: EnvState,
+                      params: EnvParams) -> torch.Tensor:
+        """(B, backward_action_dim) bool: legal backward actions."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement backward_mask")
+
+    def get_backward_action(self, state: EnvState, action: torch.Tensor,
+                            next_state: EnvState,
+                            params: EnvParams) -> torch.Tensor:
+        """The backward action that undoes forward ``action`` from
+        ``state`` to ``next_state``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement get_backward_action")
 
     def observe_last(self, state: EnvState, params: EnvParams,
                      last_action: torch.Tensor):

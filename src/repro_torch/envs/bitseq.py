@@ -50,6 +50,7 @@ class BitSeqEnvironment(Environment):
             word_bits=k, length=self.L, beta=beta, num_modes=num_modes,
             seed=seed)
         self.action_dim = self.L * self.m
+        self.backward_action_dim = self.L      # empty one position
         self.max_steps = self.L
         self.vocab_size = self.m + 1   # + the empty token
 
@@ -91,6 +92,15 @@ class BitSeqEnvironment(Environment):
                      params: BitSeqParams) -> torch.Tensor:
         empty = state.tokens == self.empty                   # (B, L)
         return empty.repeat_interleave(self.m, dim=-1)       # (B, L*m)
+
+    def backward_mask(self, state: BitSeqState,
+                      params: BitSeqParams) -> torch.Tensor:
+        return state.tokens != self.empty                    # (B, L)
+
+    def get_backward_action(self, state: BitSeqState, action: torch.Tensor,
+                            next_state: BitSeqState,
+                            params: BitSeqParams) -> torch.Tensor:
+        return action // self.m
 
     def observe_last(self, state: BitSeqState, params: BitSeqParams,
                      last_action: torch.Tensor):

@@ -29,6 +29,7 @@ class RewardExponent(Environment):
     def __init__(self, env: Environment):
         self.env = env
         self.action_dim = env.action_dim
+        self.backward_action_dim = env.backward_action_dim
         self.max_steps = env.max_steps
         self.supports_incremental_obs = env.supports_incremental_obs
 
@@ -49,6 +50,13 @@ class RewardExponent(Environment):
 
     def forward_mask(self, state, params):
         return self.env.forward_mask(state, params.inner)
+
+    def backward_mask(self, state, params):
+        return self.env.backward_mask(state, params.inner)
+
+    def get_backward_action(self, state, action, next_state, params):
+        return self.env.get_backward_action(state, action, next_state,
+                                            params.inner)
 
     def observe_last(self, state, params, last_action):
         return self.env.observe_last(state, params.inner, last_action)

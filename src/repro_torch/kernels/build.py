@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface, so one ``nvcc
--shared`` call compiles them into a shared library that ``ctypes`` loads:
-no PyTorch headers, a build of seconds.  The build runs at first use, from
+The sources under ``csrc/`` have a plain C interface, so ``nvcc``
+compiles each (in parallel) and one ``nvcc -shared`` call links them into a
+shared library that ``ctypes`` loads: no PyTorch headers, a build of
+seconds.  The build runs at first use, from
 the sources in this package only, into ``kernels/_build/`` (listed in
 ``.gitignore``), under a name that hashes the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused.  Importing this
@@ -21,9 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = (CSRC / "decode_step.cu",)
+SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
+           CSRC / "traj_logprob.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
 
 #: pointer fields of ``DecodeStepArgs`` in decode_step.cu, in order
 DECODE_STEP_PTRS = (
@@ -44,6 +47,31 @@ class DecodeStepArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in DECODE_STEP_INTS])
 
 
+class DecodeAttentionArgs(ctypes.Structure):
+    """Mirror of ``DecodeAttentionArgs`` in decode_attention.cu."""
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("q", "k", "v", "kv_valid", "out")]
+                + [(n, ctypes.c_int) for n in ("batch", "slots", "num_heads",
+                                               "head_dim", "device")])
+
+
+#: pointer fields of ``TrajLogprobArgs`` in traj_logprob.cu, in order
+TRAJ_LOGPROB_PTRS = ("logits", "mask", "actions", "valid", "g_total",
+                     "g_step", "total", "per_step", "dlogits")
+#: stride fields (elements) of ``TrajLogprobArgs``, in order
+TRAJ_LOGPROB_STRIDES = ("logits_sb", "logits_st", "mask_sb", "mask_st",
+                        "actions_sb", "actions_st", "valid_sb", "valid_st",
+                        "g_step_sb", "g_step_st")
+
+
+class TrajLogprobArgs(ctypes.Structure):
+    """Mirror of ``TrajLogprobArgs`` in traj_logprob.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in TRAJ_LOGPROB_PTRS]
+                + [(n, ctypes.c_longlong) for n in TRAJ_LOGPROB_STRIDES]
+                + [(n, ctypes.c_int) for n in ("batch", "steps",
+                                               "num_actions", "device")])
+
+
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
@@ -57,31 +85,41 @@ def find_nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build() -> tuple:
-    """Compile the kernels if needed.  Returns ``(library path, compiler
-    log)``; the log holds ptxas's register and shared-memory report when
-    this call compiled, and is empty when it reused a built library."""
+    """Compile the kernels if needed: one ``nvcc -c`` per source, all
+    started together, then one ``nvcc -shared`` link.  Returns ``(library
+    path, compiler log)``; the log holds ptxas's register and shared-memory
+    report when this call compiled, and is empty when it reused a built
+    library."""
     digest = hashlib.sha256()
     for src in SOURCES:
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return str(lib), ""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-            capture_output=True, text=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [(src.name, p.returncode)
+                  for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        tmp = Path(tmpdir) / lib.name
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return str(lib), proc.stdout + proc.stderr
+    return str(lib), log + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,4 +132,10 @@ def library() -> ctypes.CDLL:
     lib.repro_decode_step.restype = ctypes.c_int
     lib.repro_decode_step_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.repro_decode_step_smem_bytes.restype = ctypes.c_size_t
+    lib.repro_decode_attention.argtypes = [
+        ctypes.POINTER(DecodeAttentionArgs), ctypes.c_void_p]
+    lib.repro_decode_attention.restype = ctypes.c_int
+    for fn in (lib.repro_traj_logprob_fwd, lib.repro_traj_logprob_bwd):
+        fn.argtypes = [ctypes.POINTER(TrajLogprobArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

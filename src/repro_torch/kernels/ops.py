@@ -13,7 +13,8 @@ from typing import Dict, Mapping, Optional, Union
 
 import torch
 
-from .ref import ref_decode_step
+from .ref import (ref_decode_attention, ref_decode_step, ref_traj_logprob,
+                  ref_traj_logprob_backward)
 
 #: keys of the stacked decoder weights the fused step takes
 DECODE_STEP_WEIGHTS = (
@@ -22,17 +23,27 @@ DECODE_STEP_WEIGHTS = (
     "ln_f_scale", "ln_f_bias", "q0")
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
-           device: torch.device) -> None:
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _require(name: str, op: str, t: torch.Tensor, dtype: torch.dtype,
+             device: torch.device, ndim: int) -> None:
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"decode_step: {name} must be a tensor, got "
+        raise TypeError(f"{op}: {name} must be a tensor, got "
                         f"{type(t).__name__}")
     if t.device != device:
-        raise ValueError(f"decode_step: {name} is on {t.device}, "
-                         f"expected {device}")
+        raise ValueError(f"{op}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"decode_step: {name} has dtype {t.dtype}, "
-                        f"expected {dtype}")
+        raise TypeError(f"{op}: {name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{op}: {name} has {t.dim()} dims, expected {ndim}")
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
+           device: torch.device) -> None:
+    """decode_step's operand check: exact shape, contiguous."""
+    _require(name, "decode_step", t, dtype, device, len(shape))
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"decode_step: {name} has shape "
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
@@ -117,8 +128,7 @@ def decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
         **{k: (None if ptrs[k] is None else ptrs[k].data_ptr())
            for k in build.DECODE_STEP_PTRS},
         num_layers=L, batch=B, capacity=C, dim=D, num_heads=H, ff_dim=F,
-        num_actions=A, device=dev.index if dev.index is not None
-        else torch.cuda.current_device())
+        num_actions=A, device=_device_index(dev))
     err = build.library().repro_decode_step(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -129,3 +139,193 @@ def decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
 
 
 decode_step.launches = 0
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_valid: torch.Tensor) -> torch.Tensor:
+    """Single-query decode attention against a KV cache (port of
+    ``repro.kernels.ops.decode_attention``).
+
+    q: (B, H, hd) float32; k/v: (B, S, H, hd) float32, contiguous (a layer
+    of the stacked cache, ``cache["k"][i]``); kv_valid: (B,) int32 live
+    leading slots.  Returns (B, H, hd); rows with ``kv_valid <= 0`` are
+    exact zeros.  Forward only: with grad mode on, an operand that requires
+    grad raises (the JAX package's ``decode_attention_grad`` waits for
+    backward replay)."""
+    op = "decode_attention"
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(f"{op} has no gradient: call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
+    dev = q.device
+    f32 = torch.float32
+    _require("q", op, q, f32, dev, 3)
+    _require("k", op, k, f32, dev, 4)
+    _require("v", op, v, f32, dev, 4)
+    _require("kv_valid", op, kv_valid, torch.int32, dev, 1)
+    B, H, hd = q.shape
+    S = k.shape[1]
+    if tuple(k.shape) != (B, S, H, hd) or tuple(v.shape) != (B, S, H, hd) \
+            or tuple(kv_valid.shape) != (B,):
+        raise ValueError(f"{op}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_valid "
+                         f"{tuple(kv_valid.shape)} do not agree")
+    if dev.type == "cpu":
+        return ref_decode_attention(q, k, v, kv_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    if hd > 64:
+        raise ValueError(f"{op}: the kernel takes head dims up to 64, "
+                         f"got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("kv_valid", kv_valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+    from . import build
+    out = torch.empty_like(q)
+    args = build.DecodeAttentionArgs(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+        kv_valid=kv_valid.data_ptr(), out=out.data_ptr(), batch=B, slots=S,
+        num_heads=H, head_dim=hd, device=_device_index(dev))
+    err = build.library().repro_decode_attention(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def _traj_operands(op: str, logits, actions, mask, valid) -> None:
+    """Check the (B, T, A) / (B, T) operands.  Any (B, T) strides are
+    taken; along A the stride must be 1 (checked before a launch)."""
+    dev = logits.device
+    _require("logits", op, logits, torch.float32, dev, 3)
+    _require("actions", op, actions, torch.int64, dev, 2)
+    _require("mask", op, mask, torch.bool, dev, 3)
+    _require("valid", op, valid, torch.bool, dev, 2)
+    B, T, A = logits.shape
+    if tuple(mask.shape) != (B, T, A) or tuple(actions.shape) != (B, T) \
+            or tuple(valid.shape) != (B, T):
+        raise ValueError(f"{op}: shapes logits {tuple(logits.shape)}, "
+                         f"actions {tuple(actions.shape)}, mask "
+                         f"{tuple(mask.shape)}, valid {tuple(valid.shape)} "
+                         "do not agree")
+
+
+def _traj_args(logits, actions, mask, valid, **ptrs):
+    from . import build
+    B, T, A = logits.shape
+    for name, t in (("logits", logits), ("mask", mask)):
+        if A > 1 and t.stride(2) != 1:
+            raise ValueError(f"traj_logprob: {name} needs unit stride along "
+                             "the action axis")
+    g_step = ptrs.get("g_step")
+    return build.TrajLogprobArgs(
+        logits=logits.data_ptr(), mask=mask.data_ptr(),
+        actions=actions.data_ptr(), valid=valid.data_ptr(),
+        **{k: (None if v is None else v.data_ptr())
+           for k, v in ptrs.items()},
+        logits_sb=logits.stride(0), logits_st=logits.stride(1),
+        mask_sb=mask.stride(0), mask_st=mask.stride(1),
+        actions_sb=actions.stride(0), actions_st=actions.stride(1),
+        valid_sb=valid.stride(0), valid_st=valid.stride(1),
+        g_step_sb=0 if g_step is None else g_step.stride(0),
+        g_step_st=0 if g_step is None else g_step.stride(1),
+        batch=B, steps=T, num_actions=A,
+        device=_device_index(logits.device))
+
+
+def _traj_forward(logits, actions, mask, valid):
+    dev = logits.device
+    if dev.type == "cpu":
+        return ref_traj_logprob(logits, actions, mask, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"traj_logprob: no kernel for device {dev}")
+    from . import build
+    B, T, _ = logits.shape
+    total = torch.empty(B, dtype=torch.float32, device=dev)
+    per_step = torch.empty(B, T, dtype=torch.float32, device=dev)
+    args = _traj_args(logits, actions, mask, valid, total=total,
+                      per_step=per_step)
+    err = build.library().repro_traj_logprob_fwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"traj_logprob kernel launch failed: CUDA error "
+                           f"{err}")
+    traj_logprob.launches += 1
+    return total, per_step
+
+
+def traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
+                          mask: torch.Tensor, valid: torch.Tensor,
+                          g_total: torch.Tensor,
+                          g_step: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`traj_logprob` with respect to ``logits``:
+    ``(g_total[b] + g_step[b, t]) * valid * (onehot(action) - softmax)``
+    over the masked logits, (B, T, A) float32.  The backward kernel on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    op = "traj_logprob_backward"
+    _traj_operands(op, logits, actions, mask, valid)
+    dev = logits.device
+    B, T, A = logits.shape
+    _require("g_total", op, g_total, torch.float32, dev, 1)
+    _require("g_step", op, g_step, torch.float32, dev, 2)
+    if tuple(g_total.shape) != (B,) or tuple(g_step.shape) != (B, T):
+        raise ValueError(f"{op}: cotangents of shapes "
+                         f"{tuple(g_total.shape)}, {tuple(g_step.shape)}")
+    if dev.type == "cpu":
+        return ref_traj_logprob_backward(logits, actions, mask, valid,
+                                         g_total, g_step)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    from . import build
+    g_total = g_total.contiguous()
+    dlogits = torch.empty(B, T, A, dtype=torch.float32, device=dev)
+    args = _traj_args(logits, actions, mask, valid, g_total=g_total,
+                      g_step=g_step, dlogits=dlogits)
+    err = build.library().repro_traj_logprob_bwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    traj_logprob_backward.launches += 1
+    return dlogits
+
+
+traj_logprob_backward.launches = 0
+
+
+class _TrajLogprob(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, actions, mask, valid):
+        ctx.save_for_backward(logits, actions, mask, valid)
+        return _traj_forward(logits, actions, mask, valid)
+
+    @staticmethod
+    def backward(ctx, g_total, g_step):
+        logits, actions, mask, valid = ctx.saved_tensors
+        return (traj_logprob_backward(logits, actions, mask, valid, g_total,
+                                      g_step), None, None, None)
+
+
+def traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
+                 mask: torch.Tensor, valid: torch.Tensor):
+    """Trajectory log-probabilities with a closed-form gradient (port of
+    ``repro.kernels.ops.traj_logprob``).
+
+    logits: (B, T, A) float32; actions: (B, T) int64; mask: (B, T, A) bool;
+    valid: (B, T) bool.  Any (B, T) strides are taken (the training path
+    passes transposed time-major views), but the action axis must have
+    unit stride.  Returns ``(total (B,), per_step (B, T))``: mask +
+    log-softmax + action gather, zero where ``valid`` is False, summed over
+    t in order.  Gradients flow to ``logits`` only, through
+    :func:`traj_logprob_backward`; when ``logits`` needs no grad the
+    backward never runs."""
+    _traj_operands("traj_logprob", logits, actions, mask, valid)
+    return _TrajLogprob.apply(logits, actions, mask, valid)
+
+
+traj_logprob.launches = 0

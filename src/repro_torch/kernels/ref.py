@@ -86,3 +86,63 @@ def ref_decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
     log_pf = torch.gather(logp, 1, action[:, None])[:, 0]
     return (action.to(torch.int32), log_pf, y.to(x_new.dtype), new_k,
             new_v)
+
+
+def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_valid: torch.Tensor) -> torch.Tensor:
+    """Single-query attention against a KV cache (port of
+    ``repro.kernels.ref.ref_decode_attention``).
+
+    q: (B, H, D); k/v: (B, S, H, D); kv_valid: (B,) number of valid leading
+    slots (slot s is attended iff ``s < kv_valid[b]``).  Returns (B, H, D);
+    rows with ``kv_valid == 0`` are exact zeros (an empty attention sum,
+    not a uniform average)."""
+    S, D = k.shape[1], k.shape[3]
+    f32 = torch.float32
+    logits = torch.einsum("bhd,bshd->bhs", q.to(f32),
+                          k.to(f32)) / math.sqrt(D)
+    live = (torch.arange(S, device=q.device)[None, :]
+            < kv_valid.to(q.device)[:, None])[:, None, :]    # (B, 1, S)
+    logits = torch.where(live, logits, torch.tensor(-1e30, dtype=f32,
+                                                    device=q.device))
+    a = torch.where(live, torch.softmax(logits, dim=-1), 0.0)
+    return torch.einsum("bhs,bshd->bhd", a, v.to(f32)).to(q.dtype)
+
+
+def _masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    neg = torch.tensor(torch.finfo(torch.float32).min, dtype=torch.float32,
+                       device=logits.device)
+    return torch.where(mask != 0, logits.to(torch.float32), neg)
+
+
+def ref_traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
+                     mask: torch.Tensor, valid: torch.Tensor):
+    """Per-trajectory log-probability accumulation (port of
+    ``repro.kernels.ref.ref_traj_logprob``).
+
+    logits: (B, T, A); actions: (B, T) int; mask: (B, T, A) nonzero =
+    legal; valid: (B, T) nonzero = live transition.  Returns
+    ``(total (B,), per_step (B, T))`` with ``per_step[b, t] = valid *
+    log_softmax(masked logits)[action]`` (masked logits at float32 min) and
+    ``total = per_step.sum(-1)``."""
+    ml = _masked_logits(logits, mask)
+    logp = ml - torch.logsumexp(ml, dim=-1, keepdim=True)
+    lpa = torch.gather(logp, -1, actions.long()[..., None])[..., 0]
+    per_step = torch.where(valid != 0, lpa, 0.0)
+    return per_step.sum(-1), per_step
+
+
+def ref_traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
+                              mask: torch.Tensor, valid: torch.Tensor,
+                              g_total: torch.Tensor,
+                              g_step: torch.Tensor) -> torch.Tensor:
+    """The closed-form VJP of :func:`ref_traj_logprob` with respect to
+    ``logits`` (port of ``repro.kernels.ops.traj_logprob``'s backward):
+    ``(g_total[b] + g_step[b, t]) * valid * (onehot(action) - softmax)``,
+    softmax over the masked logits.  Returns (B, T, A) float32."""
+    p = torch.softmax(_masked_logits(logits, mask), dim=-1)
+    onehot = torch.nn.functional.one_hot(actions.long(),
+                                         logits.shape[-1]).to(torch.float32)
+    coeff = (g_total.to(torch.float32)[:, None] + g_step.to(torch.float32)) \
+        * (valid != 0)
+    return coeff[..., None] * (onehot - p)

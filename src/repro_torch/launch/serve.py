@@ -10,7 +10,6 @@ without a GPU otherwise.  The policy is freshly initialised from seed 0
 from __future__ import annotations
 
 import argparse
-import ast
 import json
 import sys
 import time
@@ -47,14 +46,7 @@ def main(argv=None) -> int:
 
     overrides = dict(recipes.get(args.env).smoke_overrides) \
         if args.smoke else {}
-    for pair in args.overrides or []:
-        if "=" not in pair:
-            ap.error(f"expected key=value, got {pair!r}")
-        k, v = pair.split("=", 1)
-        try:
-            overrides[k] = ast.literal_eval(v)
-        except (ValueError, SyntaxError):
-            overrides[k] = v
+    overrides.update(recipes.parse_overrides(args.overrides, ap.error))
 
     sched = Scheduler(num_lanes=args.lanes, device=args.device)
     req = SampleRequest(env=args.env, num_samples=args.num_samples,

@@ -79,19 +79,21 @@ class ParamTree(nn.Module):
 
     Subtrees become submodules and tensors become parameters under the same
     keys, so ``tree["layer_0"]["q"]["w"]`` reads like the dict it was built
-    from and the functional layers above accept either.  Parameters do not
-    require grad: the ported path only samples.
+    from and the functional layers above accept either.  Parameters require
+    grad only when ``requires_grad`` is True (a policy being trained); a
+    served policy's do not.
     """
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], requires_grad: bool = False):
         super().__init__()
         self._keys = list(tree)
         for k, v in tree.items():
             if isinstance(v, Mapping):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, requires_grad))
             else:
                 self.register_parameter(
-                    k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
+                    k, nn.Parameter(torch.as_tensor(v),
+                                    requires_grad=requires_grad))
 
     def __getitem__(self, key: str):
         if key not in self._keys:

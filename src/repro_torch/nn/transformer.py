@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Union
 
 import torch
 
+from ..kernels.ops import decode_attention
 from .core import (Params, dense_apply, dense_init, gelu, layernorm_apply,
                    layernorm_init, normal_init)
 
@@ -132,16 +133,27 @@ def _decode_query(p: Params, num_heads: int,
 def encoder_query_cached(p: Params, cache: Cache, lengths: torch.Tensor, *,
                          num_heads: int) -> torch.Tensor:
     """Latent-query pass over the cache, slots ``0..lengths[b]`` attended.
-    Returns (B, D).  (The plain path: the fused kernel lives one level up,
-    in ``kernels.ops.decode_step``.)"""
+    Returns (B, D).
+
+    On a CUDA cache each layer's attention is the decode-attention kernel
+    (``kernels.ops.decode_attention`` with ``kv_valid = lengths + 1``, the
+    BOS slot included) over the contiguous layer views ``cache["k"][i]``;
+    like the kernel, this path is forward only.  On the CPU it is the plain
+    masked softmax.  (The fully fused step is ``kernels.ops.decode_step``,
+    one level up.)"""
     k_all = cache["k"]
     B, C = k_all.shape[1], k_all.shape[2]
     dim = k_all.shape[3] * k_all.shape[4]
-    valid = (torch.arange(C, device=lengths.device)[None, :]
-             <= lengths[:, None])
+    if k_all.device.type == "cuda":
+        kv_valid = lengths.to(torch.int32) + 1
+        attend = lambda q, k, v: decode_attention(q, k, v, kv_valid)
+    else:
+        valid = (torch.arange(C, device=lengths.device)[None, :]
+                 <= lengths[:, None])
+        attend = lambda q, k, v: _single_query_attention(q, k, v, valid)
     return _decode_query(
-        p, num_heads, lambda i: (cache["k"][i], cache["v"][i]),
-        lambda q, k, v: _single_query_attention(q, k, v, valid), B, dim)
+        p, num_heads, lambda i: (cache["k"][i], cache["v"][i]), attend, B,
+        dim)
 
 
 def encoder_apply_cached(p: Params, x_new: torch.Tensor, cache: Cache,

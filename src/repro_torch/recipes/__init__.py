@@ -1,9 +1,14 @@
-"""Servable recipes of the port: an env factory and a policy factory per
-environment name (port of the serving half of ``repro.recipes`` and the
-``repro.envs.registry`` entries the scheduler reads)."""
+"""Recipes of the port.
+
+Servable recipes: an env factory and a policy factory per environment name
+(port of the serving half of ``repro.recipes`` and the
+``repro.envs.registry`` entries the scheduler reads).  Training recipes:
+env, policy and config factories per recipe name (port of the training
+half of ``repro.recipes``), run by :mod:`repro_torch.run`."""
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+import ast
+from typing import Callable, Dict, Iterable, NamedTuple
 
 from . import seqs
 
@@ -21,8 +26,37 @@ _RECIPES = {
 }
 
 
+class TrainRecipe(NamedTuple):
+    name: str
+    description: str
+    make_env: Callable          # (**overrides) -> Environment
+    make_policy: Callable       # (env, *, seed, device, requires_grad)
+    make_config: Callable       # (env, num_envs) -> GFNConfig
+    iterations: int
+    num_envs: int
+
+
+_TRAIN_RECIPES = {
+    "bitseq_tb": TrainRecipe(
+        "bitseq_tb", "TB on 120-bit sequences (8-bit words), paper §B.2",
+        seqs.bitseq_env, seqs.bitseq_policy, seqs.bitseq_config,
+        iterations=50000, num_envs=16),
+}
+
+
 def names():
     return sorted(_RECIPES)
+
+
+def train_names():
+    return sorted(_TRAIN_RECIPES)
+
+
+def get_train(name: str) -> TrainRecipe:
+    if name not in _TRAIN_RECIPES:
+        raise KeyError(f"recipe {name!r} is not trainable by the port; "
+                       f"trainable: {train_names()}")
+    return _TRAIN_RECIPES[name]
 
 
 def get(name: str) -> Recipe:
@@ -30,3 +64,20 @@ def get(name: str) -> Recipe:
         raise KeyError(f"env {name!r} is not servable by the port; "
                        f"servable: {names()}")
     return _RECIPES[name]
+
+
+def parse_overrides(pairs: Iterable[str], error: Callable[[str], None]
+                    ) -> Dict:
+    """``KEY=VALUE`` strings (the CLIs' ``--set``) as a dict, each value
+    read as a Python literal where it is one, else kept as a string;
+    ``error`` is called on a pair without ``=``."""
+    out = {}
+    for pair in pairs or []:
+        if "=" not in pair:
+            error(f"expected key=value, got {pair!r}")
+        k, v = pair.split("=", 1)
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out

@@ -1,8 +1,10 @@
 """Sequence recipes of the port (port of the bitseq part of
-``repro.recipes.seqs``)."""
+``repro.recipes.seqs``): the env and policy factories shared by serving and
+training, and ``bitseq_tb``'s training config."""
 from __future__ import annotations
 
 from ..core.policies import TransformerPolicy
+from ..core.trainer import GFNConfig
 from ..device import DeviceLike
 from ..envs.bitseq import BitSeqEnvironment
 
@@ -15,9 +17,19 @@ def bitseq_env(n: int = 120, k: int = 8, beta: float = 3.0,
 
 
 def bitseq_policy(env: BitSeqEnvironment, *, seed: int = 0,
-                  device: DeviceLike = None) -> TransformerPolicy:
+                  device: DeviceLike = None,
+                  requires_grad: bool = False) -> TransformerPolicy:
     """The bitseq_tb policy: decode arch, 3 layers, dim 64, 8 heads, MLP
-    width 256, readout of A logits + 1 flow head."""
+    width 256, readout of A logits + 1 flow head (no learned backward head:
+    P_B is uniform)."""
     return TransformerPolicy(env.vocab_size, env.L, env.action_dim,
                              num_layers=3, dim=64, num_heads=8, seed=seed,
-                             device=device)
+                             device=device, requires_grad=requires_grad)
+
+
+def bitseq_config(env: BitSeqEnvironment, num_envs: int = 16) -> GFNConfig:
+    """``bitseq_tb``'s training config (``repro/recipes/seqs.py:44-46``
+    over ``GFNConfig``'s defaults): TB, lr 1e-3, log Z lr 0.1, exploration
+    epsilon 1e-3."""
+    return GFNConfig(objective="tb", num_envs=num_envs, lr=1e-3,
+                     exploration_eps=1e-3)

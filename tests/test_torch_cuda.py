@@ -1,6 +1,7 @@
-"""The port on a CUDA GPU: the hand-written decode-step kernel against its
-plain PyTorch version, and the serving engine on the card against
-``forward_rollout``.  Imports no JAX, so it runs on a machine with a GPU
+"""The port on a CUDA GPU: the hand-written kernels (decode step, decode
+attention, trajectory log-prob forward and backward) against their plain
+PyTorch versions, the serving engine on the card against
+``forward_rollout``, and two training iterations on the card.  Imports no JAX, so it runs on a machine with a GPU
 and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -8,6 +9,8 @@ and no JAX:
 Every test skips on a machine without a GPU (decided in the fixture).
 Tolerance 1e-4: fp32 on both sides, in different reduction orders.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,7 +18,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import recipes  # noqa: E402
 from repro_torch.core.rollout import forward_rollout  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import ref_decode_step  # noqa: E402
+from repro_torch.kernels.ref import (ref_decode_attention,  # noqa: E402
+                                     ref_decode_step, ref_traj_logprob,
+                                     ref_traj_logprob_backward)
 from repro_torch.serve import SamplingEngine  # noqa: E402
 
 torch.set_num_threads(2)
@@ -97,3 +102,138 @@ def test_engine_on_cuda_matches_forward_rollout(cuda):
     assert ops.decode_step.launches > before
     ref = forward_rollout(4, env, params, policy, 7, logit_temp=0.9)
     assert (res.samples == ref.obs[-1].cpu().numpy()).all()
+
+
+# -- decode_attention -----------------------------------------------------------
+
+def _attn_inputs(B, S, H, hd, kv_valid, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g).to(device)
+    return (rn(B, H, hd), rn(B, S, H, hd), rn(B, S, H, hd),
+            torch.as_tensor(kv_valid, dtype=torch.int32).to(device))
+
+
+@pytest.mark.parametrize("B,S,H,hd,kv_valid", [
+    (16, 16, 8, 8, list(range(1, 17))),          # the training rollout
+    (5, 37, 3, 8, [0, 1, 36, 37, 0]),            # odd, with empty rows
+    (4, 100, 8, 8, [100, 33, 64, 1]),            # several 32-slot chunks
+    (3, 5, 2, 64, [0, 5, 9]),                    # wide heads, S < 8
+])
+def test_decode_attention_kernel_matches_plain_version(cuda, B, S, H, hd,
+                                                       kv_valid):
+    q, k, v, kv = _attn_inputs(B, S, H, hd, kv_valid, cuda)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    torch.testing.assert_close(out, ref_decode_attention(q, k, v, kv),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.all(out[kv <= 0] == 0)
+
+
+def test_decode_attention_refuses_grad_on_cuda(cuda):
+    q, k, v, kv = _attn_inputs(2, 4, 2, 8, [1, 4], cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.decode_attention(q.requires_grad_(True), k, v, kv)
+
+
+# -- traj_logprob -----------------------------------------------------------------
+
+def _traj_inputs(B, T, A, device, seed=0):
+    """Time-major (T+1, B, A) logits and mask, handed over as the (B, T, A)
+    transposed views the training path uses."""
+    g = torch.Generator().manual_seed(seed)
+    logits = 3 * torch.randn(T + 1, B, A, generator=g)
+    mask = torch.rand(T + 1, B, A, generator=g) < 0.6
+    actions = torch.randint(0, A, (T, B), generator=g)
+    mask[torch.arange(T)[:, None], torch.arange(B)[None, :], actions] = True
+    valid = torch.arange(T)[:, None] < torch.randint(1, T + 1, (1, B),
+                                                     generator=g)
+    return (logits.to(device)[:-1].transpose(0, 1),
+            actions.to(device).T, mask.to(device)[:-1].transpose(0, 1),
+            valid.to(device).T)
+
+
+@pytest.mark.parametrize("B,T,A", [(16, 15, 3840), (16, 15, 15),
+                                   (3, 50, 203)])
+def test_traj_logprob_kernels_match_plain_version(cuda, B, T, A):
+    logits, actions, mask, valid = _traj_inputs(B, T, A, cuda, seed=A)
+    g = torch.Generator().manual_seed(1)
+    g_total = torch.randn(B, generator=g).to(cuda)
+    g_step = torch.randn(T, B, generator=g).to(cuda).T
+    f0, b0 = ops.traj_logprob.launches, ops.traj_logprob_backward.launches
+    lg = logits.detach().requires_grad_(True)
+    total, per_step = ops.traj_logprob(lg, actions, mask, valid)
+    ((total * g_total).sum() + (per_step * g_step).sum()).backward()
+    torch.cuda.synchronize()
+    assert ops.traj_logprob.launches == f0 + 1
+    assert ops.traj_logprob_backward.launches == b0 + 1
+    want_total, want_step = ref_traj_logprob(logits, actions, mask, valid)
+    torch.testing.assert_close(per_step, want_step, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(total, want_total, atol=1e-4, rtol=1e-4)
+    # entry by entry: most are coeff * softmax terms of ~1e-5, so each is
+    # held to 1e-4 of its own size; the taken action's, coeff * (1 - p),
+    # cancels as p nears 1 and is held to 1e-4 of |coeff|
+    want = ref_traj_logprob_backward(logits, actions, mask, valid, g_total,
+                                     g_step)
+    coeff = ((g_total[:, None] + g_step) * valid).abs()
+    scale = want.abs().scatter(-1, actions.long()[..., None],
+                               coeff[..., None])
+    assert torch.all((lg.grad - want).abs() <= 1e-8 + 1e-4 * scale)
+    with torch.no_grad():        # no float atomics: runs agree bit for bit
+        again = ops.traj_logprob(logits, actions, mask, valid)
+    assert torch.equal(again[0], total) and torch.equal(again[1], per_step)
+
+
+def test_training_on_cuda_launches_the_kernels(cuda):
+    """Two bitseq_tb iterations at n=16, k=4 on the card: every cached
+    query goes through decode_attention (3 layers x 4 steps), the loss
+    through two traj_logprob forwards and one backward."""
+    from repro_torch.run import run_recipe
+    counts = (ops.decode_attention, ops.traj_logprob,
+              ops.traj_logprob_backward)
+    before = [c.launches for c in counts]
+    out = run_recipe("bitseq_tb", iterations=2, env={"n": 16, "k": 4},
+                     device=cuda, log=lambda s: None)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [24, 4, 2]
+    assert all(math.isfinite(r["loss"]) for r in out["history"])
+
+
+def test_fused_step_follows_adam_on_cuda(cuda):
+    """The fused step's weight cache is filled, then the policy trains two
+    iterations with torch's Adam on the card (its CUDA implementation, not
+    the CPU's): the cache must hold the live weights afterwards, and the
+    fused step must equal the plain apply_cached + sample_masked chain."""
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.types import hash_gumbel, sample_masked
+    from repro_torch.nn.transformer import decoder_stacked_weights
+    recipe = recipes.get_train("bitseq_tb")
+    env = recipe.make_env(n=16, k=4, seed=0)
+    params = env.init(cuda)
+    policy = recipe.make_policy(env, seed=0, device=cuda, requires_grad=True)
+    before = {k: v.clone()
+              for k, v in policy.kernel_weights()["stacked"].items()}
+    TrainLoop(env, params, policy, recipe.make_config(env, 4)).run(0, 2)
+    live = decoder_stacked_weights(policy.params["decoder"])
+    cached = policy.kernel_weights()["stacked"]
+    assert not torch.equal(before["ff1_w"], live["ff1_w"])
+    for k in live:
+        assert torch.equal(cached[k], live[k]), k
+    B = 5
+    _, state = env.reset(B, params)
+    prev = torch.zeros(B, dtype=torch.int64, device=cuda)
+    token, pos, length = env.observe_last(state, params, prev)
+    ids = torch.arange(B, dtype=torch.int64, device=cuda)
+    gumbel = hash_gumbel(torch.full_like(ids, 3), ids, torch.zeros_like(ids),
+                         env.action_dim)
+    mask = env.forward_mask(state, params)
+    with torch.no_grad():
+        out, _ = policy.apply_cached(policy.cache_init(B), token, pos,
+                                     length, step=0)
+        a_p, lp_p = sample_masked(out["logits"], mask, gumbel)
+        a_f, lp_f, _, _ = policy.sample_cached(policy.cache_init(B), token,
+                                               pos, length, gumbel, mask,
+                                               step=0)
+    assert torch.equal(a_f.long(), a_p)
+    torch.testing.assert_close(lp_f, lp_p, atol=1e-4, rtol=1e-4)

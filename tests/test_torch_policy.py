@@ -160,3 +160,62 @@ def test_load_params_rejects_mismatched_trees():
     bad["bos"] = torch.zeros(3)
     with pytest.raises(ValueError):
         tpol.load_params(bad)
+
+
+@pytest.mark.parametrize("update", ["in_place", "adam_step",
+                                    "adam_foreach_step"])
+def test_fused_step_follows_in_place_weight_updates(update):
+    """``kernel_weights()`` keeps stacked copies of the decoder weights for
+    the fused step.  After a weight is updated in place (by hand, or by an
+    optimizer step on a trainable policy: Adam's single-tensor update,
+    the CPU's default, and its multi-tensor ``foreach`` update, the
+    default on a GPU) the fused ``sample_cached`` must still equal the
+    plain ``apply_cached`` + ``sample_masked`` chain."""
+    (jenv, _, jparams), _ = _pair(16, 4, SMALL)
+    tenv = BitSeqEnvironment(n=16, k=4)
+    tpol = TransformerPolicy(tenv.vocab_size, tenv.L, tenv.action_dim,
+                             device=CPU, requires_grad=update != "in_place",
+                             **SMALL)
+    tpol.load_params(params_from_jax(jax.device_get(jparams)))
+    tp = tenv.init(CPU)
+    B = 5
+    rng = np.random.RandomState(0)
+    _, ts = tenv.reset(B, tp)
+    prev = torch.zeros(B, dtype=torch.int64)
+
+    def step_pair(t, cache):
+        mask = tenv.forward_mask(ts, tp)
+        tok, pos, length = tenv.observe_last(ts, tp, prev)
+        gumbel = torch.from_numpy(
+            -np.log(-np.log(rng.rand(B, tenv.action_dim)))).float()
+        with torch.no_grad():
+            out, _ = tpol.apply_cached({k: v.clone() for k, v in
+                                        cache.items()}, tok, pos, length,
+                                       step=t)
+            pa, plp = sample_masked(out["logits"], mask, gumbel)
+            fa, flp, y, cache = tpol.sample_cached(cache, tok, pos, length,
+                                                   gumbel, mask, step=t)
+        np.testing.assert_array_equal(fa.numpy(), pa.numpy())
+        np.testing.assert_allclose(flp.numpy(), plp.numpy(), **TOL)
+        np.testing.assert_allclose(tpol.heads(y)["logits"].detach().numpy(),
+                                   out["logits"].numpy(), **TOL)
+        return fa.long(), cache
+
+    prev, cache = step_pair(0, tpol.cache_init(B))   # fills the weight cache
+    w = tpol.params["decoder"]["layer_0"]["ff1"]["w"]
+    before = w.detach().clone()
+    if update == "in_place":
+        with torch.no_grad():
+            w.mul_(1.5)
+    else:
+        opt = torch.optim.Adam(tpol.params.parameters(), lr=0.05,
+                               foreach=update == "adam_foreach_step")
+        tokens = torch.from_numpy(rng.randint(0, tenv.vocab_size,
+                                              size=(B, tenv.L)))
+        tpol.apply(tokens)["logits"].square().mean().backward()
+        opt.step()
+    assert not torch.equal(w.detach(), before)
+    torch.testing.assert_close(tpol.kernel_weights()["stacked"]["ff1_w"][0],
+                               w.detach(), rtol=0, atol=0)
+    _, ts, _, _ = tenv.step(ts, prev, tp)
+    step_pair(1, cache)
