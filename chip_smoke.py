@@ -11,11 +11,13 @@ printing one JSON line:
 2. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one ``nvcc`` per source, in parallel), and times one
              ``nvcc -shared`` call over all sources beside it;
-3. kernel  - each kernel against its plain PyTorch version on the card, at
-             the main paths' shapes and at odd ones, with its device time,
-             the plain version's, the least time the card could take
-             (``bound``) and, where one PyTorch call computes the same
-             function, that call's (``library_us``);
+3. kernel  - each kernel (decode_step, decode_attention, traj_logprob and
+             subtb_loss forward and backward) against its plain PyTorch
+             version on the card, at the main paths' shapes and at odd
+             ones, with its device time, the plain version's, the least
+             time the card could take (``bound``) and, where one PyTorch
+             call computes the same function, that call's
+             (``library_us``);
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
@@ -33,6 +35,19 @@ printing one JSON line:
              before it, the fused step's weight cache (filled before them)
              holds the live weights, and the fused step equals its plain
              chain;
+6. hypergrid_train - ``hypergrid_subtb`` at full size (4x8^4, 16 envs, MLP
+             2x256) for 50 iterations through ``run_recipe``, with its
+             evals at iterations 0 and 49; launches read at every
+             iteration (1 subtb_loss forward and 1 backward each, 2
+             traj_logprob forwards at the eval iterations, nothing else);
+   hypergrid_hold - one iteration on the card and on the CPU, as
+             train_hold;
+   hypergrid_profile - one iteration's device idle share and tops;
+   hypergrid_converge - SubTB on the 2x8 grid for 2,500 iterations
+             (``tests/test_training.py:19-43``): empirical TV of 4,000
+             samples under 0.12, with the exact-DP TV beside it; and the
+             exact DP of the paper's 20^4 grid on the card against the
+             CPU's;
 
 then a ``kernels`` line, the card's ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -67,7 +82,20 @@ TRAIN_ITERS = 50
 #: bitseq_tb at full width: 3 layers x 15 steps of cached queries, and
 #: traj_logprob forward for P_F and P_B, backward for P_F, per iteration
 TRAIN_LAUNCHES_PER_ITER = {"decode_attention": 45, "traj_logprob_fwd": 2,
-                           "traj_logprob_bwd": 1, "decode_step": 0}
+                           "traj_logprob_bwd": 1, "decode_step": 0,
+                           "subtb_loss_fwd": 0, "subtb_loss_bwd": 0}
+#: hypergrid_subtb at full size: iterations, and evals at 0 and 49
+HYPERGRID_ITERS = 50
+HYPERGRID_EVAL_EVERY = 49
+#: hypergrid_subtb per iteration: the SubTB loss forward and backward; the
+#: stop-action path takes no traj_logprob, the LogZBoundsEval two
+HYPERGRID_LAUNCHES_PER_ITER = {"decode_attention": 0, "traj_logprob_fwd": 0,
+                               "traj_logprob_bwd": 0, "decode_step": 0,
+                               "subtb_loss_fwd": 1, "subtb_loss_bwd": 1}
+HYPERGRID_EVAL_LAUNCHES = {"traj_logprob_fwd": 2}
+#: tests/test_training.py:19-43 on the card
+CONVERGE_ITERS = 2500
+CONVERGE_TV = 0.12
 
 
 def wrappers() -> dict:
@@ -77,7 +105,9 @@ def wrappers() -> dict:
     return {"decode_step": ops.decode_step,
             "decode_attention": ops.decode_attention,
             "traj_logprob_fwd": ops.traj_logprob,
-            "traj_logprob_bwd": ops.traj_logprob_backward}
+            "traj_logprob_bwd": ops.traj_logprob_backward,
+            "subtb_loss_fwd": ops.subtb_loss,
+            "subtb_loss_bwd": ops.subtb_loss_backward}
 
 
 def reset_launches() -> None:
@@ -128,9 +158,10 @@ def device_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profiled_device_us(fn, iters: int = 50) -> float:
-    """Mean device time of the CUDA kernels ``fn`` launches, summed from
-    ``torch.profiler`` (fails if the profiler saw no device time)."""
+def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
+    """Mean device time of the CUDA kernels ``fn`` launches whose name
+    holds ``match``, summed from ``torch.profiler`` (fails if the profiler
+    saw no such device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -138,7 +169,7 @@ def profiled_device_us(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(t for _, t, _ in device_rows(prof))
+    total = sum(t for name, t, _ in device_rows(prof) if match in name)
     if not total > 0:
         raise AssertionError("torch.profiler recorded no device time")
     return total / iters
@@ -256,13 +287,15 @@ def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
     return row
 
 
-def timings(kernel, plain, library) -> dict:
+def timings(kernel, plain, library, match: str = "") -> dict:
     """Device time per call (``torch.profiler``, the kernels' own time) of
     the kernel, its plain version and the library call, so the three
     compare like for like; and each one's time per call between CUDA
     events over back-to-back calls (``*_wall_us``: host dispatch included,
-    which for a chain of small ops is most of it)."""
-    out = {"kernel_us": profiled_device_us(kernel),
+    which for a chain of small ops is most of it).  ``match`` keeps the
+    kernel's own device time apart from the small torch kernels its
+    wrapper launches (operand checks)."""
+    out = {"kernel_us": profiled_device_us(kernel, match=match),
            "wrapper_us": cuda_time_us(kernel),
            "plain_us": profiled_device_us(plain, iters=20),
            "plain_wall_us": cuda_time_us(plain, iters=50, warmup=5),
@@ -437,6 +470,82 @@ def check_traj_logprob(B, T, A, seed, device):
                              f"backward {berr} ({b_excess} of the "
                              f"element-wise allowance), repeat bitwise "
                              f"{bitwise}")
+    return fwd, bwd
+
+
+# -- phase 3: subtb_loss forward and backward against their plain versions --------
+
+def subtb_inputs(B, T1, seed, device):
+    """Time-major potentials (T+1, B) handed over as the (B, T+1) view the
+    loss passes; lengths (int64, as the loss gives them) starting T, 0, 1
+    (a single row gets T); a cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    phi_tm = torch.randn(T1, B, generator=g)
+    length = torch.randint(0, T1, (B,), generator=g)
+    length[:3] = torch.tensor([T1 - 1, 0, 1])[:B]
+    return (phi_tm.to(device).T, length.to(device),
+            torch.randn(B, generator=g).to(device))
+
+
+def check_subtb(B, T1, lam, seed, device):
+    """Forward and backward kernels against their plain versions at one
+    shape; returns the two rows.  No single PyTorch call computes the
+    SubTB form, so there is no library yardstick.  The kernel's device
+    time is its own kernels' (``subtb``); the wrapper's operand checks
+    (an ``aminmax`` of the lengths and their int32 copy) are in
+    ``wrapper_us``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_subtb, ref_subtb_backward
+
+    phi, length, g = subtb_inputs(B, T1, seed, device)
+    n = length.long().cpu()
+    on_traj = int((n + 1).sum())
+    pairs = int((n * (n + 1) // 2).sum())
+    shape = {"B": B, "T1": T1, "lam": lam, "lengths": n.tolist()[:8]}
+
+    def fwd_kernel():
+        with torch.no_grad():
+            return ops.subtb_loss(phi, length, lam)
+
+    def fwd_plain():
+        return ref_subtb(phi, length, lam)
+
+    got, want = fwd_kernel(), fwd_plain()
+    again = fwd_kernel()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    bitwise = bool(torch.equal(again, got))
+    zero_exact = bool(torch.all(got[length == 0] == 0))
+    fwd = {**shape, "max_abs_err": err, "max_rel_err": rel,
+           "repeat_bitwise_equal": bitwise, "empty_rows_exact_zero":
+           zero_exact, **timings(fwd_kernel, fwd_plain, None, match="subtb"),
+           **bound(4 * on_traj + 8 * B + 4 * B, 5 * pairs + B)}
+    emit("kernel", name="subtb_loss_fwd", **fwd)
+
+    def bwd_kernel():
+        return ops.subtb_loss_backward(phi, length, g, lam)
+
+    def bwd_plain():
+        return ref_subtb_backward(phi, length, lam, g)
+
+    d_k, d_p = bwd_kernel(), bwd_plain()
+    torch.cuda.synchronize()
+    berr = float((d_k - d_p).abs().max())
+    scale = float(d_p.abs().max())
+    bwd = {**shape, "max_abs_err": berr,
+           "max_err_over_scale": berr / scale if scale else berr,
+           **timings(bwd_kernel, bwd_plain, None, match="subtb"),
+           **bound(4 * on_traj + 8 * B + 4 * B + 4 * B * T1,
+                   3 * 2 * pairs + 3 * int(n.sum()) + B * T1)}
+    emit("kernel", name="subtb_loss_bwd", **bwd)
+    if not (rel <= TOL and bitwise and zero_exact
+            and bwd["max_err_over_scale"] <= TOL):
+        raise AssertionError(f"subtb_loss disagrees with its plain version "
+                             f"at {(B, T1, lam)}: forward rel {rel}, "
+                             f"backward {bwd['max_err_over_scale']} of its "
+                             f"scale, repeat bitwise {bitwise}, n = 0 exact "
+                             f"zero {zero_exact}")
     return fwd, bwd
 
 
@@ -618,31 +727,30 @@ def _to_cpu(batch):
                           for f in dataclasses.fields(batch)})
 
 
-def train_hold_phase(device):
-    """One bitseq_tb iteration on the card (kernels) and on the host's
+def hold_iteration(phase: str, recipe_name: str, device, env=None):
+    """One iteration of a recipe on the card (kernels) and on the host's
     CPU (plain versions) from the same parameters and noise.  Actions: the
     card's rollout against the CPU's, except a row whose first difference
     sits at a step where the top two scores lie within TIE_GAP (counted).
     Loss and gradients: both devices teacher-force the card's batch, so a
     tie cannot move them; loss to 1e-5 relative, each gradient to 1e-4 of
-    its own tensor's largest entry (no floor)."""
+    its own tensor's largest entry (no floor).  Returns the card's policy,
+    loop and state."""
     from repro_torch import recipes
     from repro_torch.algo import TrainLoop
+    from repro_torch.core.trainer import current_eps
     from repro_torch.core.types import (hash_step_noise, masked_logprobs,
                                         train_seed)
 
-    recipe = recipes.get_train("bitseq_tb")
+    recipe = recipes.get_train(recipe_name)
     cpu = torch.device("cpu")
-    env = recipe.make_env(seed=0)
-    cfg = recipe.make_config(env, 16)
+    env = recipe.make_env(**(env or {}))
+    cfg = recipe.make_config(env, 16, recipe.iterations)
     pol_g = recipe.make_policy(env, seed=1, device=device,
                                requires_grad=True)
     pol_c = recipe.make_policy(env, seed=1, device=cpu, requires_grad=True)
     pol_c.load_params({k: v.detach().cpu()
                        for k, v in pol_g.params.flat().items()})
-    # the fused step's weight cache, filled before the optimizer runs
-    before = {k: v.clone() for k, v in
-              pol_g.kernel_weights()["stacked"].items()}
     loop_g = TrainLoop(env, env.init(device), pol_g, cfg)
     loop_c = TrainLoop(env, env.init(cpu), pol_c, cfg)
     st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
@@ -665,7 +773,7 @@ def train_hold_phase(device):
                 torch.tensor([train_seed(5, 0)]), torch.tensor([b]),
                 torch.tensor([t]), env.action_dim)
             mask = batch_c.fwd_mask[t, b] | batch_c.done[t, b]
-            if float(noise.explore_u[0]) < cfg.exploration_eps:
+            if float(noise.explore_u[0]) < current_eps(cfg, 0):
                 score = torch.where(mask, 0.0, float("-inf")) \
                     + noise.gumbel_u[0]
             else:
@@ -686,19 +794,31 @@ def train_hold_phase(device):
                                                   else math.inf)
     worst = max(grad_err, key=grad_err.get)
     rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
-    emit("train_hold", steps=T, envs=B, actions_equal=int((~differ).sum()),
+    emit(phase, recipe=recipe_name, steps=T, envs=B,
+         actions_equal=int((~differ).sum()),
          rows_differing=int(differ.any(0).sum()), near_tie_rows=ties,
          mismatched_rows=mismatched, loss_cuda=loss_g, loss_cpu=loss_c,
          loss_rel_err=rel, grad_max_err_over_scale=grad_err[worst],
          grad_worst_param=worst)
     if mismatched or not rel <= 1e-5 or not grad_err[worst] <= 1e-4:
         raise AssertionError(
-            f"train_hold: {mismatched} rows differ off a tie, loss rel "
+            f"{phase}: {mismatched} rows differ off a tie, loss rel "
             f"error {rel}, gradient error {grad_err[worst]} ({worst})")
+    return pol_g, loop_g, st_g
+
+
+def train_hold_phase(device):
+    """One bitseq_tb iteration on the card against the CPU's.  No optimizer
+    step has run yet, so the fused step's weight cache is filled here, for
+    ``trained_fused_step`` to check after the steps of train_profile."""
+    pol_g, loop_g, st_g = hold_iteration("train_hold", "bitseq_tb", device,
+                                         env={"seed": 0})
+    before = {k: v.clone() for k, v in
+              pol_g.kernel_weights()["stacked"].items()}
     return loop_g, st_g, before
 
 
-def train_profile(loop, state) -> None:
+def train_profile(loop, state, phase: str = "train_profile") -> None:
     """Where one training iteration's time goes: timed plain, then under
     ``torch.profiler`` (device time by kernel; the device's idle share of
     the plain iteration's wall time), then under ``cProfile`` (host
@@ -725,7 +845,7 @@ def train_profile(loop, state) -> None:
     stats = pstats.Stats(host).stats
     total = sum(v[2] for v in stats.values())
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
-    emit("train_profile", iterations=1, wall_us=wall_us,
+    emit(phase, iterations=1, wall_us=wall_us,
          device_busy_us=busy, device_idle_share=1 - busy / wall_us,
          device_kernels=sum(r[2] for r in rows),
          device_top=[{"name": k[:70], "device_us": t, "calls": c}
@@ -733,6 +853,146 @@ def train_profile(loop, state) -> None:
          host_top=[{"function": f"{Path(f).name}:{ln}:{fn}",
                     "own_share": v[2] / total, "calls": v[1]}
                    for (f, ln, fn), v in top])
+
+
+# -- phase 6: hypergrid training -----------------------------------------------
+
+def hypergrid_train_phase(device) -> dict:
+    """``hypergrid_subtb`` at full size (4x8^4, 16 envs, MLP 2x256) for
+    HYPERGRID_ITERS iterations through ``run_recipe``, with the recipe's
+    evals at iterations 0 and 49.  Launches are read at every iteration:
+    one SubTB forward and one backward each, two traj_logprob forwards
+    (the log Z bounds) at the eval iterations only, no other kernel."""
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    reset_launches()
+    last = read_launches()
+    per_it = []
+
+    def log(line):
+        if line.startswith("it "):
+            now = read_launches()
+            per_it.append({k: now[k] - last[k] for k in now})
+            last.update(now)
+
+    t0 = time.perf_counter()
+    out = run_recipe("hypergrid_subtb", iterations=HYPERGRID_ITERS, seed=0,
+                     device=device, eval_every=HYPERGRID_EVAL_EVERY,
+                     log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    hist, rows = out["history"], out["rows"]
+    eval_its = list(range(0, HYPERGRID_ITERS, HYPERGRID_EVAL_EVERY))
+    for it, got in enumerate(per_it):
+        want = dict(HYPERGRID_LAUNCHES_PER_ITER)
+        if it in eval_its:
+            want.update(HYPERGRID_EVAL_LAUNCHES)
+        if got != want:
+            raise AssertionError(f"hypergrid iteration {it} launched {got}, "
+                                 f"expected {want}")
+    if len(per_it) != HYPERGRID_ITERS or [r["step"] for r in rows] \
+            != eval_its:
+        raise AssertionError(f"hypergrid: {len(per_it)} iterations, eval "
+                             f"rows at {[r['step'] for r in rows]}")
+    if not all(math.isfinite(r[k]) for r in hist
+               for k in ("loss", "log_z", "mean_log_reward")) or not all(
+            math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"hypergrid rows not finite: {hist[-2:]}, "
+                             f"{rows}")
+    # iterations 1..48 run no eval
+    steady = (HYPERGRID_ITERS - 2) / (hist[-2]["wall_s"] - hist[0]["wall_s"])
+    last_it_s = hist[-1]["wall_s"] - hist[-2]["wall_s"]
+    emit("hypergrid_train", nvidia_smi=smi, recipe="hypergrid_subtb",
+         env="hypergrid 4x8^4 (4,096 states, T+1 = 30, A = 5)",
+         policy="MLP 2x256, A logits + flow head", num_envs=16,
+         iterations=HYPERGRID_ITERS, wall_s=wall,
+         iterations_per_s=HYPERGRID_ITERS / wall,
+         steady_iterations_per_s=steady,
+         steady_samples_per_s=16 * steady,
+         eval_seconds=last_it_s - 1 / steady,
+         first={k: hist[0][k] for k in ("loss", "log_z", "mean_log_reward")},
+         last={k: hist[-1][k] for k in ("loss", "log_z",
+                                        "mean_log_reward")},
+         evals=rows, launches=launches,
+         launches_per_iteration={k: v / HYPERGRID_ITERS
+                                 for k, v in launches.items()})
+    return launches
+
+
+def hypergrid_converge(device) -> None:
+    """``tests/test_training.py:19-43`` on the card: SubTB on the 2x8 grid
+    with an MLP (64, 64), epsilon 0.05 annealed over 1,250 iterations, 2,500
+    iterations; the empirical TV of 4,000 samples must be under 0.12.  The
+    exact-DP TV stands beside it.  Then one exact DP on the paper's 20^4
+    grid (160,000 states) on the card, held to the CPU's."""
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.policies import MLPPolicy
+    from repro_torch.core.rollout import forward_rollout
+    from repro_torch.core.trainer import GFNConfig
+    from repro_torch.evals import ExactDistributionEval, make_hypergrid_dp
+    from repro_torch.metrics.distributions import (empirical_distribution,
+                                                   total_variation)
+    from repro_torch.recipes.hypergrid import (hypergrid_env,
+                                               hypergrid_policy,
+                                               terminal_index_fn)
+
+    smi = nvidia_smi()
+    env = hypergrid_env(dim=2, side=8)
+    params = env.init(device)
+    policy = MLPPolicy(env.obs_dim, env.action_dim, env.backward_action_dim,
+                       hidden=(64, 64), seed=1, device=device,
+                       requires_grad=True)
+    cfg = GFNConfig(objective="subtb", num_envs=16, lr=1e-3, log_z_lr=1e-1,
+                    stop_action=env.dim, exploration_eps=0.05,
+                    exploration_anneal_steps=CONVERGE_ITERS // 2)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = TrainLoop(env, params, policy, cfg).run(
+        1, CONVERGE_ITERS, callback=lambda it, st, m, b: float(m["loss"])
+        if it % 500 == 0 or it == CONVERGE_ITERS - 1 else None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    true = env.true_distribution(params)
+    batch = forward_rollout(2, env, params, policy, 4000)
+    emp = empirical_distribution(terminal_index_fn(env)(batch),
+                                 env.num_terminal_states)
+    tv = float(total_variation(emp, true))
+    exact = {k: float(v) for k, v in
+             ExactDistributionEval(env, params, policy)(0).items()}
+
+    env20 = hypergrid_env(dim=4, side=20)
+    pol_g = hypergrid_policy(env20, seed=3, device=device)
+    pol_c = hypergrid_policy(env20, seed=3, device=torch.device("cpu"))
+    pol_c.load_params({k: v.detach().cpu()
+                       for k, v in pol_g.params.flat().items()})
+    t0 = time.perf_counter()
+    dp_g = make_hypergrid_dp(env20, env20.init(device), pol_g)()
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    dp_c = make_hypergrid_dp(env20, env20.init("cpu"), pol_c)()
+    dp_err = float((dp_g.cpu() - dp_c).abs().max())
+    dp_tv = float(total_variation(dp_g.cpu(), dp_c))
+    emit("hypergrid_converge", nvidia_smi=smi, objective="subtb",
+         env="hypergrid 2x8 (64 states)", policy="MLP 64x64",
+         iterations=CONVERGE_ITERS, train_seconds=train_s,
+         iterations_per_s=CONVERGE_ITERS / train_s,
+         losses=[h for h in hist if h is not None],
+         sample_tv_4000=tv, bar=CONVERGE_TV, exact_tv=exact["exact_tv"],
+         exact_jsd=exact["exact_jsd"],
+         launches={k: v for k, v in launches.items() if v},
+         dp_20x4={"states": env20.num_terminal_states,
+                  "cuda_seconds": dp_s, "max_abs_err_vs_cpu": dp_err,
+                  "tv_vs_cpu": dp_tv, "sum": float(dp_g.sum())})
+    want = {"subtb_loss_fwd": CONVERGE_ITERS,
+            "subtb_loss_bwd": CONVERGE_ITERS}
+    if not tv < CONVERGE_TV or {k: v for k, v in launches.items() if v} \
+            != want or not dp_err <= 1e-6 or not dp_tv <= 1e-5:
+        raise AssertionError(
+            f"hypergrid_converge: TV {tv} (bar {CONVERGE_TV}), launches "
+            f"{launches}, 20^4 DP error {dp_err}, TV to the CPU {dp_tv}")
 
 
 def trained_fused_step(loop, state, before: dict, device) -> None:
@@ -835,12 +1095,23 @@ def main() -> int:
     traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device),
             check_traj_logprob(16, 15, 15, seed=1, device=device),
             check_traj_logprob(3, 50, 203, seed=2, device=device)]
+    # (16, 30) is the main path's (4x8^4); 78 the paper grid's; 7000 keeps
+    # phi and the weight table in device memory (past shared memory)
+    subtb = [check_subtb(B, T1, lam, seed=i, device=device)
+             for i, (B, T1, lam) in enumerate(
+                 [(16, 30, 0.9), (16, 78, 0.9), (3, 100, 0.8),
+                  (1, 7, 0.5), (4, 200, 0.99), (3, 7000, 0.999)])]
 
     serve = serve_phase(device)
     train = train_phase(device)
     loop, state, before = train_hold_phase(device)
     train_profile(loop, state)
     trained_fused_step(loop, state, before, device)
+    hypergrid = hypergrid_train_phase(device)
+    _, loop, state = hold_iteration("hypergrid_hold", "hypergrid_subtb",
+                                    device)
+    train_profile(loop, state, phase="hypergrid_profile")
+    hypergrid_converge(device)
 
     def entry(name, source, replaces, launches, rows, main):
         return {"name": name, "route": "cuda", "source": source,
@@ -869,6 +1140,14 @@ def main() -> int:
         entry("traj_logprob_bwd", csrc + "traj_logprob.cu",
               "src/repro/kernels/ops.py:130",
               train["traj_logprob_bwd"], [b for _, b in traj], traj[0][1]),
+        entry("subtb_loss_fwd", csrc + "subtb_loss.cu",
+              "src/repro/kernels/subtb_loss.py:58",
+              hypergrid["subtb_loss_fwd"], [f for f, _ in subtb],
+              subtb[0][0]),
+        entry("subtb_loss_bwd", csrc + "subtb_loss.cu",
+              "src/repro/core/objectives.py:253",
+              hypergrid["subtb_loss_bwd"], [b for _, b in subtb],
+              subtb[0][1]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

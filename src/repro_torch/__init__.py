@@ -1,10 +1,9 @@
 """PyTorch port of ``repro`` for NVIDIA Hopper GPUs.
 
 The package mirrors ``repro``'s layout (``core/``, ``nn/``, ``envs/``,
-``rewards/``, ``kernels/``, ``algo/``, ``serve/``, ``launch/``,
-``recipes/``, ``run.py``) so each module's counterpart sits at the same
-path.  It imports torch and numpy
-only.  Entry points run on ``cuda`` unless the caller passes
+``rewards/``, ``kernels/``, ``algo/``, ``evals/``, ``metrics/``,
+``serve/``, ``launch/``, ``recipes/``, ``run.py``) so each module's
+counterpart sits at the same path.  It imports torch and numpy only.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` they raise
 (:func:`repro_torch.device.resolve_device`).
 
@@ -15,5 +14,10 @@ kernel (``kernels/csrc/decode_step.cu``); and ``bitseq_tb`` training —
 exploring rollout, TB objective, Adam, ``algo.TrainLoop`` and the
 ``repro_torch.run`` CLI — with the cached attention and the trajectory
 log-probabilities (forward and gradient) as hand-written CUDA kernels
-(``kernels/csrc/decode_attention.cu``, ``kernels/csrc/traj_logprob.cu``).
+(``kernels/csrc/decode_attention.cu``, ``kernels/csrc/traj_logprob.cu``);
+and the hypergrid recipes (TB, DB, SubTB) — hypergrid env and reward, MLP
+policy, uncached and backward rollouts, the stop-action objectives and the
+exact-DP, sampled and log Z bound evals (``evals/``) — with the SubTB loss
+and its gradient as a hand-written CUDA kernel pair
+(``kernels/csrc/subtb_loss.cu``).
 """

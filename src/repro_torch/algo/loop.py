@@ -22,8 +22,9 @@ from .samplers import OnPolicySampler
 class TrainLoop:
     """Environment x policy x objective x sampler, on the policy's device.
 
-    ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy`
-    whose parameters require grad; ``sampler`` defaults to
+    ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy` or
+    :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
+    grad; ``sampler`` defaults to
     :class:`OnPolicySampler`.  Iteration ``i`` of a run seeded ``seed``
     draws its rollout noise from ``train_seed(seed, i)``."""
 
@@ -81,14 +82,20 @@ class TrainLoop:
         return state, metrics, batch
 
     def run(self, seed: int, num_iterations: int, *,
-            callback: Optional[Callable] = None):
+            callback: Optional[Callable] = None, suite=None):
         """Run ``num_iterations`` iterations from a fresh state.  Returns
         ``(state, history)``; history collects ``callback(it, state,
-        metrics, batch)`` after every iteration."""
+        metrics, batch)`` after every iteration.  An
+        :class:`repro_torch.evals.EvalSuite` records its rows after the
+        iterations ``it`` with ``it % suite.every == 0`` (``suite.rows()``);
+        it reads the parameters and draws noise of its own, so training
+        runs the same with and without it."""
         state = self.init(seed)
         history = []
         for it in range(num_iterations):
             state, metrics, batch = self.step(state)
+            if suite is not None:
+                suite.maybe_record(it)
             if callback is not None:
                 history.append(callback(it, state, metrics, batch))
         return state, history

@@ -1,13 +1,16 @@
-"""GFlowNet training objectives (port of the categorical, no-stop-action
-path of ``repro.core.objectives``).
+"""GFlowNet training objectives (port of the categorical path of
+``repro.core.objectives``): TB, DB and SubTB.
 
 Every objective consumes a :class:`repro_torch.core.rollout.RolloutBatch`
 and re-evaluates the policy on the stored observations (teacher forcing).
-Both directions' log-probabilities go through
+Without a stop action, both directions' log-probabilities go through
 :func:`repro_torch.kernels.ops.traj_logprob`: mask + log-softmax + action
 gather in one kernel per direction on CUDA, with the closed-form gradient
-as a second kernel; the plain version on the CPU.  Ported so far: TB.  DB,
-SubTB, FLDB and MDB raise by name.
+as a second kernel; the plain version on the CPU.  With a stop action
+(hypergrid) the full log-softmax tensor is built, as the JAX package does
+off the TPU, and no kernel runs.  SubTB's per-trajectory loss goes through
+:func:`repro_torch.kernels.ops.subtb_loss` (a kernel pair on CUDA).  FLDB
+and MDB raise by name.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels.ops import subtb_loss as subtb_kernel
 from ..kernels.ops import traj_logprob
 from .rollout import RolloutBatch
+from .types import masked_logprobs
 
 
 class TrajEval(NamedTuple):
@@ -26,7 +31,7 @@ class TrajEval(NamedTuple):
                          valid
     log_pb      (T, B)   log P_B(s_t | s_{t+1}), same convention
     log_flow    (T+1, B) flow head at s_t (zeros if the policy lacks one)
-    log_pf_stop (T+1, B) log P_F(stop | s_t) (zeros: no stop action)
+    log_pf_stop (T+1, B) log P_F(stop | s_t) (zeros without a stop action)
     """
     log_pf: torch.Tensor
     log_pb: torch.Tensor
@@ -34,40 +39,50 @@ class TrajEval(NamedTuple):
     log_pf_stop: torch.Tensor
 
 
+def _gather(logp: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    return torch.gather(logp, -1, actions.long()[..., None])[..., 0]
+
+
 def evaluate_trajectory(policy, batch: RolloutBatch,
                         stop_action: Optional[int] = None) -> TrajEval:
     """Teacher-force ``policy.apply`` over the batch's (T+1)·B observations.
 
-    The time-major logits reach :func:`traj_logprob` as (B, T, A) views
-    (transposed, not copied: the kernel takes their strides).  A policy
-    without a ``logits_b`` head gives the uniform backward policy through
-    constant zero logits, so that call builds no gradient and never runs
-    the backward kernel.  ``traj_logprob`` already zeroes steps whose
-    ``valid`` is False."""
-    if stop_action is not None:
-        raise NotImplementedError(
-            "evaluate_trajectory: envs with a stop action need the full "
-            "log-softmax tensor, which the port does not build yet")
+    Without a stop action the time-major logits reach :func:`traj_logprob`
+    as (B, T, A) views (transposed, not copied: the kernel takes their
+    strides).  With one, ``masked_logprobs`` of all (T+1)·B rows gives
+    log P_F, log P_B and ``log_pf_stop = logp_f[..., stop_action]``; a
+    terminal row is all illegal and its log-softmax is uniform, not NaN.
+    A policy without a ``logits_b`` head gives the uniform backward policy
+    through constant zero logits, which build no gradient."""
     Tp1, B = batch.obs.shape[:2]
     out = policy.apply(batch.obs.reshape((Tp1 * B,) + batch.obs.shape[2:]))
 
     def unflat(x):
         return x.reshape((Tp1, B) + x.shape[1:])
 
-    valid_bt = batch.valid.T
     logits = unflat(out["logits"])
-    _, pf_step = traj_logprob(logits[:-1].transpose(0, 1), batch.actions.T,
-                              batch.fwd_mask[:-1].transpose(0, 1), valid_bt)
     if "logits_b" in out:
         logits_b = unflat(out["logits_b"])
     else:
         logits_b = torch.zeros(batch.bwd_mask.shape, dtype=torch.float32,
                                device=batch.bwd_mask.device)
+    zeros = torch.zeros((Tp1, B), dtype=torch.float32, device=logits.device)
+    log_flow = unflat(out["log_flow"]) if "log_flow" in out else zeros
+    if stop_action is not None:
+        logp_f = masked_logprobs(logits, batch.fwd_mask)
+        logp_b = masked_logprobs(logits_b, batch.bwd_mask)
+        v = batch.valid
+        return TrajEval(
+            log_pf=torch.where(v, _gather(logp_f[:-1], batch.actions), 0.0),
+            log_pb=torch.where(v, _gather(logp_b[1:], batch.bwd_actions),
+                               0.0),
+            log_flow=log_flow, log_pf_stop=logp_f[..., stop_action])
+    valid_bt = batch.valid.T
+    _, pf_step = traj_logprob(logits[:-1].transpose(0, 1), batch.actions.T,
+                              batch.fwd_mask[:-1].transpose(0, 1), valid_bt)
     _, pb_step = traj_logprob(logits_b[1:].transpose(0, 1),
                               batch.bwd_actions.T,
                               batch.bwd_mask[1:].transpose(0, 1), valid_bt)
-    zeros = torch.zeros((Tp1, B), dtype=torch.float32, device=logits.device)
-    log_flow = unflat(out["log_flow"]) if "log_flow" in out else zeros
     return TrajEval(log_pf=pf_step.T, log_pb=pb_step.T, log_flow=log_flow,
                     log_pf_stop=zeros)
 
@@ -81,6 +96,78 @@ def tb_parts(ev: TrajEval, batch: RolloutBatch,
         float(batch.log_reward.shape[0]), device=delta.device)
 
 
+def _flow_targets(ev: TrajEval, batch: RolloutBatch) -> torch.Tensor:
+    """log F(s_t), t = 0..T, with terminal states pinned to log R(x)."""
+    return torch.where(batch.done, batch.log_reward[None, :], ev.log_flow)
+
+
+def db_parts(ev: TrajEval, batch: RolloutBatch
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Detailed Balance, Eq. (3), as (residual sum, valid-transition
+    count), with F(terminal) := R."""
+    flows = _flow_targets(ev, batch)
+    delta = flows[:-1] + ev.log_pf - flows[1:] - ev.log_pb
+    delta = torch.where(batch.valid, delta, 0.0)
+    return delta.square().sum(), batch.valid.sum().to(torch.float32)
+
+
+#: beyond this many states the CPU takes the O(T) prefix recurrence in
+#: place of the dense pairwise form (JAX's ``impl="auto"`` off the TPU)
+_SUBTB_DENSE_MAX_T1 = 64
+
+
+def _subtb_phi(ev: TrajEval, batch: RolloutBatch):
+    """Flow-corrected potentials phi (T+1, B) and lengths (B,) int64.
+
+    With c_t = sum_{u<t}(log_pf - log_pb) and phi_t = log F(s_t) - c_t, the
+    (j, k) subtrajectory residual is phi_j - phi_k; state t is on the
+    trajectory iff t <= n, n = the number of valid transitions."""
+    flows = _flow_targets(ev, batch)
+    c = torch.cumsum(ev.log_pf - ev.log_pb, dim=0)
+    c = torch.cat([torch.zeros_like(c[:1]), c], dim=0)
+    return flows - c, batch.valid.sum(0)
+
+
+def _subtb_prefix(phi: torch.Tensor, length: torch.Tensor,
+                  lam: float) -> torch.Tensor:
+    """The O(T) prefix-sum recurrence over k (no pairwise tensor): with
+    S2_k, S1_k, W_k the lam-discounted sums over j < k of phi_j^2, phi_j
+    and 1, num = sum_k S2_k - 2 phi_k S1_k + phi_k^2 W_k over k <= n."""
+    T1, B = phi.shape
+    s2 = s1 = w = num = den = torch.zeros(B, dtype=torch.float32,
+                                          device=phi.device)
+    for k in range(1, T1):
+        on = k <= length
+        s2 = lam * (s2 + phi[k - 1].square())
+        s1 = lam * (s1 + phi[k - 1])
+        w = lam * (w + 1.0)
+        term = s2 - 2.0 * phi[k] * s1 + phi[k].square() * w
+        num = num + torch.where(on, term, 0.0)
+        den = den + torch.where(on, w, 0.0)
+    return num / torch.clamp(den, min=1e-9)
+
+
+def subtb_loss(ev: TrajEval, batch: RolloutBatch,
+               lam: float = 0.9) -> torch.Tensor:
+    """Subtrajectory Balance, Eq. (5), weights lambda^(k-j), normalised per
+    trajectory, then averaged.  On CUDA the per-trajectory loss is the
+    :func:`repro_torch.kernels.ops.subtb_loss` kernel pair; on the CPU it
+    is that wrapper's dense plain version up to 64 states and the O(T)
+    prefix recurrence beyond (JAX's ``impl="auto"`` off the TPU)."""
+    phi, length = _subtb_phi(ev, batch)
+    if phi.device.type == "cuda" or phi.shape[0] <= _SUBTB_DENSE_MAX_T1:
+        return subtb_kernel(phi.T, length, lam).mean()
+    return _subtb_prefix(phi, length, lam).mean()
+
+
+def subtb_parts(ev: TrajEval, batch: RolloutBatch, lam: float = 0.9
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`subtb_loss` as (per-trajectory sum, trajectory count)."""
+    B = ev.log_pf.shape[1]
+    return subtb_loss(ev, batch, lam) * B, torch.tensor(
+        float(B), device=ev.log_pf.device)
+
+
 PartsFn = Callable[[TrajEval, RolloutBatch, Dict, object],
                    Tuple[torch.Tensor, torch.Tensor]]
 
@@ -89,10 +176,13 @@ PartsFn = Callable[[TrajEval, RolloutBatch, Dict, object],
 OBJECTIVE_PARTS: Dict[str, PartsFn] = {
     "tb": lambda ev, batch, params, cfg: tb_parts(ev, batch,
                                                   params["log_z"]),
+    "db": lambda ev, batch, params, cfg: db_parts(ev, batch),
+    "subtb": lambda ev, batch, params, cfg: subtb_parts(ev, batch,
+                                                        cfg.subtb_lambda),
 }
 
 #: objectives of the JAX package that the port does not have yet
-NOT_PORTED = ("db", "subtb", "fldb", "mdb")
+NOT_PORTED = ("fldb", "mdb")
 
 
 def objective_parts(name: str) -> PartsFn:

@@ -1,7 +1,8 @@
-"""Decode-arch transformer policy (port of
-``repro.core.policies.make_transformer_policy(arch="decode")``).
+"""Policies of the port: the MLP policy (port of
+``repro.core.policies.make_mlp_policy``) and the decode-arch transformer
+policy (port of ``make_transformer_policy(arch="decode")``).
 
-Per-layer K/V come from frozen token + position embeddings, and a learned
+In the transformer policy, per-layer K/V come from frozen token + position embeddings, and a learned
 latent query reads the state out (see :mod:`repro_torch.nn.transformer`).
 The parameter tree is the JAX package's: ``embed/table``, ``pos/pos``,
 ``bos``, ``decoder/layer_{i}/...``, ``readout/{w,b}``, ``log_z``.  The pad
@@ -11,7 +12,7 @@ defaults; its learned backward head is not ported yet).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -19,10 +20,76 @@ from torch import nn
 from ..device import DeviceLike, cpu_generator, resolve_device
 from ..kernels.ops import decode_step
 from ..nn.core import (ParamTree, dense_apply, dense_init, embedding_apply,
-                       embedding_init, normal_init)
+                       embedding_init, mlp_apply, mlp_init, normal_init)
 from ..nn.transformer import (Cache, cache_init, decode_encoder_init,
                               decoder_stacked_weights, encoder_apply_bank,
                               encoder_apply_cached)
+
+
+def load_flat(params: ParamTree, flat: Mapping[str, torch.Tensor]) -> None:
+    """Copy ``/``-keyed tensors into ``params`` in place: every leaf, same
+    names and shapes."""
+    own = params.flat()
+    if set(flat) != set(own):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(own) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = torch.as_tensor(flat[name])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(src)
+
+
+class MLPPolicy(nn.Module):
+    """MLP policy (port of ``repro.core.policies.make_mlp_policy``; the
+    paper's hypergrid setup is 2x256).
+
+    One torso ``torso/layer_{i}/{w,b}`` maps float observations to the
+    heads, in this order: A forward ``logits``, then ``logits_b`` (Ab
+    backward logits) when ``learn_backward``, then ``log_flow`` when
+    ``flow_head``; plus the scalar ``log_z``.  Weights are LeCun-normal
+    from a CPU ``torch.Generator`` seeded with ``seed``; :meth:`load_params`
+    takes parameters carried across from JAX.  It has no KV-cache entry
+    points, so rollouts take the uncached branch."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 backward_action_dim: Optional[int] = None,
+                 hidden: Sequence[int] = (256, 256), *,
+                 learn_backward: bool = False, flow_head: bool = True,
+                 init_log_z: float = 0.0, seed: int = 0,
+                 device: DeviceLike = None, requires_grad: bool = False):
+        super().__init__()
+        if learn_backward and backward_action_dim is None:
+            raise ValueError("learn_backward needs backward_action_dim")
+        dev = resolve_device(device)
+        self.action_dim = action_dim
+        self.backward_action_dim = backward_action_dim
+        self.learn_backward, self.flow_head = learn_backward, flow_head
+        heads = action_dim + (backward_action_dim if learn_backward else 0) \
+            + (1 if flow_head else 0)
+        self.params = ParamTree({
+            "torso": mlp_init(obs_dim, list(hidden), heads,
+                              generator=cpu_generator(seed), device=dev),
+            "log_z": torch.full((), float(init_log_z), device=dev),
+        }, requires_grad=requires_grad)
+
+    def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``/``-keyed parameters (every leaf, same shapes) in."""
+        load_flat(self.params, flat)
+
+    def apply(self, obs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = mlp_apply(self.params["torso"], obs.to(torch.float32))
+        res = {"logits": out[..., :self.action_dim]}
+        off = self.action_dim
+        if self.learn_backward:
+            res["logits_b"] = out[..., off:off + self.backward_action_dim]
+            off += self.backward_action_dim
+        if self.flow_head:
+            res["log_flow"] = out[..., off]
+        return res
 
 
 class TransformerPolicy(nn.Module):
@@ -62,18 +129,7 @@ class TransformerPolicy(nn.Module):
     # -- parameters ------------------------------------------------------------
     def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
         """Copy ``/``-keyed parameters (every leaf, same shapes) in."""
-        own = self.params.flat()
-        if set(flat) != set(own):
-            raise KeyError(f"parameter names differ: missing "
-                           f"{sorted(set(own) - set(flat))}, unexpected "
-                           f"{sorted(set(flat) - set(own))}")
-        with torch.no_grad():
-            for name, p in own.items():
-                src = torch.as_tensor(flat[name])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {tuple(src.shape)}, "
-                                     f"expected {tuple(p.shape)}")
-                p.copy_(src)
+        load_flat(self.params, flat)
 
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)

@@ -1,29 +1,37 @@
-"""Cached forward rollouts (port of the KV-cache categorical branch of
-``repro.core.rollout.forward_rollout``).
+"""Forward and backward rollouts (port of ``repro.core.rollout``).
 
-Each step appends the token the previous step added to the policy's KV
-cache and samples the next action, so a rollout never re-encodes the
-sequence.  Two branches, as in the JAX package:
+Forward rollouts take one of three branches, as in the JAX package:
 
-- ``exploration_eps=None`` (statically zero, serving): one fused call,
-  ``policy.sample_cached`` (the decode-step kernel on CUDA).  This is the
-  serving engine's parity target: a request's samples are, token for
-  token, those of ``forward_rollout(seed, ...)`` over the same noise.
-- ``exploration_eps`` a number (training; JAX's traced epsilon, which
-  turns the fused step off): ``policy.apply_cached`` (cache queries through
-  the decode-attention kernel on CUDA) then epsilon-uniform
-  ``sample_masked`` over a :class:`StepNoise`.
+- **cached, fused** (``exploration_eps=None``, a policy with KV-cache entry
+  points and an env with ``supports_incremental_obs``; serving): each step
+  appends the previous token to the policy's KV cache and samples in one
+  call, ``policy.sample_cached`` (the decode-step kernel on CUDA).  A
+  serving request's samples are, token for token, those of
+  ``forward_rollout(seed, ...)`` over the same noise.
+- **cached, exploring** (``exploration_eps`` a number; JAX's traced
+  epsilon, which turns the fused step off): ``policy.apply_cached`` (cache
+  queries through the decode-attention kernel on CUDA) then
+  epsilon-uniform ``sample_masked`` over a :class:`StepNoise`.
+- **uncached** (a policy without cache entry points, such as the MLP, or
+  an env without ``observe_last``; JAX's ``_cache_engaged`` is False):
+  ``policy.apply(obs)`` then ``sample_masked``, over a :class:`StepNoise`
+  when exploring and a Gumbel tensor otherwise.
+
+:func:`backward_rollout` samples trajectories back from given terminal
+states under the uniform or the learned P_B and returns their total log
+P_F and log P_B (the EUBO eval's estimator).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from ..envs.base import Environment
-from .types import (NoiseSource, StepNoiseSource, hash_gumbel,
-                    hash_step_noise, sample_masked)
+from .types import (NoiseSource, StepNoiseSource, hash_backward_gumbel,
+                    hash_gumbel, hash_step_noise, masked_logprobs,
+                    sample_masked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +67,13 @@ class RolloutBatch:
         return self.actions.shape[0]
 
 
+def _cache_engaged(env: Environment, policy) -> bool:
+    """The cached branches need both sides: a policy with KV-cache entry
+    points and an env that reports each step's new observation token."""
+    return (hasattr(policy, "apply_cached")
+            and getattr(env, "supports_incremental_obs", False))
+
+
 @torch.no_grad()
 def forward_rollout(seed: int, env: Environment, env_params, policy,
                     num_envs: int, *,
@@ -67,17 +82,17 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
                     exploration_eps: Optional[float] = None) -> RolloutBatch:
     """Sample ``num_envs`` trajectories of ``env.max_steps`` steps on the
     device of ``env_params``.  Row i's noise at step t is
-    ``noise(seed, i, t, A)``: a (B, A) Gumbel tensor on the fused branch
-    (``exploration_eps=None``, default :func:`hash_gumbel`), a
-    :class:`StepNoise` on the exploring one (default
-    :func:`hash_step_noise`).  ``seed`` may use 64 bits.  ``logit_temp``
-    scales the forward logits (a tempered policy, as the serving engine's
-    per-lane temperature); the exploring branch does not take it, as
-    training does not."""
+    ``noise(seed, i, t, A)``: a :class:`StepNoise` when exploring
+    (``exploration_eps`` a number, default :func:`hash_step_noise`), a
+    (B, A) Gumbel tensor otherwise (default :func:`hash_gumbel`).  ``seed``
+    may use 64 bits.  ``logit_temp`` scales the forward logits (a tempered
+    policy, as the serving engine's per-lane temperature); only the fused
+    branch takes it, as only serving uses it."""
     explore = exploration_eps is not None
-    if explore and logit_temp is not None:
+    cached = _cache_engaged(env, policy)
+    if logit_temp is not None and (explore or not cached):
         raise ValueError("forward_rollout: logit_temp is for the fused "
-                         "(exploration_eps=None) branch only")
+                         "(cached, exploration_eps=None) branch only")
     if noise is None:
         noise = hash_step_noise if explore else hash_gumbel
     T = env.max_steps
@@ -86,7 +101,7 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
     A = env.action_dim
     ids = torch.arange(num_envs, dtype=torch.int64, device=dev)
     seeds = torch.full((num_envs,), int(seed), dtype=torch.int64, device=dev)
-    cache = policy.cache_init(num_envs)
+    cache = policy.cache_init(num_envs) if cached else None
     temp = None if logit_temp is None else torch.full(
         (num_envs,), float(logit_temp), dtype=torch.float32, device=dev)
     prev = torch.zeros(num_envs, dtype=torch.int64, device=dev)
@@ -101,20 +116,27 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
         was_done = env.is_terminal(state, env_params)
         # terminal rows keep a legal dummy action
         safe_mask = fmask | was_done[:, None]
-        token, pos, length = env.observe_last(state, env_params, prev)
         step_t = torch.full_like(ids, t)
-        if explore:
-            n = noise(seeds, ids, step_t, A)
-            out, cache = policy.apply_cached(cache, token, pos, length,
-                                             step=t)
-            actions, log_pf = sample_masked(
-                out["logits"], safe_mask, n.gumbel, eps=exploration_eps,
-                gumbel_u=n.gumbel_u, explore_u=n.explore_u)
-        else:
+        n = noise(seeds, ids, step_t, A)
+        if cached:
+            token, pos, length = env.observe_last(state, env_params, prev)
+        if cached and not explore:
             actions, log_pf, _, cache = policy.sample_cached(
-                cache, token, pos, length, noise(seeds, ids, step_t, A),
-                safe_mask, step=t, logit_temp=temp)
+                cache, token, pos, length, n, safe_mask, step=t,
+                logit_temp=temp)
             actions = actions.long()
+        else:
+            if cached:
+                out, cache = policy.apply_cached(cache, token, pos, length,
+                                                 step=t)
+            else:
+                out = policy.apply(obs)
+            if explore:
+                actions, log_pf = sample_masked(
+                    out["logits"], safe_mask, n.gumbel, eps=exploration_eps,
+                    gumbel_u=n.gumbel_u, explore_u=n.explore_u)
+            else:
+                actions, log_pf = sample_masked(out["logits"], safe_mask, n)
         _, new_state, log_r, _ = env.step(state, actions, env_params)
         for k, v in (("obs", obs), ("fwd_mask", fmask), ("bwd_mask", bmask),
                      ("actions", actions),
@@ -141,3 +163,66 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
         log_r_state=zeros.expand(T + 1, num_envs).clone(),
         energy=zeros.expand(T + 1, num_envs).clone(),
         log_pf_beh=torch.stack(ys["log_pf"]))
+
+
+class BackwardRollout(NamedTuple):
+    log_pf: torch.Tensor     # (B,) total forward log-prob of the trajectory
+    log_pb: torch.Tensor     # (B,) total backward log-prob
+    batch: Optional[RolloutBatch]
+
+
+@torch.no_grad()
+def backward_rollout(seed: int, env: Environment, env_params, policy,
+                     terminal_state, *, noise: Optional[NoiseSource] = None,
+                     backward_policy: str = "learned",
+                     collect: bool = False) -> BackwardRollout:
+    """Sample tau ~ P_B(. | x) back from ``terminal_state`` for
+    ``env.max_steps`` steps and return log P_F(tau) and log P_B(tau | x)
+    per row (paper §B.2).
+
+    ``backward_policy="learned"`` uses the policy's ``logits_b`` head when
+    it has one and the uniform P_B otherwise; ``"uniform"`` forces the
+    uniform P_B.  log P_F re-evaluates the policy at each previous state.
+    Row i's draw at step t is
+    ``noise(seed, i, t, Ab)``, a (B, Ab) Gumbel tensor (default
+    :func:`hash_backward_gumbel`, a stream no forward rollout uses).
+    ``collect=True`` (the forward-ordered batch the replay samplers need)
+    is not ported yet and raises."""
+    if collect:
+        raise NotImplementedError("backward_rollout(collect=True) waits for "
+                                  "the replay samplers (ROADMAP.md)")
+    if backward_policy not in ("learned", "uniform"):
+        raise ValueError(f"unknown backward_policy {backward_policy!r}")
+    if noise is None:
+        noise = hash_backward_gumbel
+    dev = terminal_state.steps.device
+    B = terminal_state.steps.shape[0]
+    ids = torch.arange(B, dtype=torch.int64, device=dev)
+    seeds = torch.full((B,), int(seed), dtype=torch.int64, device=dev)
+    acc_pf = torch.zeros(B, dtype=torch.float32, device=dev)
+    acc_pb = torch.zeros(B, dtype=torch.float32, device=dev)
+    state = terminal_state
+    for t in range(env.max_steps):
+        at_init = env.is_initial(state, env_params)
+        bmask = env.backward_mask(state, env_params)
+        logits_b = None
+        if backward_policy == "learned":
+            logits_b = policy.apply(env.observe(state, env_params)).get(
+                "logits_b")
+        if logits_b is None:
+            logits_b = torch.zeros(bmask.shape, dtype=torch.float32,
+                                   device=dev)
+        bwd_a, log_pb = sample_masked(
+            logits_b, bmask | at_init[:, None],
+            noise(seeds, ids, torch.full_like(ids, t), bmask.shape[-1]))
+        _, prev, _, _ = env.backward_step(state, bwd_a, env_params)
+        live = ~at_init
+        fwd_a = env.get_forward_action(state, bwd_a, prev, env_params)
+        logp = masked_logprobs(
+            policy.apply(env.observe(prev, env_params))["logits"],
+            env.forward_mask(prev, env_params))
+        log_pf = torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0]
+        acc_pf = acc_pf + torch.where(live, log_pf, 0.0)
+        acc_pb = acc_pb + torch.where(live, log_pb, 0.0)
+        state = prev
+    return BackwardRollout(log_pf=acc_pf, log_pb=acc_pb, batch=None)

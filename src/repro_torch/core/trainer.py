@@ -12,12 +12,16 @@ from .rollout import RolloutBatch
 
 
 class GFNConfig(NamedTuple):
+    """Training configuration: the fields, defaults and order of
+    ``repro.core.trainer.GFNConfig``, so a config built positionally means
+    the same in both packages."""
     objective: str = "tb"
     num_envs: int = 16
     lr: float = 1e-3
     log_z_lr: Optional[float] = 1e-1
     weight_decay: float = 0.0
     max_grad_norm: Optional[float] = None
+    subtb_lambda: float = 0.9
     exploration_eps: float = 0.0
     exploration_anneal_steps: int = 0
     stop_action: Optional[int] = None

@@ -144,6 +144,15 @@ def hash_step_noise(seed: torch.Tensor, index: torch.Tensor,
         explore_u=_uniform_of_bits(_mix32(key ^ 0xA54FF53A)))
 
 
+def hash_backward_gumbel(seed: torch.Tensor, index: torch.Tensor,
+                         t: torch.Tensor, num_actions: int) -> torch.Tensor:
+    """Default noise source of backward rollouts: Gumbel noise from the
+    counter hash of ``(seed[b], index[b], t[b])`` on a stream of its own,
+    so a backward rollout never reuses a forward rollout's draws."""
+    return _gumbel_of_key(_mix32(_row_key(seed, index, t) ^ 0x510E527F),
+                          num_actions)
+
+
 def train_seed(seed: int, iteration: int) -> int:
     """The 64-bit noise seed of training iteration ``iteration`` of a run
     seeded ``seed``: ``seed * 2**32 + iteration``, one-to-one for
@@ -155,6 +164,21 @@ def train_seed(seed: int, iteration: int) -> int:
         raise ValueError(f"train_seed: seed {seed} or iteration "
                          f"{iteration} out of range")
     return (seed << 32) | iteration
+
+
+def eval_seed(seed: int, iteration: int, index: int) -> int:
+    """The 64-bit noise seed of evaluator ``index`` at iteration
+    ``iteration`` of an eval suite seeded ``seed``.  Bit 63 is set, which no
+    :func:`train_seed` has, so evals never draw a training iteration's
+    noise; as an int64 the value is negative.  One-to-one for
+    ``0 <= seed < 2**23``, ``0 <= index < 2**8`` and
+    ``0 <= iteration < 2**32``."""
+    seed, iteration, index = int(seed), int(iteration), int(index)
+    if not (0 <= seed < 2 ** 23 and 0 <= index < 2 ** 8
+            and 0 <= iteration < 2 ** 32):
+        raise ValueError(f"eval_seed: seed {seed}, iteration {iteration} "
+                         f"or index {index} out of range")
+    return (seed << 40 | index << 32 | iteration) - 2 ** 63
 
 
 @dataclasses.dataclass

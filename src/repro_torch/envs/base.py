@@ -90,6 +90,26 @@ class Environment(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} does not implement get_backward_action")
 
+    def _backward(self, state: EnvState, action: torch.Tensor,
+                  params: EnvParams) -> EnvState:
+        """Apply backward actions unconditionally (``backward_step`` guards
+        initial states)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement backward steps")
+
+    def get_forward_action(self, state: EnvState, bwd_action: torch.Tensor,
+                           prev_state: EnvState,
+                           params: EnvParams) -> torch.Tensor:
+        """The forward action that maps ``prev_state`` back to ``state``
+        after backward action ``bwd_action`` (inverse of
+        :meth:`get_backward_action`)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement get_forward_action")
+
+    def is_initial(self, state: EnvState, params: EnvParams) -> torch.Tensor:
+        """Default: a state with zero elapsed steps."""
+        return state.steps == 0
+
     def observe_last(self, state: EnvState, params: EnvParams,
                      last_action: torch.Tensor):
         """``(token, position, length)`` of the observation entry the last
@@ -109,3 +129,15 @@ class Environment(abc.ABC):
                             self.log_reward(new_state, params).float(),
                             torch.zeros((), device=newly_done.device))
         return self.observe(new_state, params), new_state, log_r, done
+
+    def backward_step(self, state: EnvState, action: torch.Tensor,
+                      params: EnvParams):
+        """One backward step; a no-op on rows already at the initial state.
+        Returns ``(obs, prev_state, zeros, at_initial)``."""
+        at_init = self.is_initial(state, params)
+        prev = select_state(at_init, state,
+                            self._backward(state, action, params))
+        zeros = torch.zeros(action.shape[:1], dtype=torch.float32,
+                            device=action.device)
+        return (self.observe(prev, params), prev, zeros,
+                self.is_initial(prev, params))

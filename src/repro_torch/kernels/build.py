@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
-           CSRC / "traj_logprob.cu")
+           CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
@@ -70,6 +70,15 @@ class TrajLogprobArgs(ctypes.Structure):
                 + [(n, ctypes.c_longlong) for n in TRAJ_LOGPROB_STRIDES]
                 + [(n, ctypes.c_int) for n in ("batch", "steps",
                                                "num_actions", "device")])
+
+
+class SubtbArgs(ctypes.Structure):
+    """Mirror of ``SubtbArgs`` in subtb_loss.cu."""
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("phi", "length", "g", "loss", "dphi", "table")]
+                + [(n, ctypes.c_longlong) for n in ("phi_sb", "phi_st")]
+                + [("lam", ctypes.c_float)]
+                + [(n, ctypes.c_int) for n in ("batch", "states", "device")])
 
 
 def find_nvcc() -> str:
@@ -138,4 +147,9 @@ def library() -> ctypes.CDLL:
     for fn in (lib.repro_traj_logprob_fwd, lib.repro_traj_logprob_bwd):
         fn.argtypes = [ctypes.POINTER(TrajLogprobArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for fn in (lib.repro_subtb_fwd, lib.repro_subtb_bwd):
+        fn.argtypes = [ctypes.POINTER(SubtbArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.repro_subtb_smem_states.argtypes = []
+    lib.repro_subtb_smem_states.restype = ctypes.c_int
     return lib

@@ -13,7 +13,8 @@ from typing import Dict, Mapping, Optional, Union
 
 import torch
 
-from .ref import (ref_decode_attention, ref_decode_step, ref_traj_logprob,
+from .ref import (ref_decode_attention, ref_decode_step, ref_subtb,
+                  ref_subtb_backward, ref_traj_logprob,
                   ref_traj_logprob_backward)
 
 #: keys of the stacked decoder weights the fused step takes
@@ -329,3 +330,126 @@ def traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
 
 
 traj_logprob.launches = 0
+
+
+def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
+                    lam: float) -> torch.Tensor:
+    """Check phi (B, T+1) float32, length (B,) integer on phi's device with
+    0 <= length <= T, and 0 < lam <= 1; return length as int32.  The range
+    check reads the lengths on the host."""
+    dev = phi.device
+    _require("phi", op, phi, torch.float32, dev, 2)
+    if not isinstance(length, torch.Tensor) or length.device != dev:
+        raise ValueError(f"{op}: length must be a tensor on {dev}")
+    if length.dtype not in (torch.int32, torch.int64) or length.dim() != 1:
+        raise TypeError(f"{op}: length must be a 1-D int32 or int64 tensor, "
+                        f"got {length.dtype} with {length.dim()} dims")
+    B, T1 = phi.shape
+    if tuple(length.shape) != (B,) or T1 < 1:
+        raise ValueError(f"{op}: phi {tuple(phi.shape)} and length "
+                         f"{tuple(length.shape)} do not agree")
+    if not 0.0 < float(lam) <= 1.0:
+        raise ValueError(f"{op}: lam must lie in (0, 1], got {lam}")
+    if B:
+        lo, hi = (int(v) for v in torch.aminmax(length))
+        if lo < 0 or hi > T1 - 1:
+            raise ValueError(f"{op}: lengths must lie in [0, {T1 - 1}], got "
+                             f"[{lo}, {hi}]")
+    return length.to(torch.int32).contiguous()
+
+
+def _subtb_args(phi, length, lam, **ptrs):
+    from . import build
+    B, T1 = phi.shape
+    table = None
+    if T1 > build.library().repro_subtb_smem_states():
+        table = torch.empty(T1, dtype=torch.float32, device=phi.device)
+    ptrs["table"] = table
+    args = build.SubtbArgs(
+        phi=phi.data_ptr(), length=length.data_ptr(),
+        **{k: (None if v is None else v.data_ptr())
+           for k, v in ptrs.items()},
+        phi_sb=phi.stride(0), phi_st=phi.stride(1), lam=float(lam),
+        batch=B, states=T1, device=_device_index(phi.device))
+    return args, table
+
+
+def _subtb_forward(phi: torch.Tensor, length: torch.Tensor,
+                   lam: float) -> torch.Tensor:
+    dev = phi.device
+    if dev.type == "cpu":
+        return ref_subtb(phi, length, lam)
+    if dev.type != "cuda":
+        raise ValueError(f"subtb_loss: no kernel for device {dev}")
+    from . import build
+    loss = torch.empty(phi.shape[0], dtype=torch.float32, device=dev)
+    args, table = _subtb_args(phi, length, lam, loss=loss)
+    err = build.library().repro_subtb_fwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"subtb_loss kernel launch failed: CUDA error "
+                           f"{err}")
+    subtb_loss.launches += 1
+    return loss
+
+
+def subtb_loss_backward(phi: torch.Tensor, length: torch.Tensor,
+                        g: torch.Tensor, lam: float = 0.9) -> torch.Tensor:
+    """The gradient of :func:`subtb_loss` with respect to ``phi`` for the
+    cotangent ``g`` (B,), in closed form:
+    ``g * 2 / max(den, 1e-9) * sum_{m<=n, m!=i} lam^|i-m| (phi_i - phi_m)``
+    for states i <= n, 0 past n.  Returns (B, T+1) float32: the backward
+    kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    op = "subtb_loss_backward"
+    length = _subtb_operands(op, phi, length, lam)
+    _require("g", op, g, torch.float32, phi.device, 1)
+    if tuple(g.shape) != (phi.shape[0],):
+        raise ValueError(f"{op}: cotangent of shape {tuple(g.shape)}")
+    dev = phi.device
+    if dev.type == "cpu":
+        return ref_subtb_backward(phi, length, lam, g)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    from . import build
+    g = g.contiguous()
+    dphi = torch.empty(phi.shape, dtype=torch.float32, device=dev)
+    args, table = _subtb_args(phi, length, lam, g=g, dphi=dphi)
+    err = build.library().repro_subtb_bwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    subtb_loss_backward.launches += 1
+    return dphi
+
+
+subtb_loss_backward.launches = 0
+
+
+class _SubtbLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, phi, length, lam):
+        ctx.save_for_backward(phi, length)
+        ctx.lam = lam
+        return _subtb_forward(phi, length, lam)
+
+    @staticmethod
+    def backward(ctx, g):
+        phi, length = ctx.saved_tensors
+        return subtb_loss_backward(phi, length, g, ctx.lam), None, None
+
+
+def subtb_loss(phi: torch.Tensor, length: torch.Tensor,
+               lam: float = 0.9) -> torch.Tensor:
+    """Per-trajectory SubTB(lambda) losses from potentials (port of
+    ``repro.kernels.ops.subtb_loss``).
+
+    phi: (B, T+1) float32, any strides (the loss passes the transposed view
+    of its time-major potentials); length: (B,) int32 or int64 in [0, T],
+    converted to int32 once here; 0 < lam <= 1.  Returns (B,):
+    ``sum_{j<k<=n} lam^(k-j) (phi_j - phi_k)^2 / max(sum lam^(k-j), 1e-9)``.
+    Gradients flow to ``phi`` only, through :func:`subtb_loss_backward`."""
+    length = _subtb_operands("subtb_loss", phi, length, lam)
+    return _SubtbLoss.apply(phi, length, float(lam))
+
+
+subtb_loss.launches = 0

@@ -146,3 +146,48 @@ def ref_traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
     coeff = (g_total.to(torch.float32)[:, None] + g_step.to(torch.float32)) \
         * (valid != 0)
     return coeff[..., None] * (onehot - p)
+
+
+def _subtb_weights(T1: int, length: torch.Tensor, lam: float,
+                   device: torch.device) -> torch.Tensor:
+    """(B, T+1, T+1) pair weights: lam^(k-j) where j < k <= length[b],
+    else 0."""
+    f32 = torch.float32
+    idx = torch.arange(T1, device=device)
+    on = idx[None, :] <= length.to(device).long()[:, None]       # (B, T+1)
+    pair = on[:, :, None] & on[:, None, :] & (idx[:, None] < idx[None, :])
+    w = torch.tensor(lam, dtype=f32, device=device) ** \
+        (idx[None, :] - idx[:, None]).to(f32)
+    return torch.where(pair, w[None], torch.zeros((), dtype=f32,
+                                                   device=device))
+
+
+def ref_subtb(phi: torch.Tensor, length: torch.Tensor,
+              lam: float) -> torch.Tensor:
+    """Per-trajectory SubTB(lambda) loss from flow-corrected potentials,
+    the dense pairwise form (port of ``repro.kernels.ref.ref_subtb``).
+
+    phi: (B, T+1) with phi_t = log F(s_t) - cumsum(log_pf - log_pb);
+    length: (B,) trajectory length n (states 0..n are on the trajectory).
+    loss_b = sum_{0<=j<k<=n} lam^(k-j) (phi_j - phi_k)^2
+             / max(sum lam^(k-j), 1e-9); 0 when n = 0."""
+    B, T1 = phi.shape
+    w = _subtb_weights(T1, length, lam, phi.device)
+    resid = phi[:, :, None] - phi[:, None, :]
+    num = (w * resid.square()).sum((1, 2))
+    den = torch.clamp(w.sum((1, 2)), min=1e-9)
+    return num / den
+
+
+def ref_subtb_backward(phi: torch.Tensor, length: torch.Tensor, lam: float,
+                       g: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`ref_subtb` with respect to ``phi`` for the
+    cotangent ``g`` (B,), in closed form: for i <= n,
+    ``g * 2 / max(den, 1e-9) * sum_{m<=n, m!=i} lam^|i-m| (phi_i - phi_m)``
+    and 0 past n.  ``den`` does not depend on phi.  Returns (B, T+1)."""
+    B, T1 = phi.shape
+    w = _subtb_weights(T1, length, lam, phi.device)
+    den = torch.clamp(w.sum((1, 2)), min=1e-9)
+    sym = w + w.transpose(1, 2)                        # lam^|i-m|, i != m
+    resid = phi[:, :, None] - phi[:, None, :]          # phi_i - phi_m
+    return (2 * g.to(torch.float32) / den)[:, None] * (sym * resid).sum(-1)

@@ -69,6 +69,27 @@ def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
 
 
+def mlp_init(in_dim: int, hidden: Sequence[int], out_dim: int, *,
+             generator: torch.Generator,
+             device: torch.device) -> Dict[str, Any]:
+    """``layer_{i}`` dense layers ``in_dim -> *hidden -> out_dim``:
+    LeCun-normal weights, zero biases."""
+    dims = [in_dim, *hidden, out_dim]
+    return {f"layer_{i}": dense_init(dims[i], dims[i + 1],
+                                     generator=generator, device=device)
+            for i in range(len(dims) - 1)}
+
+
+def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense layers with ReLU between them (none after the last)."""
+    n = len(list(p))
+    for i in range(n):
+        x = dense_apply(p[f"layer_{i}"], x)
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")

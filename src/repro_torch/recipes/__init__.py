@@ -8,9 +8,9 @@ half of ``repro.recipes``), run by :mod:`repro_torch.run`."""
 from __future__ import annotations
 
 import ast
-from typing import Callable, Dict, Iterable, NamedTuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
-from . import seqs
+from . import hypergrid, seqs
 
 
 class Recipe(NamedTuple):
@@ -31,9 +31,13 @@ class TrainRecipe(NamedTuple):
     description: str
     make_env: Callable          # (**overrides) -> Environment
     make_policy: Callable       # (env, *, seed, device, requires_grad)
-    make_config: Callable       # (env, num_envs) -> GFNConfig
+    make_config: Callable       # (env, num_envs, iterations) -> GFNConfig
     iterations: int
     num_envs: int
+    #: (env, env_params, policy, *, seed) -> evaluators; None: the
+    #: recipe's evals are not ported
+    make_evals: Optional[Callable] = None
+    eval_every: int = 0
 
 
 _TRAIN_RECIPES = {
@@ -42,6 +46,15 @@ _TRAIN_RECIPES = {
         seqs.bitseq_env, seqs.bitseq_policy, seqs.bitseq_config,
         iterations=50000, num_envs=16),
 }
+for _obj in ("tb", "db", "subtb"):
+    _TRAIN_RECIPES[f"hypergrid_{_obj}"] = TrainRecipe(
+        f"hypergrid_{_obj}",
+        f"{_obj.upper()} on the 4x8^4 hypergrid, exact-DP TV/JSD and log Z "
+        "bounds against the closed-form target (paper §B.1; --set side=20 "
+        "for the paper grid)",
+        hypergrid.hypergrid_env, hypergrid.hypergrid_policy,
+        hypergrid.hypergrid_config(_obj), iterations=20000, num_envs=16,
+        make_evals=hypergrid.hypergrid_evals, eval_every=1000)
 
 
 def names():

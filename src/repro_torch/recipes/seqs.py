@@ -27,9 +27,10 @@ def bitseq_policy(env: BitSeqEnvironment, *, seed: int = 0,
                              device=device, requires_grad=requires_grad)
 
 
-def bitseq_config(env: BitSeqEnvironment, num_envs: int = 16) -> GFNConfig:
+def bitseq_config(env: BitSeqEnvironment, num_envs: int = 16,
+                  iterations: int = 50000) -> GFNConfig:
     """``bitseq_tb``'s training config (``repro/recipes/seqs.py:44-46``
     over ``GFNConfig``'s defaults): TB, lr 1e-3, log Z lr 0.1, exploration
-    epsilon 1e-3."""
+    epsilon 1e-3 (not annealed, so the iteration budget is unused)."""
     return GFNConfig(objective="tb", num_envs=num_envs, lr=1e-3,
                      exploration_eps=1e-3)

@@ -1,7 +1,8 @@
 """The port on a CUDA GPU: the hand-written kernels (decode step, decode
-attention, trajectory log-prob forward and backward) against their plain
-PyTorch versions, the serving engine on the card against
-``forward_rollout``, and two training iterations on the card.  Imports no JAX, so it runs on a machine with a GPU
+attention, trajectory log-prob forward and backward, SubTB loss forward
+and backward) against their plain PyTorch versions, the serving engine on
+the card against ``forward_rollout``, two bitseq_tb training iterations
+and one full-size hypergrid_subtb iteration on the card.  Imports no JAX, so it runs on a machine with a GPU
 and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -19,7 +20,8 @@ from repro_torch import recipes  # noqa: E402
 from repro_torch.core.rollout import forward_rollout  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (ref_decode_attention,  # noqa: E402
-                                     ref_decode_step, ref_traj_logprob,
+                                     ref_decode_step, ref_subtb,
+                                     ref_subtb_backward, ref_traj_logprob,
                                      ref_traj_logprob_backward)
 from repro_torch.serve import SamplingEngine  # noqa: E402
 
@@ -237,3 +239,71 @@ def test_fused_step_follows_adam_on_cuda(cuda):
                                                step=0)
     assert torch.equal(a_f.long(), a_p)
     torch.testing.assert_close(lp_f, lp_p, atol=1e-4, rtol=1e-4)
+
+
+# -- subtb_loss -------------------------------------------------------------------
+
+def _subtb_inputs(B, T1, device, seed=0):
+    """Time-major potentials (T+1, B), handed over as the (B, T+1) view the
+    loss passes, and lengths starting T, 0, 1 (a single row gets T)."""
+    g = torch.Generator().manual_seed(seed)
+    phi_tm = torch.randn(T1, B, generator=g)
+    length = torch.randint(0, T1, (B,), generator=g)
+    length[:3] = torch.tensor([T1 - 1, 0, 1])[:B]
+    return phi_tm.to(device).T, length.to(device)
+
+
+@pytest.mark.parametrize("B,T1,lam", [(16, 30, 0.9), (16, 78, 0.9),
+                                      (3, 100, 0.8), (1, 7, 0.5),
+                                      (4, 200, 0.99), (3, 7000, 0.999)])
+def test_subtb_kernels_match_plain_version(cuda, B, T1, lam):
+    """Forward rtol 1e-4 (fp32 sums in another order), backward to 1e-4 of
+    its largest entry; (3, 7000) is past the shared-memory size, where
+    phi and the weight table stay in device memory."""
+    phi, length = _subtb_inputs(B, T1, cuda, seed=T1)
+    g = torch.linspace(-1.0, 2.0, B, device=cuda)
+    f0, b0 = ops.subtb_loss.launches, ops.subtb_loss_backward.launches
+    x = phi.detach().requires_grad_(True)
+    loss = ops.subtb_loss(x, length, lam)
+    (loss * g).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.subtb_loss.launches == f0 + 1
+    assert ops.subtb_loss_backward.launches == b0 + 1
+    torch.testing.assert_close(loss, ref_subtb(phi, length, lam),
+                               rtol=1e-4, atol=0)
+    assert torch.all(loss.detach()[length == 0] == 0)  # n = 0
+    want = ref_subtb_backward(phi, length, lam, g)
+    assert float((x.grad - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    with torch.no_grad():        # no float atomics: runs agree bit for bit
+        assert torch.equal(ops.subtb_loss(phi, length, lam), loss.detach())
+
+
+def test_subtb_on_cuda_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "ref_subtb", refuse)
+    monkeypatch.setattr(ops, "ref_subtb_backward", refuse)
+    phi, length = _subtb_inputs(16, 30, cuda)
+    x = phi.detach().requires_grad_(True)
+    ops.subtb_loss(x, length, 0.9).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all()
+
+
+def test_hypergrid_subtb_iteration_on_cuda(cuda):
+    """One hypergrid_subtb iteration at full size (4x8^4, 16 envs, MLP
+    2x256) with its evals: one SubTB forward and one backward launch, and
+    two traj_logprob launches for the log Z bounds, none in training."""
+    from repro_torch.run import run_recipe
+    counts = (ops.subtb_loss, ops.subtb_loss_backward, ops.traj_logprob,
+              ops.traj_logprob_backward)
+    before = [c.launches for c in counts]
+    out = run_recipe("hypergrid_subtb", iterations=1, device=cuda,
+                     eval_every=1, log=lambda s: None)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [1, 1, 2, 0]
+    assert math.isfinite(out["history"][0]["loss"])
+    assert [r["step"] for r in out["rows"]] == [0]
+    assert all(math.isfinite(v) for v in out["rows"][0].values())

@@ -201,8 +201,8 @@ def test_evaluate_trajectory_and_tb_parts_match_jax(pair):
     tnum, tden = tb_parts(tev, tb, tpol.params["log_z"] + 0.25)
     np.testing.assert_allclose(float(tnum.detach()), float(jnum), rtol=1e-5)
     assert float(tden) == float(jden) == B
-    with pytest.raises(NotImplementedError, match="subtb"):
-        objective_parts("subtb")
+    with pytest.raises(NotImplementedError, match="fldb"):
+        objective_parts("fldb")
 
 
 def test_optimizer_groups_and_eps_schedule():
