@@ -12,12 +12,12 @@ printing one JSON line:
              (one ``nvcc`` per source, in parallel), and times one
              ``nvcc -shared`` call over all sources beside it;
 3. kernel  - each kernel (decode_step, decode_attention, traj_logprob and
-             subtb_loss forward and backward) against its plain PyTorch
-             version on the card, at the main paths' shapes and at odd
-             ones, with its device time, the plain version's, the least
-             time the card could take (``bound``) and, where one PyTorch
-             call computes the same function, that call's
-             (``library_us``);
+             subtb_loss forward and backward, flash_attention,
+             rwkv6_scan) against its plain PyTorch version on the card,
+             at the main paths' shapes and at odd ones, with its device
+             time, the plain version's, the least time the card could
+             take (``bound``) and, where one PyTorch call computes the
+             same function, that call's (``library_us``);
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
@@ -48,6 +48,18 @@ printing one JSON line:
              samples under 0.12, with the exact-DP TV beside it; and the
              exact DP of the paper's 20^4 grid on the card against the
              CPU's;
+7. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
+             full width and depth (32 layers, d_model 1600, bf16, random
+             weights from a seeded generator on the card): batch 8, 32
+             prompt tokens, 32 generated; tokens/s, steps/s, exactly 32
+             rwkv6_scan launches per step and no flash;
+   lm_prefill - ``launch.steps.make_prefill_step`` over 2 x 4,096 tokens:
+             tokens/s, device time by kernel, finite log-probs, exactly 32
+             flash_attention and 32 rwkv6_scan launches;
+   lm_profile - one full-width decode step's idle share and tops;
+   lm_hold - a 2-layer full-width fp32 Hymba (window 32) on the card
+             (kernels) against the CPU (plain versions): a 512-token
+             scoring pass and 40 decode steps, 1e-3, greedy tokens equal;
 
 then a ``kernels`` line, the card's ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -77,13 +89,16 @@ BWD_RTOL = 1e-4
 BWD_ATOL = 1e-8
 #: lanes whose two best Gumbel scores lie this close may pick either
 TIE_GAP = 1e-5
+#: profiler windows tried before a kernel's device time counts as missing
+PROFILE_TRIES = 3
 SERVE_LANES = 64
 TRAIN_ITERS = 50
 #: bitseq_tb at full width: 3 layers x 15 steps of cached queries, and
 #: traj_logprob forward for P_F and P_B, backward for P_F, per iteration
 TRAIN_LAUNCHES_PER_ITER = {"decode_attention": 45, "traj_logprob_fwd": 2,
                            "traj_logprob_bwd": 1, "decode_step": 0,
-                           "subtb_loss_fwd": 0, "subtb_loss_bwd": 0}
+                           "subtb_loss_fwd": 0, "subtb_loss_bwd": 0,
+                           "flash_attention": 0, "rwkv6_scan": 0}
 #: hypergrid_subtb at full size: iterations, and evals at 0 and 49
 HYPERGRID_ITERS = 50
 HYPERGRID_EVAL_EVERY = 49
@@ -91,11 +106,28 @@ HYPERGRID_EVAL_EVERY = 49
 #: stop-action path takes no traj_logprob, the LogZBoundsEval two
 HYPERGRID_LAUNCHES_PER_ITER = {"decode_attention": 0, "traj_logprob_fwd": 0,
                                "traj_logprob_bwd": 0, "decode_step": 0,
-                               "subtb_loss_fwd": 1, "subtb_loss_bwd": 1}
+                               "subtb_loss_fwd": 1, "subtb_loss_bwd": 1,
+                               "flash_attention": 0, "rwkv6_scan": 0}
 HYPERGRID_EVAL_LAUNCHES = {"traj_logprob_fwd": 2}
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
+#: H100 SXM data sheet: dense bf16 tensor-core peak (the bound of a kernel
+#: whose products take bf16 operands)
+BF16_FLOP_PER_S = 989e12
+#: kernel vs plain version with bf16 outputs, entry by entry: both round
+#: the same fp32 value, and may land one bf16 ulp apart, at most 2^-7 of
+#: the entry; entries near 0 are allowed 1e-3 of the output's rms
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL_RMS = 1e-3
+#: Hymba-1.5B (src/repro/configs/hymba_1_5b.py): 32 layers, one flash and
+#: one scan launch per layer and pass
+HYMBA_LAYERS = 32
+DECODE_BATCH, DECODE_PROMPT, DECODE_GEN = 8, 32, 32
+PREFILL_BATCH, PREFILL_LEN = 2, 4096
+#: lm_hold: 2 full-width layers in fp32, a 32-slot window
+HOLD_LAYERS, HOLD_TOKENS, HOLD_WINDOW, HOLD_STEPS = 2, 512, 32, 40
+HOLD_TOL = 1e-3
 
 
 def wrappers() -> dict:
@@ -107,7 +139,9 @@ def wrappers() -> dict:
             "traj_logprob_fwd": ops.traj_logprob,
             "traj_logprob_bwd": ops.traj_logprob_backward,
             "subtb_loss_fwd": ops.subtb_loss,
-            "subtb_loss_bwd": ops.subtb_loss_backward}
+            "subtb_loss_bwd": ops.subtb_loss_backward,
+            "flash_attention": ops.flash_attention,
+            "rwkv6_scan": ops.rwkv6_scan}
 
 
 def reset_launches() -> None:
@@ -165,14 +199,18 @@ def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(t for name, t, _ in device_rows(prof) if match in name)
-    if not total > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total / iters
+    # now and then the profiler hands back no kernel records at all for a
+    # short window (seen once for a 2.5 us kernel); profile it again
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(t for name, t, _ in device_rows(prof) if match in name)
+        if total > 0:
+            return total / iters
+    raise AssertionError(f"torch.profiler recorded no device time in "
+                         f"{PROFILE_TRIES} tries")
 
 
 # -- phase 3: decode_step against its plain version ---------------------------
@@ -287,7 +325,8 @@ def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
     return row
 
 
-def timings(kernel, plain, library, match: str = "") -> dict:
+def timings(kernel, plain, library, match: str = "",
+            plain_iters: int = 20) -> dict:
     """Device time per call (``torch.profiler``, the kernels' own time) of
     the kernel, its plain version and the library call, so the three
     compare like for like; and each one's time per call between CUDA
@@ -297,8 +336,9 @@ def timings(kernel, plain, library, match: str = "") -> dict:
     wrapper launches (operand checks)."""
     out = {"kernel_us": profiled_device_us(kernel, match=match),
            "wrapper_us": cuda_time_us(kernel),
-           "plain_us": profiled_device_us(plain, iters=20),
-           "plain_wall_us": cuda_time_us(plain, iters=50, warmup=5),
+           "plain_us": profiled_device_us(plain, iters=plain_iters),
+           "plain_wall_us": cuda_time_us(plain, iters=5 * plain_iters // 2,
+                                         warmup=max(1, plain_iters // 4)),
            "library_us": None, "library_wall_us": None}
     if library is not None:
         out["library_us"] = profiled_device_us(library)
@@ -306,10 +346,12 @@ def timings(kernel, plain, library, match: str = "") -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The larger of the byte time and the fp32 operation time."""
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> dict:
+    """The larger of the byte time and the operation time at the peak of
+    the operands' type (fp32 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return {"bound_us": max(t_bytes, t_ops) * 1e6,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -547,6 +589,127 @@ def check_subtb(B, T1, lam, seed, device):
                              f"scale, repeat bitwise {bitwise}, n = 0 exact "
                              f"zero {zero_exact}")
     return fwd, bwd
+
+
+# -- phase 3: flash_attention and rwkv6_scan against their plain versions ---------
+
+def _held(got, want, bf16: bool) -> dict:
+    """Hold ``got`` to ``want`` entry by entry, in fp32: |got - want| <=
+    rtol |want| + atol rms(want), (rtol, atol) = (BF16_RTOL, BF16_ATOL_RMS)
+    for bf16 outputs and (TOL, TOL) for fp32.  ``excess`` is the largest
+    ratio of an entry's error to what it is allowed (the check: <= 1); the
+    median |want| and rms(want) stand beside it to show the margin."""
+    got, want = got.float(), want.float()
+    rtol, atol = (BF16_RTOL, BF16_ATOL_RMS) if bf16 else (TOL, TOL)
+    diff = (got - want).abs()
+    rms = float(want.square().mean().sqrt())
+    allowed = rtol * want.abs() + atol * rms
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / allowed)
+    return {"max_abs_err": float(diff.max()), "excess": float(ratio.max()),
+            "want_median_abs": float(want.abs().median()), "want_rms": rms,
+            "tol": f"{rtol:g} |want| + {atol:g} rms(want), entry by entry"}
+
+
+def check_flash_attention(B, Sq, Skv, H, KVH, D, *, causal, window,
+                          bf16, seed, device, q_offset=0,
+                          kv_len=None) -> dict:
+    """The kernel, its plain version (dense, fp32 scores) and, as the
+    library yardstick, ``F.scaled_dot_product_attention`` with the same
+    boolean mask on (B, H, S, D) operands (kv heads repeated beforehand)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_mask, ref_flash_attention
+
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.randn(shape, generator=g).to(device, dt) for shape in (
+        (B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+
+    def plain():
+        return ref_flash_attention(q, k, v, **kw)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, **kw)
+
+    want, got = plain(), kernel()
+    torch.cuda.synchronize()
+    held = _held(got, want, bf16)
+    mask = attention_mask(Sq, Skv, device=device, **kw)
+    G = H // KVH
+    lq = q.transpose(1, 2).contiguous()
+    lk, lv = (x.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+              for x in (k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+
+    library_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+    pairs = int(mask.sum()) * B * H             # attended (query, key) pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    row = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KVH": KVH, "D": D,
+           "dtype": str(dt), "causal": causal, "window": window,
+           "q_offset": q_offset, "kv_len": kv_len, **held,
+           **timings(kernel, plain, library, match="flash_attention_kernel"),
+           "library_call": "F.scaled_dot_product_attention(bool mask), kv "
+                           "heads repeated",
+           "library_max_abs_err": library_err, "attended_pairs": pairs,
+           **bound(nbytes, 4 * D * pairs,
+                   BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)}
+    emit("kernel", name="flash_attention", **row)
+    if not held["excess"] <= 1:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {(B, Sq, Skv, H, KVH, D)}: {held}")
+    return row
+
+
+def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
+                     device) -> dict:
+    """The kernel against its plain version (the step recurrence the CPU
+    branch runs; one torch op chain per step, so it is timed over a few
+    calls when T is long); r, k, v in the working dtype, w fp32 in
+    [0.35, 0.95] as the JAX tests draw it.  The output is held as a bf16 or
+    fp32 output, the fp32 state as fp32.  No library call computes this
+    recurrence."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_rwkv6
+
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rn = lambda *shape: torch.randn(shape, generator=g)
+    r, k, v = (rn(*shape).to(device, dt) for shape in (
+        (B, T, H, Dk), (B, T, H, Dk), (B, T, H, Dv)))
+    w = (0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))).to(device)
+    u = (0.1 * rn(H, Dk)).to(device) if bonus else None
+    s0 = rn(B, H, Dk, Dv).to(device) if state else None
+
+    def plain():
+        return ref_rwkv6(r, k, v, w, u, s0)
+
+    def kernel():
+        return ops.rwkv6_scan(r, k, v, w, u, s0)
+
+    (want_o, want_s), (got_o, got_s) = plain(), kernel()
+    torch.cuda.synchronize()
+    held = {"o": _held(got_o, want_o, bf16),
+            "state": _held(got_s, want_s, False)}
+    nbytes = (r.element_size() * (2 * r.numel() + 2 * v.numel())
+              + 4 * w.numel() + 4 * B * H * Dk * Dv * (2 if state else 1))
+    flops = 4 * Dk * Dv * B * T * H
+    row = {"B": B, "T": T, "H": H, "Dk": Dk, "Dv": Dv, "dtype": str(dt),
+           "bonus": bonus, "state": state,
+           "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()},
+           "held": held,
+           **timings(kernel, plain, None, match="rwkv6_scan_kernel",
+                     plain_iters=2 if T > 256 else 20),
+           **bound(nbytes, flops)}
+    emit("kernel", name="rwkv6_scan", **row)
+    if not all(h["excess"] <= 1 for h in held.values()):
+        raise AssertionError(f"rwkv6_scan disagrees with its plain version "
+                             f"at {(B, T, H, Dk, Dv)}: {held}")
+    return row
 
 
 # -- phase 4: the serving path -------------------------------------------------
@@ -819,17 +982,23 @@ def train_hold_phase(device):
 
 
 def train_profile(loop, state, phase: str = "train_profile") -> None:
-    """Where one training iteration's time goes: timed plain, then under
-    ``torch.profiler`` (device time by kernel; the device's idle share of
-    the plain iteration's wall time), then under ``cProfile`` (host
-    functions by own time; read shares, not times)."""
+    """Where one training iteration's time goes (:func:`profile_step`)."""
+    profile_step(phase, lambda: loop.step(state))
+
+
+def profile_step(phase: str, step, **fields) -> None:
+    """Where one call of ``step`` (a training iteration, a decode step)
+    spends its time: timed plain, then under ``torch.profiler`` (device
+    time by kernel; the device's idle share of the plain call's wall time),
+    then under ``cProfile`` (host functions by own time; read shares, not
+    times)."""
     import cProfile
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
 
     def one():
-        loop.step(state)
+        step()
         torch.cuda.synchronize()
 
     one()                                   # warm: allocator, cuBLAS
@@ -845,7 +1014,7 @@ def train_profile(loop, state, phase: str = "train_profile") -> None:
     stats = pstats.Stats(host).stats
     total = sum(v[2] for v in stats.values())
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
-    emit(phase, iterations=1, wall_us=wall_us,
+    emit(phase, **fields, iterations=1, wall_us=wall_us,
          device_busy_us=busy, device_idle_share=1 - busy / wall_us,
          device_kernels=sum(r[2] for r in rows),
          device_top=[{"name": k[:70], "device_us": t, "calls": c}
@@ -1042,6 +1211,206 @@ def trained_fused_step(loop, state, before: dict, device) -> None:
             f"weights {fresh}, actions equal {same}, log_pf error {err}")
 
 
+# -- phase 7: Hymba-1.5B serving: decode and prompt scoring -----------------------
+
+def hymba_config(**changes):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("hymba-1.5b"), **changes)
+
+
+def hymba_params(cfg, device, seed: int = 0):
+    """Random full-width weights from a seeded generator on the card
+    (1.39 B normal draws; on a host CPU that takes many seconds)."""
+    from repro_torch.models import lm as LM
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return LM.init_params(cfg, generator=g, device=device)
+
+
+def _only(launches: dict, **want) -> dict:
+    return {k: want.get(k, 0) for k in launches}
+
+
+def lm_decode_phase(cfg, params, device) -> dict:
+    """``repro_torch.launch.lm_decode.serve`` at full width and depth:
+    batch 8, 32 prompt tokens prefilled one decode step at a time, then 32
+    sampled tokens; one rwkv6_scan launch per layer and step, no flash
+    (decode attends the window cache in plain torch, as JAX does)."""
+    from repro_torch.launch import lm_decode
+
+    smi = nvidia_smi()
+    lm_decode.serve(cfg, batch=DECODE_BATCH, prompt_len=2, gen=2, seed=1,
+                    device=device, params=params)          # warm: cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, tps = lm_decode.serve(cfg, batch=DECODE_BATCH,
+                                prompt_len=DECODE_PROMPT, gen=DECODE_GEN,
+                                seed=0, device=device, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = DECODE_PROMPT + DECODE_GEN
+    want = _only(launches, rwkv6_scan=HYMBA_LAYERS * steps)
+    n_params = sum(p.numel() for p in params.parameters())
+    emit("lm_decode", nvidia_smi=smi, model=cfg.name,
+         config={"layers": cfg.num_layers, "d_model": cfg.d_model,
+                 "heads": [cfg.num_heads, cfg.num_kv_heads],
+                 "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab_size, "ssm_state": cfg.ssm_state,
+                 "window": cfg.sliding_window, "dtype": cfg.dtype},
+         params=n_params, param_count_analytic=cfg.param_count(),
+         batch=DECODE_BATCH, prompt_len=DECODE_PROMPT,
+         gen=DECODE_GEN, decode_steps=steps, wall_s=wall,
+         gen_tokens_per_s=tps, gen_steps_per_s=tps / DECODE_BATCH,
+         steps_per_s=steps / wall,
+         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+         launches=launches, first_tokens=toks[0, :8].tolist())
+    if launches != want:
+        raise AssertionError(f"lm_decode launched {launches}, expected "
+                             f"{want}")
+    if tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm_decode tokens {tuple(toks.shape)} out of "
+                             "range")
+    return launches
+
+
+def lm_prefill_phase(cfg, params, device) -> dict:
+    """``repro_torch.launch.steps.make_prefill_step`` at full width: 2 x
+    4,096 tokens scored in one pass (past the 2,048 window, and 64 scan
+    chunks of 64); exactly one flash and one scan launch per layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    smi = nvidia_smi()
+    step = make_prefill_step(cfg)
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=g, device=device)
+    args = ({"model": params},
+            {"tokens": toks, "targets": torch.roll(toks, -1, 1)})
+    step(*args)                                             # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lp = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    flash_us = sum(t for n, t, _ in rows if "flash_attention_kernel" in n)
+    scan_us = sum(t for n, t, _ in rows if "rwkv6_scan_kernel" in n)
+    finite = bool(torch.isfinite(lp).all())
+    mean_lp = float(lp.mean())
+    emit("lm_prefill", nvidia_smi=smi, model=cfg.name, batch=PREFILL_BATCH,
+         seq_len=PREFILL_LEN, window=cfg.sliding_window, wall_s=wall,
+         tokens_per_s=PREFILL_BATCH * PREFILL_LEN / wall,
+         device_busy_us=busy, device_idle_share=1 - busy / (wall * 1e6),
+         flash_us=flash_us, scan_us=scan_us,
+         flash_share_of_busy=flash_us / busy,
+         device_top=[{"name": k[:70], "device_us": t, "calls": c}
+                     for k, t, c in rows[:8]],
+         logprob_shape=list(lp.shape), finite=finite, mean_logprob=mean_lp,
+         uniform_logprob=-math.log(cfg.vocab_size), launches=launches)
+    want = _only(launches, flash_attention=HYMBA_LAYERS,
+                 rwkv6_scan=HYMBA_LAYERS)
+    if launches != want or tuple(lp.shape) != (PREFILL_BATCH, PREFILL_LEN) \
+            or not finite or not float(lp.max()) <= 0.0:
+        raise AssertionError(f"lm_prefill: launches {launches} (expected "
+                             f"{want}), log-probs {tuple(lp.shape)}, finite "
+                             f"{finite}, max {float(lp.max())}")
+    return launches
+
+
+def lm_hold_phase(device) -> None:
+    """A 2-layer full-width Hymba in fp32 (TF32 off), the same weights on
+    the card (kernels) and the CPU (plain versions), with a 32-slot window:
+    one 512-token scoring pass, log-probs within 1e-3; then 40 greedy
+    decode steps, past the window, from the CPU's tokens: logits within
+    1e-3 and the same argmax except where the CPU's top two lie within
+    TIE_GAP."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm as LM
+
+    cfg = hymba_config(num_layers=HOLD_LAYERS, dtype="float32",
+                       sliding_window=HOLD_WINDOW)
+    cpu = torch.device("cpu")
+    p_c = LM.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device=cpu)
+    p_g = LM.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device=device)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, HOLD_TOKENS), generator=g)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    step = make_prefill_step(cfg)
+    lp_c = step({"model": p_c}, batch)
+    lp_g = step({"model": p_g}, {k: t.to(device) for k, t in batch.items()})
+    score_err = float((lp_g.cpu() - lp_c).abs().max())
+
+    B = 2
+    cache_c = LM.init_cache(cfg, B, HOLD_STEPS + 1, device=cpu)
+    cache_g = LM.init_cache(cfg, B, HOLD_STEPS + 1, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
+    logit_err, mismatched, near_ties = 0.0, 0, 0
+    with torch.no_grad():
+        for _ in range(HOLD_STEPS):
+            l_c, cache_c = LM.decode_step(p_c, cfg, tok, cache_c)
+            l_g, cache_g = LM.decode_step(p_g, cfg, tok.to(device), cache_g)
+            l_g = l_g.cpu()
+            logit_err = max(logit_err, float((l_g - l_c).abs().max()))
+            top2 = torch.topk(l_c, 2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) < TIE_GAP
+            differ = torch.argmax(l_g, -1) != torch.argmax(l_c, -1)
+            mismatched += int((differ & ~tie).sum())
+            near_ties += int(tie.sum())
+            tok = torch.argmax(l_c, -1)[:, None]
+    ssm_err = float((cache_g["ssm"].cpu() - cache_c["ssm"]).abs().max())
+    pos_equal = torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
+    emit("lm_hold", model=cfg.name, layers=HOLD_LAYERS, dtype="float32",
+         tf32=torch.backends.cuda.matmul.allow_tf32, window=HOLD_WINDOW,
+         score_tokens=HOLD_TOKENS, score_max_abs_err=score_err,
+         decode_steps=HOLD_STEPS, batch=B, logits_max_abs_err=logit_err,
+         argmax_mismatches=mismatched, near_ties=near_ties,
+         ssm_state_max_abs_err=ssm_err, cache_positions_equal=pos_equal,
+         tol=HOLD_TOL)
+    if not (score_err <= HOLD_TOL and logit_err <= HOLD_TOL
+            and mismatched == 0 and pos_equal):
+        raise AssertionError(f"lm_hold: scoring error {score_err}, logits "
+                             f"error {logit_err}, {mismatched} argmax "
+                             f"mismatches, positions equal {pos_equal}")
+
+
+def lm_profile(cfg, params, device) -> None:
+    """One full-width decode step at batch 8 (:func:`profile_step`), after
+    a few steps into the cache."""
+    from repro_torch.models import lm as LM
+
+    cache = LM.init_cache(cfg, DECODE_BATCH, DECODE_PROMPT + DECODE_GEN + 1,
+                          device=device)
+    tok = torch.zeros(DECODE_BATCH, 1, dtype=torch.int64, device=device)
+    out = {}
+
+    def step():
+        with torch.no_grad():
+            out["logits"], _ = LM.decode_step(params, cfg, tok, cache)
+
+    for _ in range(3):
+        step()
+    profile_step("lm_profile", step, model=cfg.name, batch=DECODE_BATCH)
+    if not bool(torch.isfinite(out["logits"]).all()):
+        raise AssertionError("lm_profile: decode logits not finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1101,6 +1470,38 @@ def main() -> int:
              for i, (B, T1, lam) in enumerate(
                  [(16, 30, 0.9), (16, 78, 0.9), (3, 100, 0.8),
                   (1, 7, 0.5), (4, 200, 0.99), (3, 7000, 0.999)])]
+    # the scoring pass's attention: Hymba's heads over 2 x 4,096 tokens in
+    # bf16, window 2,048, and the same geometry in fp32 (holds the skipping
+    # of key tiles outside the window at TOL); then ragged, fp32, wide
+    # heads, a cached prefill
+    flash = [check_flash_attention(2, 4096, 4096, 25, 5, 64, causal=True,
+                                   window=2048, bf16=True, seed=0,
+                                   device=device),
+             check_flash_attention(2, 4096, 4096, 25, 5, 64, causal=True,
+                                   window=2048, bf16=False, seed=5,
+                                   device=device),
+             check_flash_attention(1, 17, 33, 2, 1, 16, causal=True,
+                                   window=0, bf16=False, seed=1,
+                                   device=device),
+             check_flash_attention(2, 300, 300, 4, 2, 64, causal=True,
+                                   window=64, bf16=False, seed=2,
+                                   device=device),
+             check_flash_attention(2, 64, 256, 4, 1, 128, causal=False,
+                                   window=0, bf16=False, seed=3,
+                                   device=device),
+             check_flash_attention(2, 17, 64, 4, 2, 32, causal=True,
+                                   window=16, q_offset=40, kv_len=57,
+                                   bf16=False, seed=4, device=device)]
+    # Hymba's SSM heads: the scoring pass's and a decode step's, from a
+    # state; then ragged fp32 with u, and RWKV6's 64 x 64 heads
+    scan = [check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=True,
+                             bf16=True, seed=0, device=device),
+            check_rwkv6_scan(8, 1, 25, 16, 64, bonus=False, state=True,
+                             bf16=True, seed=1, device=device),
+            check_rwkv6_scan(1, 100, 3, 32, 32, bonus=True, state=True,
+                             bf16=False, seed=2, device=device),
+            check_rwkv6_scan(2, 300, 4, 64, 64, bonus=True, state=True,
+                             bf16=False, seed=3, device=device)]
 
     serve = serve_phase(device)
     train = train_phase(device)
@@ -1112,6 +1513,13 @@ def main() -> int:
                                     device)
     train_profile(loop, state, phase="hypergrid_profile")
     hypergrid_converge(device)
+    hymba = hymba_config()
+    params = hymba_params(hymba, device)
+    decode = lm_decode_phase(hymba, params, device)
+    prefill = lm_prefill_phase(hymba, params, device)
+    lm_profile(hymba, params, device)
+    del params
+    lm_hold_phase(device)
 
     def entry(name, source, replaces, launches, rows, main):
         return {"name": name, "route": "cuda", "source": source,
@@ -1148,6 +1556,12 @@ def main() -> int:
               "src/repro/core/objectives.py:253",
               hypergrid["subtb_loss_bwd"], [b for _, b in subtb],
               subtb[0][1]),
+        entry("flash_attention", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:75",
+              prefill["flash_attention"], flash, flash[0]),
+        entry("rwkv6_scan", csrc + "rwkv6_scan.cu",
+              "src/repro/kernels/rwkv6_scan.py:73",
+              decode["rwkv6_scan"] + prefill["rwkv6_scan"], scan, scan[0]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

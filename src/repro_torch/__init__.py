@@ -2,7 +2,8 @@
 
 The package mirrors ``repro``'s layout (``core/``, ``nn/``, ``envs/``,
 ``rewards/``, ``kernels/``, ``algo/``, ``evals/``, ``metrics/``,
-``serve/``, ``launch/``, ``recipes/``, ``run.py``) so each module's
+``serve/``, ``launch/``, ``recipes/``, ``models/``, ``configs/``,
+``run.py``) so each module's
 counterpart sits at the same path.  It imports torch and numpy only.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` they raise
 (:func:`repro_torch.device.resolve_device`).
@@ -19,5 +20,10 @@ and the hypergrid recipes (TB, DB, SubTB) — hypergrid env and reward, MLP
 policy, uncached and backward rollouts, the stop-action objectives and the
 exact-DP, sampled and log Z bound evals (``evals/``) — with the SubTB loss
 and its gradient as a hand-written CUDA kernel pair
-(``kernels/csrc/subtb_loss.cu``).
+(``kernels/csrc/subtb_loss.cu``); and the LM tier's serving path for
+Hymba-1.5B (``models/``, ``configs/``, ``launch/lm_decode.py``,
+``launch/steps.py``: token-by-token decode with the window cache and the
+SSM state, and prompt scoring) with flash attention and the RWKV6 / SSM
+scan as hand-written CUDA kernels (``kernels/csrc/flash_attention.cu``,
+``kernels/csrc/rwkv6_scan.cu``).
 """

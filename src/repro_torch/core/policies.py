@@ -20,27 +20,11 @@ from torch import nn
 from ..device import DeviceLike, cpu_generator, resolve_device
 from ..kernels.ops import decode_step
 from ..nn.core import (ParamTree, dense_apply, dense_init, embedding_apply,
-                       embedding_init, mlp_apply, mlp_init, normal_init)
+                       embedding_init, load_flat, mlp_apply, mlp_init,
+                       normal_init)
 from ..nn.transformer import (Cache, cache_init, decode_encoder_init,
                               decoder_stacked_weights, encoder_apply_bank,
                               encoder_apply_cached)
-
-
-def load_flat(params: ParamTree, flat: Mapping[str, torch.Tensor]) -> None:
-    """Copy ``/``-keyed tensors into ``params`` in place: every leaf, same
-    names and shapes."""
-    own = params.flat()
-    if set(flat) != set(own):
-        raise KeyError(f"parameter names differ: missing "
-                       f"{sorted(set(own) - set(flat))}, unexpected "
-                       f"{sorted(set(flat) - set(own))}")
-    with torch.no_grad():
-        for name, p in own.items():
-            src = torch.as_tensor(flat[name])
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)}, "
-                                 f"expected {tuple(p.shape)}")
-            p.copy_(src)
 
 
 class MLPPolicy(nn.Module):

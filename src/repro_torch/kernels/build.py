@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
-           CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu")
+           CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu",
+           CSRC / "flash_attention.cu", CSRC / "rwkv6_scan.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
@@ -79,6 +80,24 @@ class SubtbArgs(ctypes.Structure):
                 + [(n, ctypes.c_longlong) for n in ("phi_sb", "phi_st")]
                 + [("lam", ctypes.c_float)]
                 + [(n, ctypes.c_int) for n in ("batch", "states", "device")])
+
+
+class FlashAttentionArgs(ctypes.Structure):
+    """Mirror of ``FlashAttentionArgs`` in flash_attention.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "out")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "q_len", "kv_size", "num_heads", "num_kv_heads",
+                    "head_dim", "causal", "window", "q_offset", "kv_len",
+                    "bf16", "device")])
+
+
+class Rwkv6ScanArgs(ctypes.Structure):
+    """Mirror of ``Rwkv6ScanArgs`` in rwkv6_scan.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "r", "k", "v", "w", "u", "state_in", "out", "state_out")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "steps", "num_heads", "dk", "dv", "bf16",
+                    "device")])
 
 
 def find_nvcc() -> str:
@@ -152,4 +171,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.repro_subtb_smem_states.argtypes = []
     lib.repro_subtb_smem_states.restype = ctypes.c_int
+    lib.repro_flash_attention.argtypes = [
+        ctypes.POINTER(FlashAttentionArgs), ctypes.c_void_p]
+    lib.repro_flash_attention.restype = ctypes.c_int
+    lib.repro_rwkv6_scan.argtypes = [ctypes.POINTER(Rwkv6ScanArgs),
+                                     ctypes.c_void_p]
+    lib.repro_rwkv6_scan.restype = ctypes.c_int
     return lib

@@ -13,7 +13,8 @@ from typing import Dict, Mapping, Optional, Union
 
 import torch
 
-from .ref import (ref_decode_attention, ref_decode_step, ref_subtb,
+from .ref import (ref_decode_attention, ref_decode_step,
+                  ref_flash_attention, ref_rwkv6, ref_subtb,
                   ref_subtb_backward, ref_traj_logprob,
                   ref_traj_logprob_backward)
 
@@ -39,6 +40,16 @@ def _require(name: str, op: str, t: torch.Tensor, dtype: torch.dtype,
         raise TypeError(f"{op}: {name} has dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{op}: {name} has {t.dim()} dims, expected {ndim}")
+
+
+def _refuse_grad(op: str, *tensors) -> None:
+    """A forward-only kernel: with grad mode on, an operand that requires
+    grad raises instead of silently cutting the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{op} has no gradient: call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
@@ -154,11 +165,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grad raises (the JAX package's ``decode_attention_grad`` waits for
     backward replay)."""
     op = "decode_attention"
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(f"{op} has no gradient: call it under "
-                           "torch.no_grad() or on tensors that do not "
-                           "require grad")
+    _refuse_grad(op, q, k, v)
     dev = q.device
     f32 = torch.float32
     _require("q", op, q, f32, dev, 3)
@@ -453,3 +460,156 @@ def subtb_loss(phi: torch.Tensor, length: torch.Tensor,
 
 
 subtb_loss.launches = 0
+
+
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """GQA streaming-softmax attention (port of
+    ``repro.kernels.flash_attention.flash_attention_pallas``, with the jnp
+    layer's ``q_offset``).
+
+    q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) with H % KVH == 0, all float32
+    or all bfloat16.  Query row i sits at position ``q_offset + i``; key j
+    is attended iff ``j < kv_len`` (``Skv`` when None), and with ``causal``
+    ``j <= position``, with ``window`` > 0 ``j > position - window``.
+    Scores and softmax in float32; returns (B, Sq, H, D) in q's dtype, zeros
+    in a row that attends no key.  On CUDA the kernel takes contiguous
+    operands and D <= 128.  Forward only: an operand that requires grad
+    raises under grad mode (the backward comes with LM training)."""
+    op = "flash_attention"
+    _refuse_grad(op, q, k, v)
+    dev = q.device
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{op}: q has dtype {q.dtype}, expected float32 or "
+                        "bfloat16")
+    _require("q", op, q, q.dtype, dev, 4)
+    _require("k", op, k, q.dtype, dev, 4)
+    _require("v", op, v, q.dtype, dev, 4)
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, KVH, D) or tuple(v.shape) != tuple(k.shape) \
+            or KVH < 1 or H % KVH:
+        raise ValueError(f"{op}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
+    window, q_offset = int(window), int(q_offset)
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if window < 0 or kv_len < 0:
+        raise ValueError(f"{op}: window {window} and kv_len {kv_len} must "
+                         "not be negative")
+    if dev.type == "cpu":
+        return ref_flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    if D > 128:
+        raise ValueError(f"{op}: the kernel takes head dims up to 128, "
+                         f"got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+    from . import build
+    out = torch.empty_like(q)
+    if B * Sq * H == 0:
+        return out
+    args = build.FlashAttentionArgs(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        batch=B, q_len=Sq, kv_size=Skv, num_heads=H, num_kv_heads=KVH,
+        head_dim=D, causal=int(bool(causal)), window=window,
+        q_offset=q_offset, kv_len=kv_len,
+        bf16=int(q.dtype == torch.bfloat16), device=_device_index(dev))
+    err = build.library().repro_flash_attention(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: Optional[torch.Tensor] = None,
+               state: Optional[torch.Tensor] = None):
+    """The RWKV6 wkv recurrence with an initial state (port of
+    ``repro.kernels.rwkv6_scan.rwkv6_scan_pallas``, which starts from
+    zeros; the model carries its state, ``models/layers.py:164``).
+
+    r/k: (B, T, H, Dk) and v: (B, T, H, Dv), all float32 or all bfloat16;
+    w: (B, T, H, Dk) float32 or bfloat16, clipped to [1e-8, 1]; u: (H, Dk)
+    or None; state: (B, H, Dk, Dv) float32 or None (zeros).  Returns
+    ``(o (B, T, H, Dv) in r's dtype, final state (B, H, Dk, Dv) float32)``.
+    Both branches compute the exact step recurrence: the kernel on CUDA
+    (contiguous r, k, v, w; Dk <= 64), its plain version
+    :func:`repro_torch.kernels.ref.ref_rwkv6` on the CPU.  (The JAX
+    model's chunked form departs from it where a chunk's decay product
+    falls below its 1e-30 clamp; ``ref.chunked_linear_attention_ref``
+    keeps that form for the tests.)  Forward only, as
+    :func:`flash_attention`."""
+    op = "rwkv6_scan"
+    _refuse_grad(op, r, k, v, w, u, state)
+    dev = r.device
+    if r.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{op}: r has dtype {r.dtype}, expected float32 or "
+                        "bfloat16")
+    _require("r", op, r, r.dtype, dev, 4)
+    _require("k", op, k, r.dtype, dev, 4)
+    _require("v", op, v, r.dtype, dev, 4)
+    if w.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{op}: w has dtype {w.dtype}, expected float32 or "
+                        "bfloat16")
+    _require("w", op, w, w.dtype, dev, 4)
+    B, T, H, Dk = r.shape
+    Dv = v.shape[-1]
+    if tuple(k.shape) != (B, T, H, Dk) or tuple(w.shape) != (B, T, H, Dk) \
+            or tuple(v.shape) != (B, T, H, Dv):
+        raise ValueError(f"{op}: shapes r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w "
+                         f"{tuple(w.shape)} do not agree")
+    if u is not None:
+        if not isinstance(u, torch.Tensor) or u.device != dev \
+                or tuple(u.shape) != (H, Dk):
+            raise ValueError(f"{op}: u must be an (H, Dk) = {(H, Dk)} "
+                             f"tensor on {dev}")
+    if state is not None:
+        _require("state", op, state, torch.float32, dev, 4)
+        if tuple(state.shape) != (B, H, Dk, Dv):
+            raise ValueError(f"{op}: state has shape {tuple(state.shape)}, "
+                             f"expected {(B, H, Dk, Dv)}")
+    if dev.type == "cpu":
+        return ref_rwkv6(r, k, v, w, u, state)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    if Dk > 64:
+        raise ValueError(f"{op}: the kernel takes Dk <= 64, got {Dk}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+    from . import build
+    w = w.to(torch.float32)
+    u = None if u is None else u.to(torch.float32).contiguous()
+    state = None if state is None else state.contiguous()
+    out = torch.empty(B, T, H, Dv, dtype=r.dtype, device=dev)
+    state_out = torch.empty(B, H, Dk, Dv, dtype=torch.float32, device=dev)
+    args = build.Rwkv6ScanArgs(
+        r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=w.data_ptr(),
+        u=None if u is None else u.data_ptr(),
+        state_in=None if state is None else state.data_ptr(),
+        out=out.data_ptr(), state_out=state_out.data_ptr(), batch=B,
+        steps=T, num_heads=H, dk=Dk, dv=Dv,
+        bf16=int(r.dtype == torch.bfloat16), device=_device_index(dev))
+    err = build.library().repro_rwkv6_scan(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    rwkv6_scan.launches += 1
+    return out, state_out
+
+
+rwkv6_scan.launches = 0

@@ -191,3 +191,137 @@ def ref_subtb_backward(phi: torch.Tensor, length: torch.Tensor, lam: float,
     sym = w + w.transpose(1, 2)                        # lam^|i-m|, i != m
     resid = phi[:, :, None] - phi[:, None, :]          # phi_i - phi_m
     return (2 * g.to(torch.float32) / den)[:, None] * (sym * resid).sum(-1)
+
+
+def attention_mask(q_len: int, kv_size: int, *, causal: bool, window: int,
+                   q_offset: int, kv_len: Optional[int],
+                   device: torch.device) -> torch.Tensor:
+    """(Sq, Skv) bool: query row i sits at position ``q_offset + i`` and key
+    j at j; key j is attended iff ``j < kv_len`` (``Skv`` when None), and
+    with ``causal`` ``j <= q position``, with ``window`` ``j > q position -
+    window``."""
+    qp = q_offset + torch.arange(q_len, device=device)[:, None]
+    kp = torch.arange(kv_size, device=device)[None, :]
+    mask = kp < (kv_size if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window:
+        mask = mask & (kp > qp - window)
+    return mask
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """GQA attention in the dense O(Sq Skv) form (port of
+    ``repro.kernels.ref.ref_flash_attention``).
+
+    q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) with H % KVH == 0 (query head h
+    reads kv head h // (H / KVH)).  Mask as :func:`attention_mask`; scores
+    ``q.k / sqrt(D)`` and the softmax in float32; the output in q's dtype.
+    A query row that attends no key is zeros, as in the kernel (JAX's
+    oracle averages every key there, its chunked layer the keys of the
+    chunks it saw; no caller makes such a row: on the causal path every row
+    attends its own position)."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    f32 = torch.float32
+    kr = k.to(f32).repeat_interleave(G, dim=2)
+    vr = v.to(f32).repeat_interleave(G, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kr) / math.sqrt(D)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, device=q.device)
+    logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=f32,
+                                                    device=q.device))
+    a = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", a, vr).to(q.dtype)
+
+
+def ref_rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: Optional[torch.Tensor] = None,
+              state: Optional[torch.Tensor] = None):
+    """The wkv recurrence step by step, in float32 (port of
+    ``repro.kernels.ref.ref_rwkv6``, with an initial state).
+
+    r/k/w: (B, T, H, Dk); v: (B, T, H, Dv); u: (H, Dk) or None; state:
+    (B, H, Dk, Dv) or None (zeros).  Per head:
+    ``o_t = r_t S_{t-1} + (r_t . u . k_t) v_t`` and
+    ``S_t = diag(w_t) S_{t-1} + k_t^T v_t``, with w clipped to [1e-8, 1] as
+    the model's chunked form and the Pallas kernel clip it (JAX's oracle
+    does not clip).  This is the arithmetic of ``rwkv6_scan.cu``.  Returns
+    ``(o (B, T, H, Dv) in r's dtype, final state (B, H, Dk, Dv) float32)``.
+    """
+    B, T, H, Dk = r.shape
+    Dv = v.shape[-1]
+    f32 = torch.float32
+    S = (torch.zeros(B, H, Dk, Dv, dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    rf, kf, vf = r.to(f32), k.to(f32), v.to(f32)
+    wf = w.to(f32).clamp(1e-8, 1.0)
+    uf = None if u is None else u.to(f32)
+    outs = []
+    for t in range(T):
+        rt, kt, vt = rf[:, t], kf[:, t], vf[:, t]           # (B, H, D*)
+        o = torch.einsum("bhd,bhde->bhe", rt, S)
+        if uf is not None:
+            o = o + (rt * uf * kt).sum(-1)[..., None] * vt
+        S = wf[:, t][..., None] * S + kt[..., None] * vt[..., None, :]
+        outs.append(o)
+    o = (torch.stack(outs, 1) if outs
+         else torch.zeros(B, 0, H, Dv, dtype=f32, device=r.device))
+    return o.to(r.dtype), S
+
+
+def chunked_linear_attention_ref(r: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, w: torch.Tensor,
+                                 u: Optional[torch.Tensor] = None,
+                                 state: Optional[torch.Tensor] = None,
+                                 chunk: int = 64):
+    """The wkv recurrence in the chunk-parallel form of the JAX model
+    (port of ``repro.models.layers.chunked_linear_attention``), so that the
+    port's model on the CPU computes what JAX's does.
+
+    Shapes and result as :func:`ref_rwkv6`.  Inside a chunk the decays
+    multiply in log space: ``r~ = r W_excl``, ``k~ = k / max(W_incl,
+    1e-30)``; the output is ``r~ S + tril_strict(r~ k~^T) v`` (+ the u
+    bonus) and the state ``diag(W_last) S + (k~ W_last)^T v``.  Where the
+    1e-30 clamp engages (a chunk whose decays multiply below it) this form
+    departs from the recurrence, which is exact."""
+    B, T, H, D = r.shape
+    Dv = v.shape[-1]
+    f32 = torch.float32
+    chunk = max(1, min(chunk, T))
+    n = (T + chunk - 1) // chunk
+    pad = n * chunk - T
+    if pad:
+        r, k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                   for x in (r, k, v))
+        w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    S = (torch.zeros(B, H, D, Dv, dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    outs = []
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        rq, kk, vf = r[:, sl].to(f32), k[:, sl].to(f32), v[:, sl].to(f32)
+        logw = torch.log(w[:, sl].to(f32).clamp(1e-8, 1.0))
+        cum = torch.cumsum(logw, dim=1)            # prod_{s<=t} w_s
+        r_t = rq * torch.exp(cum - logw)           # r W_excl
+        k_t = kk / torch.clamp(torch.exp(cum), min=1e-30)
+        o = torch.einsum("bchd,bhde->bche", r_t, S)
+        A = torch.einsum("bchd,bshd->bhcs", r_t, k_t)
+        A = torch.where(tril, A, 0.0)
+        o = o + torch.einsum("bhcs,bshe->bche", A, vf)
+        if u is not None:
+            diag = torch.einsum("bchd,bchd->bch", rq * u.to(f32), kk)
+            o = o + diag[..., None] * vf
+        W_last = torch.exp(cum[:, -1])             # (B, H, D)
+        S = W_last[..., None] * S + torch.einsum(
+            "bchd,bche->bhde", k_t * W_last[:, None], vf)
+        outs.append(o)
+    o = torch.cat(outs, 1)[:, :T] if outs else \
+        torch.zeros(B, 0, H, Dv, dtype=f32, device=r.device)
+    return o.to(r.dtype), S

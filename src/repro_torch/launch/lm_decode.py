@@ -1,0 +1,106 @@
+"""LM decode entry point: batched token generation with a KV cache over the
+:mod:`repro_torch.models.lm` stack (port of ``repro.launch.lm_decode``).
+
+    PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch hymba-1.5b \
+        --smoke --device cpu --batch 2 --prompt-len 8 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch hymba-1.5b \
+        --batch 8 --prompt-len 32 --gen 32          # full width, on cuda
+
+Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
+without a GPU otherwise.  The model and the prompt are drawn from a seeded
+``torch.Generator`` on the target device, so a seed gives other weights on
+the CPU than on the card.  Sampling adds Gumbel noise from its own seeded
+generator to the logits (JAX's key stream cannot be replayed); ``--greedy``
+takes the argmax, and that is what parity with JAX is tested on.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from ..configs.registry import ARCH_IDS, get_config
+from ..device import DeviceLike, resolve_device
+from ..models import lm as LM
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
+@torch.no_grad()
+def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+          greedy: bool = False, device: DeviceLike = None,
+          params=None, prompt: Optional[torch.Tensor] = None):
+    """Prefill ``prompt_len`` tokens one decode step at a time, then
+    generate ``gen`` tokens.  Returns ``(tokens (batch, gen) int64, tokens
+    per second over the generation)``.  ``params`` (LM params, for example
+    JAX's carried across) and ``prompt`` ((batch, prompt_len) integer)
+    replace the seeded draws."""
+    dev = resolve_device(device)
+    g = _generator(dev, seed)
+    if params is None:
+        params = LM.init_params(cfg, generator=g, device=dev)
+    if prompt is None:
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=g, device=dev)
+    prompt = prompt.to(dev)
+    max_len = prompt_len + gen + 1
+    cache = LM.init_cache(cfg, batch, max_len, device=dev)
+    noise = _generator(dev, seed + 1)
+
+    logits = None
+    for t in range(prompt_len):
+        logits, cache = LM.decode_step(params, cfg, prompt[:, t:t + 1], cache)
+    out_tokens = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        if greedy:
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        else:
+            u = torch.rand(logits.shape, generator=noise, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp_(1e-20, 1.0)))
+            tok = torch.argmax(logits + gumbel, dim=-1)[:, None]
+        out_tokens.append(tok)
+        logits, cache = LM.decode_step(params, cfg, tok, cache)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    gen_toks = torch.cat(out_tokens, dim=1) if out_tokens else \
+        torch.zeros(batch, 0, dtype=torch.int64, device=dev)
+    return gen_toks, batch * gen / dt
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.lm_decode",
+        description="Generate tokens with the PyTorch port's LM tier.")
+    ap.add_argument("--arch", default=ARCH_IDS[0],
+                    help=f"architecture id (ported: {', '.join(ARCH_IDS)})")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    toks, tps = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                      gen=args.gen, seed=args.seed, greedy=args.greedy,
+                      device=args.device)
+    print(f"generated {tuple(toks.shape)} tokens at {tps:.1f} tok/s")
+    print("first sequence:", toks[0][:16].tolist())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,52 @@
+"""Serve and prefill steps of the LM tier (port of
+``repro.launch.steps``).
+
+``make_serve_step``: one KV-cache decode step (greedy next token and the
+logits).  ``make_prefill_step``: full-prompt scoring (per-token target
+log-probs through ``forward_train``).  Both take ``params = {"model":
+<LM params>, ...}`` as in JAX and run without autograd.  Train steps,
+optimizers and sharding come with LM training (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import torch
+
+from ..models import lm as LM
+from ..models.config import ModelConfig
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``step(params, tokens (B, 1), cache, extra=None) -> (next_tok (B,)
+    int32, logits (B, V) float32, cache)``; the cache is updated in place.
+    ``extra`` holds the VLM family's embeddings in JAX and must be empty
+    here.  Fused multi-token decode (``decode_steps > 1``) is not ported."""
+    if cfg.decode_steps > 1:
+        raise NotImplementedError(
+            f"decode_steps={cfg.decode_steps}: fused multi-token decode is "
+            "not ported yet (ROADMAP.md)")
+
+    @torch.no_grad()
+    def one(params, tokens, cache, extra: Optional[Mapping[str, Any]] = None):
+        if extra:
+            raise NotImplementedError(
+                f"serve step extras {sorted(extra)} (VLM embeddings) are not "
+                "ported yet")
+        logits, cache = LM.decode_step(params["model"], cfg, tokens, cache)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_tok, logits, cache
+
+    return one
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``step(params, batch) -> (B, S) float32`` per-token log-probs of
+    ``batch["targets"]`` given ``batch["tokens"]``."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        lp, _ = LM.forward_train(params["model"], cfg, batch)
+        return lp
+
+    return prefill_step

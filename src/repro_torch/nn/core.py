@@ -2,9 +2,9 @@
 
 Every layer is a pair ``*_init(...) -> params`` / ``*_apply(params, x)``
 over plain dicts, with the JAX package's layouts: dense weights are
-``(in, out)`` and ``y = x @ w + b``.  Initialisers draw from an explicit CPU
-``torch.Generator`` and move the result to ``device``, so one seed gives the
-same parameters on every device.  :class:`ParamTree` holds such a nested
+``(in, out)`` and ``y = x @ w + b``.  Initialisers draw from an explicit
+``torch.Generator`` on its own device and move the result to ``device``, so
+one CPU generator's seed gives the same parameters on every device.  :class:`ParamTree` holds such a nested
 dict as an ``nn.Module`` whose parameter names, with ``.`` read as ``/``,
 are the JAX checkpoint's leaf names.
 """
@@ -28,8 +28,14 @@ def lecun_normal(shape: Sequence[int], *, generator: torch.Generator,
 
 
 def normal_init(shape: Sequence[int], *, generator: torch.Generator,
-                device: torch.device, std: float = 0.02) -> torch.Tensor:
-    return (std * torch.randn(tuple(shape), generator=generator)).to(device)
+                device: torch.device, std: float = 0.02,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``std`` times a standard normal draw, made in float32 on the
+    generator's own device (a CUDA generator draws a full-width model's
+    weights on the card), then cast to ``dtype`` and moved to ``device``."""
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device)
+    return (std * x).to(device=device, dtype=dtype)
 
 
 def dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
@@ -131,3 +137,20 @@ class ParamTree(nn.Module):
         """Parameters keyed by ``/``-joined path (the checkpoint names)."""
         return {name.replace(".", "/"): p
                 for name, p in self.named_parameters()}
+
+
+def load_flat(params: ParamTree, flat: Mapping[str, torch.Tensor]) -> None:
+    """Copy ``/``-keyed tensors into ``params`` in place: every leaf, same
+    names and shapes."""
+    own = params.flat()
+    if set(flat) != set(own):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(own) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = torch.as_tensor(flat[name])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(src)

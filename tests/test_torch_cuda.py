@@ -1,15 +1,20 @@
 """The port on a CUDA GPU: the hand-written kernels (decode step, decode
 attention, trajectory log-prob forward and backward, SubTB loss forward
-and backward) against their plain PyTorch versions, the serving engine on
-the card against ``forward_rollout``, two bitseq_tb training iterations
-and one full-size hypergrid_subtb iteration on the card.  Imports no JAX, so it runs on a machine with a GPU
+and backward, flash attention, RWKV6 scan) against their plain PyTorch
+versions, the serving engine on the card against ``forward_rollout``, two
+bitseq_tb training iterations, one full-size hypergrid_subtb iteration and
+Hymba's smoke config (scoring and decode) on the card against the CPU.  Imports no JAX, so it runs on a machine with a GPU
 and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips on a machine without a GPU (decided in the fixture).
-Tolerance 1e-4: fp32 on both sides, in different reduction orders.
+Tolerance 1e-4: fp32 on both sides, in different reduction orders.  The
+flash and scan kernels' bf16 outputs are held entry by entry to
+2^-7 |want| + 1e-3 rms(want): the two sides round the same fp32 value, and
+may land one bf16 ulp apart (at most 2^-7 of the entry).
 """
+import dataclasses
 import math
 
 import pytest
@@ -19,10 +24,10 @@ torch = pytest.importorskip("torch")
 from repro_torch import recipes  # noqa: E402
 from repro_torch.core.rollout import forward_rollout  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import (ref_decode_attention,  # noqa: E402
-                                     ref_decode_step, ref_subtb,
-                                     ref_subtb_backward, ref_traj_logprob,
-                                     ref_traj_logprob_backward)
+from repro_torch.kernels.ref import (  # noqa: E402
+    chunked_linear_attention_ref, ref_decode_attention, ref_decode_step,
+    ref_flash_attention, ref_rwkv6, ref_subtb, ref_subtb_backward,
+    ref_traj_logprob, ref_traj_logprob_backward)
 from repro_torch.serve import SamplingEngine  # noqa: E402
 
 torch.set_num_threads(2)
@@ -307,3 +312,170 @@ def test_hypergrid_subtb_iteration_on_cuda(cuda):
     assert math.isfinite(out["history"][0]["loss"])
     assert [r["step"] for r in out["rows"]] == [0]
     assert all(math.isfinite(v) for v in out["rows"][0].values())
+
+
+# -- flash_attention and rwkv6_scan ------------------------------------------------
+
+def _close(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|), compared in fp32."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    assert err <= tol * scale, (err, scale)
+
+
+def _close_bf16(got, want):
+    """|got - want| <= 2^-7 |want| + 1e-3 rms(want) entry by entry, in
+    fp32: one bf16 rounding of the same fp32 value on both sides."""
+    got, want = got.float(), want.float()
+    allowed = 2.0 ** -7 * want.abs() + 1e-3 * want.square().mean().sqrt()
+    excess = (got - want).abs() - allowed
+    assert float(excess.max()) <= 0, (float(excess.max()),
+                                      float(want.abs().median()))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, KVH, D, causal, window, q_offset, kv_len, bf16)
+    (2, 128, 128, 4, 2, 64, True, 0, 0, None, False),
+    (1, 100, 100, 8, 8, 32, True, 0, 0, None, False),
+    (2, 64, 256, 4, 1, 128, False, 0, 0, None, False),
+    (1, 256, 256, 4, 2, 64, True, 64, 0, None, False),
+    (1, 64, 64, 2, 2, 64, True, 0, 0, None, True),
+    (1, 17, 33, 2, 1, 16, True, 0, 0, None, False),       # ragged
+    (2, 17, 64, 4, 2, 32, True, 16, 40, 57, False),       # cached prefill
+    (1, 300, 300, 25, 5, 64, True, 128, 0, None, True),   # Hymba's heads
+    (2, 1, 9, 4, 2, 24, True, 0, 8, None, False),         # one query
+], ids=str)
+def test_flash_attention_kernel_matches_plain_version(cuda, case):
+    B, Sq, Skv, H, KVH, D, causal, window, q_offset, kv_len, bf16 = case
+    g = torch.Generator().manual_seed(Sq)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dt) for shape in (
+        (B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    want = ref_flash_attention(q, k, v, **kw)
+    if bf16:
+        _close_bf16(out, want)
+    else:
+        _close(out, want, 1e-4)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), out)
+
+
+def test_flash_attention_rows_without_keys_are_zero_on_cuda(cuda):
+    q, k, v = (torch.randn(s, device=cuda) for s in
+               ((1, 70, 2, 16), (1, 70, 1, 16), (1, 70, 1, 16)))
+    out = ops.flash_attention(q, k, v, causal=False, kv_len=0)
+    assert torch.equal(out, torch.zeros_like(q))
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=-65)
+    _close(out, ref_flash_attention(q, k, v, causal=True, q_offset=-65),
+           1e-4)
+    assert torch.equal(out[:, :65], torch.zeros_like(out[:, :65]))
+
+
+def test_flash_attention_refuses_grad_and_strided_operands(cuda):
+    q, k, v = (torch.randn(s, device=cuda) for s in
+               ((1, 8, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16)))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.flash_attention(q.clone().requires_grad_(True), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, H, Dk, Dv, bonus, state, bf16)
+    (2, 64, 2, 16, 16, True, False, False),
+    (1, 100, 3, 32, 32, True, True, False),
+    (2, 128, 2, 16, 64, False, True, False),
+    (1, 48, 2, 16, 16, True, False, True),
+    (2, 300, 25, 16, 64, False, True, True),   # Hymba's SSM heads
+    (8, 1, 25, 16, 64, False, True, True),     # a decode step
+    (1, 77, 4, 64, 64, True, True, False),     # RWKV6's heads
+    (3, 33, 2, 8, 40, False, True, False),     # odd sizes
+    (2, 70, 3, 24, 200, True, True, False),    # Dv past one column tile
+], ids=str)
+def test_rwkv6_scan_kernel_matches_plain_version(cuda, case):
+    B, T, H, Dk, Dv, bonus, state, bf16 = case
+    g = torch.Generator().manual_seed(T)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rn = lambda *s: torch.randn(s, generator=g)
+    r, k, v = rn(B, T, H, Dk).to(cuda, dt), rn(B, T, H, Dk).to(cuda, dt), \
+        rn(B, T, H, Dv).to(cuda, dt)
+    w = (0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))).to(cuda)
+    u = (0.1 * rn(H, Dk)).to(cuda) if bonus else None
+    s0 = rn(B, H, Dk, Dv).to(cuda) if state else None
+    before = ops.rwkv6_scan.launches
+    o, S = ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    assert o.dtype == dt and S.dtype == torch.float32
+    # the plain version (the recurrence) and the chunk form, which agree
+    # at these decays (no chunk's product falls below its 1e-30 clamp)
+    for want_o, want_S in (ref_rwkv6(r, k, v, w, u, s0),
+                           chunked_linear_attention_ref(r, k, v, w, u, s0)):
+        if bf16:
+            _close_bf16(o, want_o)
+        else:
+            _close(o, want_o, 1e-4)
+        _close(S, want_S, 1e-4)
+
+
+def test_rwkv6_scan_refuses_grad_on_cuda(cuda):
+    r = torch.randn(1, 4, 2, 16, device=cuda)
+    w = torch.full_like(r, 0.5)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, w)
+
+
+def test_hymba_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch):
+    """Hymba's smoke config in fp32, the same parameters on both devices:
+    a 20-token scoring pass (2 flash and 2 scan launches, one per layer)
+    and 10 decode steps through the 8-slot window (2 scan launches each,
+    no flash) equal the CPU's plain versions; on the card the plain
+    versions never run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get_config("hymba-1.5b", smoke=True),
+                              dtype="float32")
+    cpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    want = steps.make_prefill_step(cfg)({"model": cpu}, batch)
+    cache_c = LM.init_cache(cfg, 2, 16)
+    want_logits = [LM.decode_step(cpu, cfg, toks[:, t:t + 1], cache_c)[0]
+                   for t in range(10)]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "ref_flash_attention", refuse)
+    monkeypatch.setattr(ops, "ref_rwkv6", refuse)
+    f0, s0 = ops.flash_attention.launches, ops.rwkv6_scan.launches
+    got = steps.make_prefill_step(cfg)(
+        {"model": gpu}, {k: t.to(cuda) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - f0,
+            ops.rwkv6_scan.launches - s0) == (2, 2)
+    _close(got.cpu(), want, 1e-4)
+    cache_g = LM.init_cache(cfg, 2, 16, device=cuda)
+    f0, s0 = ops.flash_attention.launches, ops.rwkv6_scan.launches
+    with torch.no_grad():
+        for t in range(10):
+            logits, cache_g = LM.decode_step(gpu, cfg,
+                                             toks[:, t:t + 1].to(cuda),
+                                             cache_g)
+            _close(logits.cpu(), want_logits[t], 1e-4)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - f0,
+            ops.rwkv6_scan.launches - s0) == (0, 20)
+    _close(cache_g["ssm"].cpu(), cache_c["ssm"], 1e-4)
+    assert torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
