@@ -17,7 +17,9 @@ printing one JSON line:
              at the main paths' shapes and at odd ones, with its device
              time, the plain version's, the least time the card could
              take (``bound``) and, where one PyTorch call computes the
-             same function, that call's (``library_us``);
+             same function, that call's (``library_us``); each flash row
+             names the route it took (``ops.flash_route``: the
+             tensor-core kernel for bf16 at D % 16 == 0, else SIMT);
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
@@ -55,7 +57,8 @@ printing one JSON line:
              rwkv6_scan launches per step and no flash;
    lm_prefill - ``launch.steps.make_prefill_step`` over 2 x 4,096 tokens:
              tokens/s, device time by kernel, finite log-probs, exactly 32
-             flash_attention and 32 rwkv6_scan launches;
+             flash_attention (all on the tensor-core route) and 32
+             rwkv6_scan launches;
    lm_profile - one full-width decode step's idle share and tops;
    lm_hold - a 2-layer full-width fp32 Hymba (window 32) on the card
              (kernels) against the CPU (plain versions): a 512-token
@@ -128,6 +131,10 @@ PREFILL_BATCH, PREFILL_LEN = 2, 4096
 #: lm_hold: 2 full-width layers in fp32, a 32-slot window
 HOLD_LAYERS, HOLD_TOKENS, HOLD_WINDOW, HOLD_STEPS = 2, 512, 32, 40
 HOLD_TOL = 1e-3
+#: in the device-kernel name of both flash routes (``ops.flash_route``:
+#: ``flash_attention_kernel``, ``flash_attention_wgmma_kernel``), so the
+#: profiler's flash time sums every kernel either route launches
+FLASH_MATCH = "flash_attention"
 
 
 def wrappers() -> dict:
@@ -147,6 +154,15 @@ def wrappers() -> dict:
 def reset_launches() -> None:
     for w in wrappers().values():
         w.launches = 0
+    from repro_torch.kernels import ops
+    ops.flash_attention.route_launches = {r: 0 for r in
+                                          ops.flash_attention.route_launches}
+
+
+def flash_routes() -> dict:
+    """Launches of each flash route since the last reset."""
+    from repro_torch.kernels import ops
+    return dict(ops.flash_attention.route_launches)
 
 
 def read_launches() -> dict:
@@ -478,7 +494,8 @@ def check_traj_logprob(B, T, A, seed, device):
 
     library_err = float((-library().reshape(B, T) - s_p)[valid].abs().max())
     fwd = {**shape, "max_abs_err": err, "repeat_bitwise_equal": bitwise,
-           **timings(fwd_kernel, fwd_plain, library),
+           **timings(fwd_kernel, fwd_plain, library,
+                     match="traj_logprob_fwd"),
            "library_call": "F.cross_entropy(reduction='none') on logits "
                            "masked beforehand, timed alone",
            "library_max_abs_err": library_err,
@@ -633,8 +650,11 @@ def check_flash_attention(B, Sq, Skv, H, KVH, D, *, causal, window,
     def kernel():
         return ops.flash_attention(q, k, v, **kw)
 
-    want, got = plain(), kernel()
+    want = plain()
+    routes = flash_routes()
+    got = kernel()
     torch.cuda.synchronize()
+    route = [r for r, n in flash_routes().items() if n != routes[r]]
     held = _held(got, want, bf16)
     mask = attention_mask(Sq, Skv, device=device, **kw)
     G = H // KVH
@@ -651,17 +671,18 @@ def check_flash_attention(B, Sq, Skv, H, KVH, D, *, causal, window,
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     row = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KVH": KVH, "D": D,
            "dtype": str(dt), "causal": causal, "window": window,
-           "q_offset": q_offset, "kv_len": kv_len, **held,
-           **timings(kernel, plain, library, match="flash_attention_kernel"),
+           "q_offset": q_offset, "kv_len": kv_len, "route": route, **held,
+           **timings(kernel, plain, library, match=FLASH_MATCH),
            "library_call": "F.scaled_dot_product_attention(bool mask), kv "
                            "heads repeated",
            "library_max_abs_err": library_err, "attended_pairs": pairs,
            **bound(nbytes, 4 * D * pairs,
                    BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)}
     emit("kernel", name="flash_attention", **row)
-    if not held["excess"] <= 1:
+    if not held["excess"] <= 1 or route != [ops.flash_route(dt, D)]:
         raise AssertionError(f"flash_attention disagrees with its plain "
-                             f"version at {(B, Sq, Skv, H, KVH, D)}: {held}")
+                             f"version at {(B, Sq, Skv, H, KVH, D)}: {held}, "
+                             f"route {route}")
     return row
 
 
@@ -1302,13 +1323,13 @@ def lm_prefill_phase(cfg, params, device) -> dict:
     lp = step(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), flash_routes()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(*args)
         torch.cuda.synchronize()
     rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
-    flash_us = sum(t for n, t, _ in rows if "flash_attention_kernel" in n)
+    flash_us = sum(t for n, t, _ in rows if FLASH_MATCH in n)
     scan_us = sum(t for n, t, _ in rows if "rwkv6_scan_kernel" in n)
     finite = bool(torch.isfinite(lp).all())
     mean_lp = float(lp.mean())
@@ -1321,13 +1342,19 @@ def lm_prefill_phase(cfg, params, device) -> dict:
          device_top=[{"name": k[:70], "device_us": t, "calls": c}
                      for k, t, c in rows[:8]],
          logprob_shape=list(lp.shape), finite=finite, mean_logprob=mean_lp,
-         uniform_logprob=-math.log(cfg.vocab_size), launches=launches)
+         uniform_logprob=-math.log(cfg.vocab_size), launches=launches,
+         flash_routes=routes)
     want = _only(launches, flash_attention=HYMBA_LAYERS,
                  rwkv6_scan=HYMBA_LAYERS)
-    if launches != want or tuple(lp.shape) != (PREFILL_BATCH, PREFILL_LEN) \
+    # Hymba's bf16 heads of 64 take the tensor-core route
+    want_routes = {"wgmma": HYMBA_LAYERS, "simt": 0}
+    if launches != want or routes != want_routes or not flash_us > 0 \
+            or tuple(lp.shape) != (PREFILL_BATCH, PREFILL_LEN) \
             or not finite or not float(lp.max()) <= 0.0:
         raise AssertionError(f"lm_prefill: launches {launches} (expected "
-                             f"{want}), log-probs {tuple(lp.shape)}, finite "
+                             f"{want}), routes {routes} (expected "
+                             f"{want_routes}), flash device time {flash_us} "
+                             f"us, log-probs {tuple(lp.shape)}, finite "
                              f"{finite}, max {float(lp.max())}")
     return launches
 
@@ -1471,9 +1498,10 @@ def main() -> int:
                  [(16, 30, 0.9), (16, 78, 0.9), (3, 100, 0.8),
                   (1, 7, 0.5), (4, 200, 0.99), (3, 7000, 0.999)])]
     # the scoring pass's attention: Hymba's heads over 2 x 4,096 tokens in
-    # bf16, window 2,048, and the same geometry in fp32 (holds the skipping
-    # of key tiles outside the window at TOL); then ragged, fp32, wide
-    # heads, a cached prefill
+    # bf16, window 2,048 (the tensor-core route), and the same geometry in
+    # fp32 (the SIMT route; holds the skipping of key tiles outside the
+    # window at TOL); then ragged, fp32, wide heads, a cached prefill; then
+    # the tensor-core route at D = 128 non-causal, ragged, a cached prefill
     flash = [check_flash_attention(2, 4096, 4096, 25, 5, 64, causal=True,
                                    window=2048, bf16=True, seed=0,
                                    device=device),
@@ -1491,7 +1519,16 @@ def main() -> int:
                                    device=device),
              check_flash_attention(2, 17, 64, 4, 2, 32, causal=True,
                                    window=16, q_offset=40, kv_len=57,
-                                   bf16=False, seed=4, device=device)]
+                                   bf16=False, seed=4, device=device),
+             check_flash_attention(2, 64, 256, 4, 1, 128, causal=False,
+                                   window=0, bf16=True, seed=6,
+                                   device=device),
+             check_flash_attention(1, 17, 33, 2, 1, 16, causal=True,
+                                   window=0, bf16=True, seed=7,
+                                   device=device),
+             check_flash_attention(2, 17, 64, 4, 2, 32, causal=True,
+                                   window=16, q_offset=40, kv_len=57,
+                                   bf16=True, seed=8, device=device)]
     # Hymba's SSM heads: the scoring pass's and a decode step's, from a
     # state; then ragged fp32 with u, and RWKV6's 64 x 64 heads
     scan = [check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=True,

@@ -24,7 +24,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
            CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu",
-           CSRC / "flash_attention.cu", CSRC / "rwkv6_scan.cu")
+           CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
+           CSRC / "rwkv6_scan.cu")
+#: headers the sources include (hashed with them)
+HEADERS = (CSRC / "flash_attention.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
@@ -58,7 +61,7 @@ class DecodeAttentionArgs(ctypes.Structure):
 
 #: pointer fields of ``TrajLogprobArgs`` in traj_logprob.cu, in order
 TRAJ_LOGPROB_PTRS = ("logits", "mask", "actions", "valid", "g_total",
-                     "g_step", "total", "per_step", "dlogits")
+                     "g_step", "total", "per_step", "dlogits", "arrivals")
 #: stride fields (elements) of ``TrajLogprobArgs``, in order
 TRAJ_LOGPROB_STRIDES = ("logits_sb", "logits_st", "mask_sb", "mask_st",
                         "actions_sb", "actions_st", "valid_sb", "valid_st",
@@ -83,7 +86,7 @@ class SubtbArgs(ctypes.Structure):
 
 
 class FlashAttentionArgs(ctypes.Structure):
-    """Mirror of ``FlashAttentionArgs`` in flash_attention.cu."""
+    """Mirror of ``FlashAttentionArgs`` in flash_attention.cuh."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "out")]
                 + [(n, ctypes.c_int) for n in (
                     "batch", "q_len", "kv_size", "num_heads", "num_kv_heads",
@@ -119,7 +122,7 @@ def build() -> tuple:
     report when this call compiled, and is empty when it reused a built
     library."""
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -171,9 +174,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.repro_subtb_smem_states.argtypes = []
     lib.repro_subtb_smem_states.restype = ctypes.c_int
-    lib.repro_flash_attention.argtypes = [
-        ctypes.POINTER(FlashAttentionArgs), ctypes.c_void_p]
-    lib.repro_flash_attention.restype = ctypes.c_int
+    for fn in (lib.repro_flash_attention, lib.repro_flash_attention_wgmma):
+        fn.argtypes = [ctypes.POINTER(FlashAttentionArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.repro_rwkv6_scan.argtypes = [ctypes.POINTER(Rwkv6ScanArgs),
                                      ctypes.c_void_p]
     lib.repro_rwkv6_scan.restype = ctypes.c_int

@@ -1,15 +1,19 @@
-// GQA streaming-softmax (flash) attention, forward, for Hopper (sm_90a).
+// GQA streaming-softmax (flash) attention, forward, for Hopper (sm_90a), on
+// the fp32 cores.
 //
 // Replaces the TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py:75, pl.pallas_call at :113), and the
-// model's jnp form `repro.models.layers.flash_attention` (:94) that the
-// prompt-scoring pass runs.  Computes what `ref_flash_attention`
-// (kernels/ref.py) computes: q (B, Sq, H, D) against k/v (B, Skv, KVH, D),
-// query head h reading kv head h / (H / KVH); query row i sits at position
-// q_offset + i and key j at j; key j is attended iff j < kv_len, and with
-// `causal` j <= that position, with `window` > 0 j > position - window.
-// Scores q.k * (1 / sqrt(D)) and the softmax are fp32; the output is in q's
-// dtype (fp32 or bf16).  A row that attends no key is written as zeros.
+// model's jnp form `repro.models.layers.flash_attention` (:94), for fp32
+// operands and for bf16 at head dims that are not a multiple of 16 (bf16 at
+// D = 16, 32, .., 128 takes the tensor-core kernel of
+// flash_attention_wgmma.cu; `ops.flash_route` picks).  Computes what
+// `ref_flash_attention` (kernels/ref.py) computes: q (B, Sq, H, D) against
+// k/v (B, Skv, KVH, D), query head h reading kv head h / (H / KVH); query
+// row i sits at position q_offset + i and key j at j; key j is attended iff
+// j < kv_len, and with `causal` j <= that position, with `window` > 0
+// j > position - window.  Scores q.k * (1 / sqrt(D)) and the softmax are
+// fp32; the output is in q's dtype (fp32 or bf16).  A row that attends no
+// key is written as zeros.
 //
 // Design.  One block of 256 threads per (64-row query tile, query head,
 // batch row).  The block keeps its query tile in shared memory (fp32) and
@@ -31,31 +35,19 @@
 // Sq / Skv are masked in the loads (zero-filled) and the store, so any
 // shape works, and any head dim up to 128 (padded to 16, 32, 64 or 128).
 //
-// What bounds it (H100 SXM data sheet: 3.35 TB/s; 989 TFLOP/s bf16 tensor
-// cores, 67 TFLOP/s fp32 outside them).  The scoring pass's call, q
-// (2, 4096, 25, 64) against k/v (2, 4096, 5, 64) in bf16 with a 2048 window,
-// does 4 D flops on each of ~3.1e8 attended (query, key) pairs: 8e10 flops
-// (about 0.08 ms on bf16 tensor cores) against 63 MB moved (0.019 ms): it is
-// bound by operations.  This first kernel runs its products on the fp32
-// cores from shared memory (about two shared loads per FMA), so it sits far
-// from that bound; tensor cores (mma / wgmma on bf16 tiles) are the
-// redesign.
+// What bounds it (H100 SXM data sheet: 3.35 TB/s; 67 TFLOP/s fp32 outside
+// the tensor cores).  The fp32 call at the scoring pass's geometry, q
+// (2, 4096, 25, 64) against k/v (2, 4096, 5, 64) with a 2048 window, does
+// 4 D flops on each of ~3.1e8 attended (query, key) pairs: 8e10 flops, about
+// 1.2 ms on the fp32 cores, against 126 MB moved (0.04 ms): it is bound by
+// operations.  The kernel runs its products from shared memory (about two
+// shared loads per FMA), so it sits well above that bound (PERF.md, §6).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 
-// Kernel operands; mirrored field for field by `FlashAttentionArgs` in
-// build.py.  q, k, v, out contiguous, all of one dtype (bf16 != 0: bf16).
-struct FlashAttentionArgs {
-  const void* q;  // (B, Sq, H, D)
-  const void* k;  // (B, Skv, KVH, D)
-  const void* v;  // (B, Skv, KVH, D)
-  void* out;      // (B, Sq, H, D)
-  int batch, q_len, kv_size, num_heads, num_kv_heads, head_dim;
-  int causal, window, q_offset, kv_len;
-  int bf16, device;
-};
+#include "flash_attention.cuh"
 
 namespace {
 

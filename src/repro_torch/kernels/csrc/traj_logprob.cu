@@ -12,15 +12,26 @@
 // `ref_traj_logprob_backward`'s closed form in one pass per row:
 //   d[b, t, :] = (g_total[b] + g_step[b, t]) * valid * (onehot - softmax).
 //
-// Design.  One block per (b, t) row.  Each thread folds its strided share of
-// the row into an online (max, sum of exp) pair, so the forward reads the
-// row once; pairs combine across the warp by shuffles and across warps in
-// shared memory.  The forward writes per_step; a second, tiny kernel sums
-// per_step over t for each b in a fixed order (no float atomics, so two runs
-// agree bit for bit).  The backward re-derives the pair and writes the
-// gradient row in a second sweep over the row.  Logits, mask, actions and
-// valid are read through their (B, T) strides with a unit stride along A,
-// so the transposed time-major views of the training path need no copy.
+// Design.  Forward: one launch, one block per (b, t) row.  Where the row's
+// logits and mask start on 16-byte boundaries and A % 16 == 0 (the training
+// path's rows at A = 3840), each thread reads 16-element units of the row
+// with 16-byte loads (four float4 of logits, one uint4 of mask bytes) and
+// keeps them in registers: 2 units a thread at 128 threads, so a chunk of
+// up to 4,096 elements is read once; the row max, then the sum of exp from
+// those registers (one expf per element, no per-element rescale); a longer
+// row folds its chunks into the (max, sum) pair once per chunk.  Other rows
+// (A = 15, 203, misaligned views) take a scalar path in the same kernel:
+// max, then sum of exp, over strided 4-byte loads.  The total of trajectory
+// b is summed over t in order of t by the block that finishes its last row:
+// each row's thread 0 writes per_step and counts itself in an int32 arrival
+// counter per trajectory (a scratch buffer the wrapper keeps per device,
+// zero between launches) with an acquire-release atomic; the block that
+// brings it to T sums per_step[b, :] and returns the counter to 0.  No float atomics, so two
+// runs agree bit for bit.  The backward re-derives the row's online (max,
+// sum of exp) pair and writes the gradient row in a second sweep.  Logits,
+// mask, actions and valid are read through their (B, T) strides with a
+// unit stride along A, so the transposed time-major views of the training
+// path need no copy.
 //
 // What bounds it (H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s fp32).  At the
 // training shape (16, 15, 3840) the forward must read 3.7 MB of logits and
@@ -45,6 +56,7 @@ struct TrajLogprobArgs {
   float* total;             // (B,) forward output
   float* per_step;          // (B, T) contiguous forward output
   float* dlogits;           // (B, T, A) contiguous backward output
+  int* arrivals;            // (B,) int32 scratch, zero; forward only
   long long logits_sb, logits_st, mask_sb, mask_st, actions_sb, actions_st;
   long long valid_sb, valid_st, g_step_sb, g_step_st;
   int batch, steps, num_actions, device;
@@ -100,33 +112,139 @@ __device__ __forceinline__ float masked_at(const float* x, const uint8_t* mk,
   return mk[j] ? x[j] : -FLT_MAX;
 }
 
-__global__ void traj_logprob_fwd_rows(const TrajLogprobArgs a) {
+constexpr int kFwdThreads = 128;
+constexpr int kUnit = 16;                  // elements per 16-byte mask load
+constexpr int kUnitsPerThread = 2;
+constexpr int kChunk = kFwdThreads * kUnit * kUnitsPerThread;  // 4,096
+
+// Block-wide max; every thread gets it.
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();  // red is free (an earlier reduction has read it)
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, red[w]);
+  return v;
+}
+
+// Block-wide sum, in a fixed order; every thread gets it.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v += red[w];
+  return v;
+}
+
+// (max, sum of exp) of one chunk of a row, read with 16-byte loads into
+// registers: n elements from x / mk, n % 16 == 0, both 16-byte aligned.
+__device__ void chunk_pair_vec(const float* x, const uint8_t* mk, int n,
+                               float& m, float& s, float* red) {
+  float v[kUnitsPerThread][kUnit];
+#pragma unroll
+  for (int u = 0; u < kUnitsPerThread; ++u) {
+    const int e = (threadIdx.x + u * kFwdThreads) * kUnit;
+    if (e < n) {
+      const uint4 mb = *reinterpret_cast<const uint4*>(mk + e);
+      const uint32_t words[4] = {mb.x, mb.y, mb.z, mb.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(x + e + 4 * q);
+        const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[u][4 * q + i] = ((words[q] >> (8 * i)) & 0xffu) ? fs[i] : -FLT_MAX;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kUnit; ++i) v[u][i] = -INFINITY;
+    }
+  }
+  float cm = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < kUnitsPerThread; ++u)
+#pragma unroll
+    for (int i = 0; i < kUnit; ++i) cm = fmaxf(cm, v[u][i]);
+  cm = block_max(cm, red);
+  float cs = 0.f;
+#pragma unroll
+  for (int u = 0; u < kUnitsPerThread; ++u)
+#pragma unroll
+    for (int i = 0; i < kUnit; ++i) cs += expf(v[u][i] - cm);  // pads: 0
+  cs = block_sum(cs, red);
+  online_merge(m, s, cm, cs);
+}
+
+__global__ void __launch_bounds__(kFwdThreads)
+    traj_logprob_fwd_kernel(const TrajLogprobArgs a) {
+  __shared__ float red[kMaxWarps];
   const int T = a.steps, A = a.num_actions;
+  if (T == 0) {  // empty trajectories: total 0, one block per b
+    if (threadIdx.x == 0) a.total[blockIdx.x] = 0.f;
+    return;
+  }
   const int b = blockIdx.x / T, t = blockIdx.x % T;
   const float* x = a.logits + b * a.logits_sb + t * a.logits_st;
   const uint8_t* mk = a.mask + b * a.mask_sb + t * a.mask_st;
-  float m = -INFINITY, s = 0.f;
-  for (int j = threadIdx.x; j < A; j += blockDim.x)
-    online_add(m, s, masked_at(x, mk, j));
-  block_pair(m, s);
+  // thread 0 reads the step's action and its masked logit up front, so
+  // those loads overlap the row's
+  float lpa = 0.f;  // an action outside [0, A), or a dead step: 0
+  bool taken = false;
   if (threadIdx.x == 0) {
-    const bool live = a.valid[b * a.valid_sb + t * a.valid_st] != 0;
     const int64_t act = a.actions[b * a.actions_sb + t * a.actions_st];
-    float lpa = 0.f;  // an action outside [0, A) matches no column
-    if (live && act >= 0 && act < A)
-      lpa = masked_at(x, mk, (int)act) - (m + logf(s));
-    a.per_step[(size_t)b * T + t] = lpa;
+    taken = a.valid[b * a.valid_sb + t * a.valid_st] != 0 && act >= 0 &&
+            act < A;
+    if (taken) lpa = masked_at(x, mk, (int)act);
   }
-}
-
-// total[b] = sum_t per_step[b, t], in order of t.
-__global__ void traj_logprob_totals(const TrajLogprobArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.batch) return;
-  const float* row = a.per_step + (size_t)b * a.steps;
-  float acc = 0.f;
-  for (int t = 0; t < a.steps; ++t) acc += row[t];
-  a.total[b] = acc;
+  float m = -INFINITY, s = 0.f;
+  if ((A % kUnit) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(mk) & 15) == 0) {
+    for (int c = 0; c < A; c += kChunk)
+      chunk_pair_vec(x + c, mk + c, min(kChunk, A - c), m, s, red);
+  } else {  // scalar path: max, then sum of exp, over strided loads
+    float cm = -INFINITY;
+    for (int j = threadIdx.x; j < A; j += blockDim.x)
+      cm = fmaxf(cm, masked_at(x, mk, j));
+    m = block_max(cm, red);
+    float cs = 0.f;
+    for (int j = threadIdx.x; j < A; j += blockDim.x)
+      cs += expf(masked_at(x, mk, j) - m);
+    s = block_sum(cs, red);
+  }
+  if (threadIdx.x == 0) {
+    if (taken) lpa -= m + logf(s);
+    a.per_step[(size_t)b * T + t] = lpa;
+    // count this row in; release: the per_step store is visible to the
+    // block that counts T, which acquires the other rows' stores
+    int before;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(before)
+                 : "l"(a.arrivals + b)
+                 : "memory");
+    // the block that finishes trajectory b's last row sums it, in order of
+    // t (loads issued eight at a time)
+    if (before == T - 1) {
+      const volatile float* row = a.per_step + (size_t)b * T;
+      float acc = 0.f;
+      int i = 0;
+      for (; i + 8 <= T; i += 8) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = row[i + j];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc += v[j];
+      }
+      for (; i < T; ++i) acc += row[i];
+      a.total[b] = acc;
+      a.arrivals[b] = 0;  // ready for the next launch
+    }
+  }
 }
 
 __global__ void traj_logprob_bwd_rows(const TrajLogprobArgs a) {
@@ -166,20 +284,19 @@ int check(const TrajLogprobArgs& a) {
 
 extern "C" {
 
-// Forward on `stream`: per_step, then total.  Returns a cudaError_t.
+// Forward on `stream`: per_step and total in one launch.  `arrivals` must
+// hold B zeros (the kernel leaves them so).  Returns a cudaError_t.
 int repro_traj_logprob_fwd(const TrajLogprobArgs* args, void* stream) {
   const TrajLogprobArgs& a = *args;
   int err = check(a);
   if (err != 0) return err;
   if (a.batch == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.steps > 0) {
-    traj_logprob_fwd_rows<<<a.batch * a.steps, threads_for(a.num_actions), 0,
-                            s>>>(a);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  traj_logprob_totals<<<(a.batch + 127) / 128, 128, 0, s>>>(a);
+  if (a.arrivals == nullptr) return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      a.steps > 0 ? (long long)a.batch * a.steps : (long long)a.batch;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  traj_logprob_fwd_kernel<<<(unsigned)blocks, kFwdThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

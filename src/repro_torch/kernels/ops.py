@@ -247,6 +247,19 @@ def _traj_args(logits, actions, mask, valid, **ptrs):
         device=_device_index(logits.device))
 
 
+#: per-device int32 arrival counters of the forward kernel (zero between
+#: launches: the kernel returns each to 0); grown to the largest batch
+_TRAJ_ARRIVALS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _traj_arrivals(dev: torch.device, batch: int) -> torch.Tensor:
+    buf = _TRAJ_ARRIVALS.get(dev)
+    if buf is None or buf.numel() < batch:
+        buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=dev)
+        _TRAJ_ARRIVALS[dev] = buf
+    return buf
+
+
 def _traj_forward(logits, actions, mask, valid):
     dev = logits.device
     if dev.type == "cpu":
@@ -258,7 +271,8 @@ def _traj_forward(logits, actions, mask, valid):
     total = torch.empty(B, dtype=torch.float32, device=dev)
     per_step = torch.empty(B, T, dtype=torch.float32, device=dev)
     args = _traj_args(logits, actions, mask, valid, total=total,
-                      per_step=per_step)
+                      per_step=per_step,
+                      arrivals=_traj_arrivals(dev, B))
     err = build.library().repro_traj_logprob_fwd(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -327,7 +341,9 @@ def traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
     logits: (B, T, A) float32; actions: (B, T) int64; mask: (B, T, A) bool;
     valid: (B, T) bool.  Any (B, T) strides are taken (the training path
     passes transposed time-major views), but the action axis must have
-    unit stride.  Returns ``(total (B,), per_step (B, T))``: mask +
+    unit stride.  On CUDA the forward is one launch; its arrival counters
+    are shared per device, so calls must not run on two streams at once.
+    Returns ``(total (B,), per_step (B, T))``: mask +
     log-softmax + action gather, zero where ``valid`` is False, summed over
     t in order.  Gradients flow to ``logits`` only, through
     :func:`traj_logprob_backward`; when ``logits`` needs no grad the
@@ -465,6 +481,17 @@ subtb_loss.launches = 0
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel :func:`flash_attention` launches for operands of
+    ``dtype`` and head dim ``head_dim`` (<= 128): ``"wgmma"``, the
+    tensor-core kernel (``flash_attention_wgmma.cu``), for bfloat16 with
+    ``head_dim`` a multiple of 16; else ``"simt"``, the kernel on the fp32
+    cores (``flash_attention.cu``), which keeps fp32 operands in fp32."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
@@ -478,8 +505,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``j <= position``, with ``window`` > 0 ``j > position - window``.
     Scores and softmax in float32; returns (B, Sq, H, D) in q's dtype, zeros
     in a row that attends no key.  On CUDA the kernel takes contiguous
-    operands and D <= 128.  Forward only: an operand that requires grad
-    raises under grad mode (the backward comes with LM training)."""
+    operands and D <= 128, and :func:`flash_route` picks it by dtype and D
+    alone: bfloat16 with D a multiple of 16 runs on the tensor cores (its
+    operands 16-byte aligned), everything else on the SIMT kernel.
+    ``flash_attention.launches`` counts every launch and
+    ``flash_attention.route_launches[route]`` each route's.  Forward only:
+    an operand that requires grad raises under grad mode (the backward
+    comes with LM training)."""
     op = "flash_attention"
     _refuse_grad(op, q, k, v)
     dev = q.device
@@ -512,6 +544,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
 
+    route = flash_route(q.dtype, D)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)
+                                if t.numel()):
+        raise ValueError(f"{op}: the tensor-core kernel reads q, k, v "
+                         "through TMA and needs them on 16-byte boundaries")
+
     from . import build
     out = torch.empty_like(q)
     if B * Sq * H == 0:
@@ -522,15 +560,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         head_dim=D, causal=int(bool(causal)), window=window,
         q_offset=q_offset, kv_len=kv_len,
         bf16=int(q.dtype == torch.bfloat16), device=_device_index(dev))
-    err = build.library().repro_flash_attention(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    launch = (lib.repro_flash_attention_wgmma if route == "wgmma"
+              else lib.repro_flash_attention)
+    err = launch(ctypes.byref(args),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{op} kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

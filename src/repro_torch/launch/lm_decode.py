@@ -9,15 +9,17 @@
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  The model and the prompt are drawn from a seeded
 ``torch.Generator`` on the target device, so a seed gives other weights on
-the CPU than on the card.  Sampling adds Gumbel noise from its own seeded
-generator to the logits (JAX's key stream cannot be replayed); ``--greedy``
-takes the argmax, and that is what parity with JAX is tested on.
+the CPU than on the card.  Sampling takes the argmax of the logits plus
+Gumbel noise, added in the logits' dtype as ``jax.random.categorical``
+adds it: by default drawn from a seeded generator of its own, or given as
+an operand (``serve(noise=...)``), so a test can replay JAX's draws and
+hold the sampled tokens to JAX's; ``--greedy`` takes the argmax.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -32,15 +34,35 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return g
 
 
+Noise = Union[torch.Tensor, Callable[[int], torch.Tensor]]
+
+
+def _seeded_gumbel(dev: torch.device, seed: int,
+                   shape) -> Callable[[int], torch.Tensor]:
+    """A noise source: Gumbel draws of ``shape`` from a generator seeded
+    with ``seed``, one per generated token."""
+    g = _generator(dev, seed)
+
+    def draw(t: int) -> torch.Tensor:
+        u = torch.rand(shape, generator=g, device=dev)
+        return -torch.log(-torch.log(u.clamp_(1e-20, 1.0)))
+    return draw
+
+
 @torch.no_grad()
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           greedy: bool = False, device: DeviceLike = None,
-          params=None, prompt: Optional[torch.Tensor] = None):
+          params=None, prompt: Optional[torch.Tensor] = None,
+          noise: Optional[Noise] = None):
     """Prefill ``prompt_len`` tokens one decode step at a time, then
     generate ``gen`` tokens.  Returns ``(tokens (batch, gen) int64, tokens
     per second over the generation)``.  ``params`` (LM params, for example
     JAX's carried across) and ``prompt`` ((batch, prompt_len) integer)
-    replace the seeded draws."""
+    replace the seeded draws.  Token t is ``argmax(logits + noise_t)``,
+    the noise cast to the logits' dtype and added there; ``noise`` is
+    the (gen, batch, vocab) Gumbel draws, or a source ``noise(t) ->
+    (batch, vocab)``, or None: draws from a generator seeded with
+    ``seed + 1``.  ``greedy`` ignores it."""
     dev = resolve_device(device)
     g = _generator(dev, seed)
     if params is None:
@@ -51,7 +73,13 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     prompt = prompt.to(dev)
     max_len = prompt_len + gen + 1
     cache = LM.init_cache(cfg, batch, max_len, device=dev)
-    noise = _generator(dev, seed + 1)
+    if noise is None:
+        noise = _seeded_gumbel(dev, seed + 1, (batch, cfg.vocab_size))
+    elif isinstance(noise, torch.Tensor):
+        if tuple(noise.shape) != (gen, batch, cfg.vocab_size):
+            raise ValueError(f"serve: noise has shape {tuple(noise.shape)}, "
+                             f"expected {(gen, batch, cfg.vocab_size)}")
+        noise = noise.__getitem__
 
     logits = None
     for t in range(prompt_len):
@@ -60,12 +88,11 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    for _ in range(gen):
+    for t in range(gen):
         if greedy:
             tok = torch.argmax(logits, dim=-1)[:, None]
         else:
-            u = torch.rand(logits.shape, generator=noise, device=dev)
-            gumbel = -torch.log(-torch.log(u.clamp_(1e-20, 1.0)))
+            gumbel = noise(t).to(dev, logits.dtype)
             tok = torch.argmax(logits + gumbel, dim=-1)[:, None]
         out_tokens.append(tok)
         logits, cache = LM.decode_step(params, cfg, tok, cache)

@@ -192,6 +192,69 @@ def test_traj_logprob_kernels_match_plain_version(cuda, B, T, A):
     assert torch.equal(again[0], total) and torch.equal(again[1], per_step)
 
 
+def _kernel_launches(fn, match):
+    """The CUDA kernels ``fn`` launches whose name holds ``match``, counted
+    by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and match in e.key)
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose data starts one element past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("layout", [
+    "time-major 3840", "contiguous 3840", "A=15", "A=203", "misaligned 3840",
+    "misaligned 203"])
+def test_traj_logprob_forward_is_one_launch_on_both_paths(cuda, layout):
+    """The forward kernel's 16-byte path (A = 3840 on 16-byte boundaries,
+    through the training path's transposed views or contiguous) and its
+    scalar path (A = 15, 203, a view one element off a 16-byte boundary):
+    held to the plain version, bitwise equal on repeat, and one CUDA kernel
+    per call, per_step and total together."""
+    A = int(layout.split()[-1].split("=")[-1])
+    B, T = (16, 15) if A != 203 else (3, 50)
+    logits, actions, mask, valid = _traj_inputs(B, T, A, cuda, seed=7)
+    if not layout.startswith("time-major"):
+        logits, mask = logits.contiguous(), mask.contiguous()
+    if layout.startswith("misaligned"):
+        logits, mask = _misaligned(logits), _misaligned(mask)
+        assert logits.data_ptr() % 16 and mask.data_ptr() % 16
+    with torch.no_grad():
+        before = ops.traj_logprob.launches
+        total, per_step = ops.traj_logprob(logits, actions, mask, valid)
+        again = ops.traj_logprob(logits, actions, mask, valid)
+        torch.cuda.synchronize()
+        assert ops.traj_logprob.launches == before + 2
+        assert torch.equal(again[0], total) and torch.equal(again[1],
+                                                             per_step)
+        assert _kernel_launches(
+            lambda: ops.traj_logprob(logits, actions, mask, valid),
+            "traj_logprob") == 1
+    want_total, want_step = ref_traj_logprob(logits, actions, mask, valid)
+    torch.testing.assert_close(per_step, want_step, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(total, want_total, atol=1e-4, rtol=1e-4)
+
+
+def test_traj_logprob_forward_without_steps_is_zero(cuda):
+    logits, actions, mask, valid = _traj_inputs(4, 3, 32, cuda)
+    with torch.no_grad():
+        total, per_step = ops.traj_logprob(logits[:, :0], actions[:, :0],
+                                           mask[:, :0], valid[:, :0])
+    assert torch.equal(total, torch.zeros(4, device=cuda))
+    assert per_step.shape == (4, 0)
+
+
 def test_training_on_cuda_launches_the_kernels(cuda):
     """Two bitseq_tb iterations at n=16, k=4 on the card: every cached
     query goes through decode_attention (3 layers x 4 steps), the loss
@@ -345,6 +408,19 @@ def _close_bf16(got, want):
     (2, 17, 64, 4, 2, 32, True, 16, 40, 57, False),       # cached prefill
     (1, 300, 300, 25, 5, 64, True, 128, 0, None, True),   # Hymba's heads
     (2, 1, 9, 4, 2, 24, True, 0, 8, None, False),         # one query
+    # bf16 on the tensor cores: D 128 non-causal, ragged, windowed GQA,
+    # cached prefill, one query row, D < 64 and between 64 and 128, a ring
+    # of key tiles that wraps many times
+    (2, 64, 256, 4, 1, 128, False, 0, 0, None, True),
+    (1, 17, 33, 2, 1, 16, True, 0, 0, None, True),
+    (2, 300, 300, 25, 5, 64, True, 100, 0, None, True),
+    (2, 17, 64, 4, 2, 32, True, 16, 40, 57, True),
+    (2, 200, 700, 4, 2, 128, True, 300, 450, 640, True),
+    (2, 1, 9, 4, 2, 64, True, 0, 8, None, True),
+    (1, 130, 190, 4, 2, 48, True, 0, 60, None, True),
+    (2, 257, 1000, 8, 2, 96, True, 300, 700, None, True),
+    (1, 512, 2048, 5, 1, 128, True, 0, 1536, None, True),
+    (1, 64, 64, 2, 2, 24, True, 0, 0, None, True),        # bf16, SIMT
 ], ids=str)
 def test_flash_attention_kernel_matches_plain_version(cuda, case):
     B, Sq, Skv, H, KVH, D, causal, window, q_offset, kv_len, bf16 = case
@@ -353,10 +429,15 @@ def test_flash_attention_kernel_matches_plain_version(cuda, case):
     q, k, v = (torch.randn(shape, generator=g).to(cuda, dt) for shape in (
         (B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D)))
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    route = "wgmma" if bf16 and D % 16 == 0 else "simt"
+    assert ops.flash_route(dt, D) == route
     before = ops.flash_attention.launches
+    routes = dict(ops.flash_attention.route_launches)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.route_launches == {
+        r: n + (r == route) for r, n in routes.items()}
     assert out.dtype == dt and out.shape == q.shape
     want = ref_flash_attention(q, k, v, **kw)
     if bf16:
@@ -366,14 +447,20 @@ def test_flash_attention_kernel_matches_plain_version(cuda, case):
     assert torch.equal(ops.flash_attention(q, k, v, **kw), out)
 
 
-def test_flash_attention_rows_without_keys_are_zero_on_cuda(cuda):
-    q, k, v = (torch.randn(s, device=cuda) for s in
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_rows_without_keys_are_zero_on_cuda(cuda, dtype):
+    """kv_len = 0, then a negative q_offset that leaves the first 65 rows
+    without a key (the bf16 operands take the tensor-core kernel)."""
+    q, k, v = (torch.randn(s, device=cuda).to(dtype) for s in
                ((1, 70, 2, 16), (1, 70, 1, 16), (1, 70, 1, 16)))
     out = ops.flash_attention(q, k, v, causal=False, kv_len=0)
     assert torch.equal(out, torch.zeros_like(q))
     out = ops.flash_attention(q, k, v, causal=True, q_offset=-65)
-    _close(out, ref_flash_attention(q, k, v, causal=True, q_offset=-65),
-           1e-4)
+    want = ref_flash_attention(q, k, v, causal=True, q_offset=-65)
+    if dtype == torch.bfloat16:
+        _close_bf16(out, want)
+    else:
+        _close(out, want, 1e-4)
     assert torch.equal(out[:, :65], torch.zeros_like(out[:, :65]))
 
 
@@ -385,6 +472,13 @@ def test_flash_attention_refuses_grad_and_strided_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, v)
+    # bf16 at D = 16 takes the tensor-core route, whose TMA maps need
+    # 16-byte boundaries: a contiguous view one element off one is refused
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    off = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(off, kb, vb)
 
 
 @pytest.mark.parametrize("case", [

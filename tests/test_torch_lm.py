@@ -234,3 +234,53 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="without a window"):
         LM.decode_step(params, nowin, torch.zeros(B, 1, dtype=torch.int32),
                        LM.init_cache(nowin, B, 8))
+
+
+def _jax_gumbel_draws(seed, gen, shape):
+    """The Gumbel noise JAX's ``serve`` draws for its ``gen`` sampled
+    tokens: ``key, k2 = split(key)`` per token from ``PRNGKey(seed)``, then
+    ``jax.random.categorical(k2, logits)``, which in JAX 0.9 is
+    ``argmax(gumbel(k2, logits.shape, logits.dtype) + logits)`` (the decode
+    logits are float32)."""
+    key = jax.random.PRNGKey(seed)
+    draws = []
+    for _ in range(gen):
+        key, k2 = jax.random.split(key)
+        draws.append(np.asarray(jax.random.gumbel(k2, shape, jnp.float32)))
+    return np.stack(draws)
+
+
+def test_sampled_serve_tokens_equal_jax():
+    """``lm_decode.serve`` with JAX's weights, prompt and replayed Gumbel
+    draws samples JAX's tokens (``greedy=False``), token for token: 6
+    prompt + 10 sampled tokens through the 8-slot window, in float32."""
+    cfg, jcfg = _configs("float32")
+    seed, prompt_len, gen = 3, 6, 10
+    jp, tp = _params(cfg, jcfg, seed=seed)
+    prompt = jax.random.randint(jax.random.PRNGKey(seed), (B, prompt_len),
+                                0, cfg.vocab_size)
+    want, _ = jax_lm_decode.serve(jcfg, batch=B, prompt_len=prompt_len,
+                                  gen=gen, seed=seed, greedy=False)
+    draws = _jax_gumbel_draws(seed, gen, (B, cfg.vocab_size))
+    got, _ = lm_decode.serve(cfg, batch=B, prompt_len=prompt_len, gen=gen,
+                             seed=seed, device="cpu", params=tp,
+                             prompt=torch.from_numpy(np.array(prompt)),
+                             noise=torch.from_numpy(draws))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the same draws as a source noise(t) -> (batch, vocab)
+    again, _ = lm_decode.serve(cfg, batch=B, prompt_len=prompt_len, gen=gen,
+                               seed=seed, device="cpu", params=tp,
+                               prompt=torch.from_numpy(np.array(prompt)),
+                               noise=lambda t: torch.from_numpy(draws[t]))
+    assert torch.equal(again, got)
+    # the greedy tokens differ: the noise was used
+    greedy, _ = jax_lm_decode.serve(jcfg, batch=B, prompt_len=prompt_len,
+                                    gen=gen, seed=seed, greedy=True)
+    assert not np.array_equal(np.asarray(greedy), np.asarray(want))
+
+
+def test_serve_refuses_noise_of_another_shape():
+    cfg = get_config(ARCH, smoke=True)
+    with pytest.raises(ValueError, match="noise has shape"):
+        lm_decode.serve(cfg, batch=B, prompt_len=2, gen=3, device="cpu",
+                        noise=torch.zeros(3, B, cfg.vocab_size - 1))
