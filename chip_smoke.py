@@ -19,7 +19,12 @@ printing one JSON line:
              take (``bound``) and, where one PyTorch call computes the
              same function, that call's (``library_us``); each flash row
              names the route it took (``ops.flash_route``: the
-             tensor-core kernel for bf16 at D % 16 == 0, else SIMT);
+             tensor-core kernel for bf16 at D % 16 == 0, else SIMT), and
+             each scan row its route (``ops.scan_route``: the chunk
+             kernels for bf16 at T >= 64, else the step recurrence); a
+             chunk row also holds and times the recurrence kernel on the
+             same inputs, and one row draws decays far below the JAX
+             chunk form's 1e-30 clamp;
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
@@ -54,11 +59,17 @@ printing one JSON line:
              full width and depth (32 layers, d_model 1600, bf16, random
              weights from a seeded generator on the card): batch 8, 32
              prompt tokens, 32 generated; tokens/s, steps/s, exactly 32
-             rwkv6_scan launches per step and no flash;
+             rwkv6_scan launches per step (recurrence route) and no
+             flash;
    lm_prefill - ``launch.steps.make_prefill_step`` over 2 x 4,096 tokens:
              tokens/s, device time by kernel, finite log-probs, exactly 32
              flash_attention (all on the tensor-core route) and 32
-             rwkv6_scan launches;
+             rwkv6_scan launches (all on the chunk route);
+   scan_hold - the same pass with each layer's scan operands captured:
+             on Hymba's own decays the chunk route holds to the step
+             recurrence, layer by layer; the smallest in-chunk decay
+             product each layer saw; the log-prob difference between a
+             pass on each route (reported);
    lm_profile - one full-width decode step's idle share and tops;
    lm_hold - a 2-layer full-width fp32 Hymba (window 32) on the card
              (kernels) against the CPU (plain versions): a 512-token
@@ -71,6 +82,7 @@ repository's ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -135,6 +147,13 @@ HOLD_TOL = 1e-3
 #: ``flash_attention_kernel``, ``flash_attention_wgmma_kernel``), so the
 #: profiler's flash time sums every kernel either route launches
 FLASH_MATCH = "flash_attention"
+#: in the device-kernel name of every kernel of both scan routes
+#: (``ops.scan_route``: ``rwkv6_scan_kernel``; ``rwkv6_chunk_state_kernel``,
+#: ``rwkv6_chunk_carry_kernel``, ``rwkv6_chunk_out_kernel``), and of each
+#: route's own
+SCAN_MATCH = "rwkv6_"
+SCAN_ROUTE_MATCH = {"recurrence": "rwkv6_scan_kernel",
+                    "chunk": "rwkv6_chunk_"}
 
 
 def wrappers() -> dict:
@@ -157,12 +176,33 @@ def reset_launches() -> None:
     from repro_torch.kernels import ops
     ops.flash_attention.route_launches = {r: 0 for r in
                                           ops.flash_attention.route_launches}
+    ops.rwkv6_scan.route_launches = {r: 0 for r in
+                                     ops.rwkv6_scan.route_launches}
 
 
 def flash_routes() -> dict:
     """Launches of each flash route since the last reset."""
     from repro_torch.kernels import ops
     return dict(ops.flash_attention.route_launches)
+
+
+def scan_routes() -> dict:
+    """Launches of each scan route since the last reset."""
+    from repro_torch.kernels import ops
+    return dict(ops.rwkv6_scan.route_launches)
+
+
+@contextlib.contextmanager
+def forced_scan_route(route: str):
+    """``ops.scan_route`` held at ``route`` for the block (here only: the
+    package reads no setting that picks a route)."""
+    from repro_torch.kernels import ops
+    real = ops.scan_route
+    ops.scan_route = lambda dtype, steps: route
+    try:
+        yield
+    finally:
+        ops.scan_route = real
 
 
 def read_launches() -> dict:
@@ -686,25 +726,45 @@ def check_flash_attention(B, Sq, Skv, H, KVH, D, *, causal, window,
     return row
 
 
-def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
-                     device) -> dict:
-    """The kernel against its plain version (the step recurrence the CPU
-    branch runs; one torch op chain per step, so it is timed over a few
-    calls when T is long); r, k, v in the working dtype, w fp32 in
-    [0.35, 0.95] as the JAX tests draw it.  The output is held as a bf16 or
-    fp32 output, the fp32 state as fp32.  No library call computes this
-    recurrence."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ref_rwkv6
-
+def scan_inputs(B, T, H, Dk, Dv, *, bonus, state, bf16, decay, seed,
+                device):
+    """r, k, v ~ N(0, 1) in the working dtype; w fp32 by ``decay``: "mild"
+    in [0.35, 0.95] as the JAX tests draw it, "strong" log-uniform in
+    [1e-8, 0.3] (0.3^64 < 1e-30: a chunk's product far below the JAX chunk
+    form's clamp); u ~ 0.1 N(0, 1); a state ~ N(0, 1)."""
     g = torch.Generator().manual_seed(seed)
     dt = torch.bfloat16 if bf16 else torch.float32
     rn = lambda *shape: torch.randn(shape, generator=g)
     r, k, v = (rn(*shape).to(device, dt) for shape in (
         (B, T, H, Dk), (B, T, H, Dk), (B, T, H, Dv)))
-    w = (0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))).to(device)
+    if decay == "mild":
+        w = 0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))
+    else:
+        lo, hi = math.log(1e-8), math.log(0.3)
+        w = torch.exp(lo + (hi - lo) * torch.rand(B, T, H, Dk, generator=g))
     u = (0.1 * rn(H, Dk)).to(device) if bonus else None
     s0 = rn(B, H, Dk, Dv).to(device) if state else None
+    return r, k, v, w.to(device), u, s0
+
+
+def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
+                     device, decay="mild") -> dict:
+    """The kernel of the route ``ops.scan_route`` picks against its plain
+    version (the step recurrence the CPU branch runs; one torch op chain
+    per step, so it is timed over a few calls when T is long), on
+    :func:`scan_inputs`.  The output is held as a bf16 or fp32 output, the
+    fp32 state as fp32.  A row on the chunk route also runs the recurrence
+    kernel on the same inputs (the route forced here), holds it too, and
+    times it beside the chunk kernels (and each of their three passes); a
+    repeat call must be bitwise equal.
+    No library call computes this recurrence."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_rwkv6
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    r, k, v, w, u, s0 = scan_inputs(B, T, H, Dk, Dv, bonus=bonus, state=state,
+                                    bf16=bf16, decay=decay, seed=seed,
+                                    device=device)
 
     def plain():
         return ref_rwkv6(r, k, v, w, u, s0)
@@ -712,24 +772,48 @@ def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
     def kernel():
         return ops.rwkv6_scan(r, k, v, w, u, s0)
 
-    (want_o, want_s), (got_o, got_s) = plain(), kernel()
+    want_o, want_s = plain()
+    routes = scan_routes()
+    got_o, got_s = kernel()
     torch.cuda.synchronize()
+    route = [n for n, c in scan_routes().items() if c != routes[n]]
     held = {"o": _held(got_o, want_o, bf16),
             "state": _held(got_s, want_s, False)}
+    again_o, again_s = kernel()
+    bitwise = torch.equal(again_o, got_o) and torch.equal(again_s, got_s)
     nbytes = (r.element_size() * (2 * r.numel() + 2 * v.numel())
               + 4 * w.numel() + 4 * B * H * Dk * Dv * (2 if state else 1))
     flops = 4 * Dk * Dv * B * T * H
     row = {"B": B, "T": T, "H": H, "Dk": Dk, "Dv": Dv, "dtype": str(dt),
-           "bonus": bonus, "state": state,
+           "bonus": bonus, "state": state, "decay": decay, "route": route,
            "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()},
-           "held": held,
-           **timings(kernel, plain, None, match="rwkv6_scan_kernel",
+           "held": held, "repeat_bitwise_equal": bitwise,
+           **timings(kernel, plain, None,
+                     match=SCAN_ROUTE_MATCH[ops.scan_route(dt, T)],
                      plain_iters=2 if T > 256 else 20),
            **bound(nbytes, flops)}
+    if route == ["chunk"]:
+        with forced_scan_route("recurrence"):
+            rec_o, rec_s = kernel()
+            torch.cuda.synchronize()
+            row["recurrence_held"] = {"o": _held(rec_o, want_o, bf16),
+                                      "state": _held(rec_s, want_s, False)}
+            row["recurrence_us"] = profiled_device_us(
+                kernel, match=SCAN_ROUTE_MATCH["recurrence"])
+        # the chunk route's three launches, each alone
+        row["chunk_pass_us"] = {
+            name: profiled_device_us(kernel, match=f"rwkv6_chunk_{name}_")
+            for name in ("state", "carry", "out")}
     emit("kernel", name="rwkv6_scan", **row)
-    if not all(h["excess"] <= 1 for h in held.values()):
+    excess = [h["excess"] for h in held.values()] + [
+        h["excess"] for h in row.get("recurrence_held", {}).values()]
+    if not all(e <= 1 for e in excess) or not bitwise \
+            or route != [ops.scan_route(dt, T)]:
         raise AssertionError(f"rwkv6_scan disagrees with its plain version "
-                             f"at {(B, T, H, Dk, Dv)}: {held}")
+                             f"at {(B, T, H, Dk, Dv)} ({decay} decay): "
+                             f"{held}, route {route}, repeat bitwise equal "
+                             f"{bitwise}, recurrence route "
+                             f"{row.get('recurrence_held')}")
     return row
 
 
@@ -1254,11 +1338,13 @@ def _only(launches: dict, **want) -> dict:
     return {k: want.get(k, 0) for k in launches}
 
 
-def lm_decode_phase(cfg, params, device) -> dict:
+def lm_decode_phase(cfg, params, device):
     """``repro_torch.launch.lm_decode.serve`` at full width and depth:
     batch 8, 32 prompt tokens prefilled one decode step at a time, then 32
-    sampled tokens; one rwkv6_scan launch per layer and step, no flash
-    (decode attends the window cache in plain torch, as JAX does)."""
+    sampled tokens; one rwkv6_scan launch per layer and step, all on the
+    route ``ops.scan_route`` gives at T = 1, no flash (decode attends the
+    window cache in plain torch, as JAX does).  Returns the launches and
+    the scan's launches by route."""
     from repro_torch.launch import lm_decode
 
     smi = nvidia_smi()
@@ -1273,9 +1359,12 @@ def lm_decode_phase(cfg, params, device) -> dict:
                                 seed=0, device=device, params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), scan_routes()
     steps = DECODE_PROMPT + DECODE_GEN
     want = _only(launches, rwkv6_scan=HYMBA_LAYERS * steps)
+    from repro_torch.kernels import ops
+    want_routes = {r: HYMBA_LAYERS * steps * (
+        r == ops.scan_route(torch.bfloat16, 1)) for r in routes}
     n_params = sum(p.numel() for p in params.parameters())
     emit("lm_decode", nvidia_smi=smi, model=cfg.name,
          config={"layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1289,33 +1378,41 @@ def lm_decode_phase(cfg, params, device) -> dict:
          gen_tokens_per_s=tps, gen_steps_per_s=tps / DECODE_BATCH,
          steps_per_s=steps / wall,
          peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
-         launches=launches, first_tokens=toks[0, :8].tolist())
-    if launches != want:
+         launches=launches, scan_routes=routes,
+         first_tokens=toks[0, :8].tolist())
+    if launches != want or routes != want_routes:
         raise AssertionError(f"lm_decode launched {launches}, expected "
-                             f"{want}")
+                             f"{want}; scan routes {routes}, expected "
+                             f"{want_routes}")
     if tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"lm_decode tokens {tuple(toks.shape)} out of "
                              "range")
-    return launches
+    return launches, routes
 
 
-def lm_prefill_phase(cfg, params, device) -> dict:
+def prefill_batch(cfg, device):
+    """The scoring pass's 2 x 4,096 random tokens (seeded) and targets."""
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=g, device=device)
+    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+
+
+def lm_prefill_phase(cfg, params, device):
     """``repro_torch.launch.steps.make_prefill_step`` at full width: 2 x
     4,096 tokens scored in one pass (past the 2,048 window, and 64 scan
-    chunks of 64); exactly one flash and one scan launch per layer."""
+    chunks of 64); exactly one flash launch (tensor-core route) and one
+    scan launch (chunk route) per layer.  Returns the launches and the
+    scan's launches by route."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.steps import make_prefill_step
 
     smi = nvidia_smi()
     step = make_prefill_step(cfg)
-    g = torch.Generator(device=device)
-    g.manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
-                         generator=g, device=device)
-    args = ({"model": params},
-            {"tokens": toks, "targets": torch.roll(toks, -1, 1)})
+    args = ({"model": params}, prefill_batch(cfg, device))
     step(*args)                                             # warm
     torch.cuda.synchronize()
     reset_launches()
@@ -1323,14 +1420,14 @@ def lm_prefill_phase(cfg, params, device) -> dict:
     lp = step(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, routes = read_launches(), flash_routes()
+    launches, routes, s_routes = read_launches(), flash_routes(), scan_routes()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(*args)
         torch.cuda.synchronize()
     rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     flash_us = sum(t for n, t, _ in rows if FLASH_MATCH in n)
-    scan_us = sum(t for n, t, _ in rows if "rwkv6_scan_kernel" in n)
+    scan_us = sum(t for n, t, _ in rows if SCAN_MATCH in n)
     finite = bool(torch.isfinite(lp).all())
     mean_lp = float(lp.mean())
     emit("lm_prefill", nvidia_smi=smi, model=cfg.name, batch=PREFILL_BATCH,
@@ -1339,24 +1436,107 @@ def lm_prefill_phase(cfg, params, device) -> dict:
          device_busy_us=busy, device_idle_share=1 - busy / (wall * 1e6),
          flash_us=flash_us, scan_us=scan_us,
          flash_share_of_busy=flash_us / busy,
+         scan_share_of_busy=scan_us / busy,
          device_top=[{"name": k[:70], "device_us": t, "calls": c}
                      for k, t, c in rows[:8]],
          logprob_shape=list(lp.shape), finite=finite, mean_logprob=mean_lp,
          uniform_logprob=-math.log(cfg.vocab_size), launches=launches,
-         flash_routes=routes)
+         flash_routes=routes, scan_routes=s_routes)
     want = _only(launches, flash_attention=HYMBA_LAYERS,
                  rwkv6_scan=HYMBA_LAYERS)
-    # Hymba's bf16 heads of 64 take the tensor-core route
+    # Hymba's bf16 heads of 64 take the tensor-core route, its bf16 SSM
+    # scans over 4,096 steps the chunk route
     want_routes = {"wgmma": HYMBA_LAYERS, "simt": 0}
-    if launches != want or routes != want_routes or not flash_us > 0 \
+    want_scan = {"chunk": HYMBA_LAYERS, "recurrence": 0}
+    if launches != want or routes != want_routes or s_routes != want_scan \
+            or not flash_us > 0 or not scan_us > 0 \
             or tuple(lp.shape) != (PREFILL_BATCH, PREFILL_LEN) \
             or not finite or not float(lp.max()) <= 0.0:
         raise AssertionError(f"lm_prefill: launches {launches} (expected "
                              f"{want}), routes {routes} (expected "
-                             f"{want_routes}), flash device time {flash_us} "
-                             f"us, log-probs {tuple(lp.shape)}, finite "
-                             f"{finite}, max {float(lp.max())}")
-    return launches
+                             f"{want_routes}), scan routes {s_routes} "
+                             f"(expected {want_scan}), flash device time "
+                             f"{flash_us} us, scan {scan_us} us, log-probs "
+                             f"{tuple(lp.shape)}, finite {finite}, max "
+                             f"{float(lp.max())}")
+    return launches, s_routes
+
+
+def scan_hold_phase(cfg, params, device) -> None:
+    """Hymba's real decays through the chunk route.  During one full-width
+    bf16 scoring pass (the ``lm_prefill`` batch), each layer's scan
+    operands are captured by wrapping ``ops.rwkv6_scan`` as the model's
+    layers see it (here only); on each
+    layer's operands the chunk route is held against the step recurrence
+    (``ref_rwkv6``), o as bf16 and the state as fp32 (``_held``, excess <=
+    1), beside the smallest in-chunk decay product the layer saw (below
+    1e-30 the JAX chunk form's clamp engages).  Then the same pass with
+    ``ops.scan_route`` held at "recurrence": the mean |difference| of the
+    two passes' log-probs is reported, not gated."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_rwkv6
+    from repro_torch.launch.steps import make_prefill_step
+
+    from repro_torch.models import layers as model_layers
+
+    step = make_prefill_step(cfg)
+    args = ({"model": params}, prefill_batch(cfg, device))
+    captured = []
+
+    class CapturingOps:
+        """``ops`` as the model's layers see it, with ``rwkv6_scan``
+        wrapped: each call's operands are copied, then the wrapper runs
+        (and counts its launch) as it would."""
+
+        def __getattr__(self, name):
+            return getattr(ops, name)
+
+        @staticmethod
+        def rwkv6_scan(r, k, v, w, u=None, state=None):
+            captured.append(tuple(None if x is None else x.clone()
+                                  for x in (r, k, v, w, u, state)))
+            return ops.rwkv6_scan(r, k, v, w, u, state)
+
+    reset_launches()
+    model_layers.ops = CapturingOps()
+    try:
+        lp_chunk = step(*args)
+    finally:
+        model_layers.ops = ops
+    routes = scan_routes()
+    layers = []
+    for r, k, v, w, u, s0 in captured:
+        want_o, want_s = ref_rwkv6(r, k, v, w, u, s0)
+        with forced_scan_route("chunk"):
+            got_o, got_s = ops.rwkv6_scan(r, k, v, w, u, s0)
+        logw = w.float().clamp(1e-8, 1.0).log()
+        T = w.shape[1]
+        pad = -T % ops.SCAN_CHUNK
+        logw = torch.nn.functional.pad(logw, (0, 0, 0, 0, 0, pad))
+        per_chunk = logw.reshape(w.shape[0], -1, ops.SCAN_CHUNK,
+                                 *w.shape[2:]).sum(2)
+        layers.append({
+            "T": T, "dtype": str(r.dtype),
+            "o_excess": _held(got_o, want_o, True)["excess"],
+            "state_excess": _held(got_s, want_s, False)["excess"],
+            "min_log10_chunk_decay": float(per_chunk.min()) / math.log(10)})
+    del captured
+    with forced_scan_route("recurrence"):
+        lp_rec = step(*args)
+    diff = (lp_chunk.float() - lp_rec.float()).abs()
+    emit("scan_hold", model=cfg.name, layers=layers, scan_routes=routes,
+         below_jax_clamp=sum(l["min_log10_chunk_decay"] < -30
+                             for l in layers),
+         logprob_mean_abs_diff_chunk_vs_recurrence=float(diff.mean()),
+         logprob_max_abs_diff_chunk_vs_recurrence=float(diff.max()),
+         tol=f"{BF16_RTOL:g} |want| + {BF16_ATOL_RMS:g} rms(want) (o), "
+             f"{TOL:g} |want| + {TOL:g} rms(want) (state), entry by entry")
+    bad = [i for i, l in enumerate(layers)
+           if not (l["o_excess"] <= 1 and l["state_excess"] <= 1)]
+    if len(layers) != HYMBA_LAYERS or bad \
+            or routes != {"chunk": HYMBA_LAYERS, "recurrence": 0}:
+        raise AssertionError(f"scan_hold: {len(layers)} layers captured, "
+                             f"routes {routes}, layers over the check {bad}")
 
 
 def lm_hold_phase(device) -> None:
@@ -1529,8 +1709,11 @@ def main() -> int:
              check_flash_attention(2, 17, 64, 4, 2, 32, causal=True,
                                    window=16, q_offset=40, kv_len=57,
                                    bf16=True, seed=8, device=device)]
-    # Hymba's SSM heads: the scoring pass's and a decode step's, from a
-    # state; then ragged fp32 with u, and RWKV6's 64 x 64 heads
+    # Hymba's SSM heads: the scoring pass's (chunk route) and a decode
+    # step's (recurrence), from a state; then ragged fp32 with u, and
+    # RWKV6's 64 x 64 heads (recurrence); then on the chunk route RWKV6's
+    # heads in bf16 with u, a ragged T, and the scoring shape at strong
+    # decays (far below the JAX chunk form's 1e-30 clamp)
     scan = [check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=True,
                              bf16=True, seed=0, device=device),
             check_rwkv6_scan(8, 1, 25, 16, 64, bonus=False, state=True,
@@ -1538,7 +1721,14 @@ def main() -> int:
             check_rwkv6_scan(1, 100, 3, 32, 32, bonus=True, state=True,
                              bf16=False, seed=2, device=device),
             check_rwkv6_scan(2, 300, 4, 64, 64, bonus=True, state=True,
-                             bf16=False, seed=3, device=device)]
+                             bf16=False, seed=3, device=device),
+            check_rwkv6_scan(2, 300, 4, 64, 64, bonus=True, state=True,
+                             bf16=True, seed=4, device=device),
+            check_rwkv6_scan(2, 1000, 25, 16, 64, bonus=False, state=True,
+                             bf16=True, seed=5, device=device),
+            check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=True,
+                             bf16=True, seed=6, device=device,
+                             decay="strong")]
 
     serve = serve_phase(device)
     train = train_phase(device)
@@ -1552,8 +1742,9 @@ def main() -> int:
     hypergrid_converge(device)
     hymba = hymba_config()
     params = hymba_params(hymba, device)
-    decode = lm_decode_phase(hymba, params, device)
-    prefill = lm_prefill_phase(hymba, params, device)
+    decode, decode_scan = lm_decode_phase(hymba, params, device)
+    prefill, prefill_scan = lm_prefill_phase(hymba, params, device)
+    scan_hold_phase(hymba, params, device)
     lm_profile(hymba, params, device)
     del params
     lm_hold_phase(device)
@@ -1596,9 +1787,19 @@ def main() -> int:
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
               prefill["flash_attention"], flash, flash[0]),
-        entry("rwkv6_scan", csrc + "rwkv6_scan.cu",
-              "src/repro/kernels/rwkv6_scan.py:73",
-              decode["rwkv6_scan"] + prefill["rwkv6_scan"], scan, scan[0]),
+        # the scan's two routes (ops.scan_route): the step recurrence, on
+        # decode's path (its row: a decode step), and the chunk kernels, on
+        # the scoring pass's (its row: the scoring shape)
+        dict(entry("rwkv6_scan", csrc + "rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:73",
+                   decode_scan["recurrence"] + prefill_scan["recurrence"],
+                   [r for r in scan if r["route"] == ["recurrence"]],
+                   scan[1]), scan_route="recurrence"),
+        dict(entry("rwkv6_chunk", csrc + "rwkv6_chunk.cu",
+                   "src/repro/kernels/rwkv6_scan.py:73",
+                   decode_scan["chunk"] + prefill_scan["chunk"],
+                   [r for r in scan if r["route"] == ["chunk"]], scan[0]),
+              scan_route="chunk"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ and its gradient as a hand-written CUDA kernel pair
 Hymba-1.5B (``models/``, ``configs/``, ``launch/lm_decode.py``,
 ``launch/steps.py``: token-by-token decode with the window cache and the
 SSM state, and prompt scoring) with flash attention and the RWKV6 / SSM
-scan as hand-written CUDA kernels (``kernels/csrc/flash_attention.cu``,
-``kernels/csrc/rwkv6_scan.cu``).
+scan as hand-written CUDA kernels (``kernels/csrc/flash_attention.cu`` and
+``flash_attention_wgmma.cu``; ``kernels/csrc/rwkv6_scan.cu``, the step
+recurrence, and ``rwkv6_chunk.cu``, chunk-parallel on the tensor cores).
 """

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
            CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu",
            CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
-           CSRC / "rwkv6_scan.cu")
+           CSRC / "rwkv6_scan.cu", CSRC / "rwkv6_chunk.cu")
 #: headers the sources include (hashed with them)
 HEADERS = (CSRC / "flash_attention.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,6 +101,15 @@ class Rwkv6ScanArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "batch", "steps", "num_heads", "dk", "dv", "bf16",
                     "device")])
+
+
+class Rwkv6ChunkArgs(ctypes.Structure):
+    """Mirror of ``Rwkv6ChunkArgs`` in rwkv6_chunk.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "r", "k", "v", "w", "u", "state_in", "out", "state_out", "carry",
+        "decay")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "steps", "num_heads", "dk", "dv", "device")])
 
 
 def find_nvcc() -> str:
@@ -180,4 +189,7 @@ def library() -> ctypes.CDLL:
     lib.repro_rwkv6_scan.argtypes = [ctypes.POINTER(Rwkv6ScanArgs),
                                      ctypes.c_void_p]
     lib.repro_rwkv6_scan.restype = ctypes.c_int
+    lib.repro_rwkv6_chunk.argtypes = [ctypes.POINTER(Rwkv6ChunkArgs),
+                                      ctypes.c_void_p]
+    lib.repro_rwkv6_chunk.restype = ctypes.c_int
     return lib

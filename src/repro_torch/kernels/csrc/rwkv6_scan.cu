@@ -1,7 +1,11 @@
 // The RWKV6 wkv recurrence (linear attention with per-channel decay), with
-// an initial state, for Hopper (sm_90a).
+// an initial state, step by step on the fp32 cores of Hopper (sm_90a): the
+// "recurrence" route of `ops.rwkv6_scan` (fp32 operands, and T below one
+// 64-step chunk: a decode step is T = 1; `ops.scan_route`).  bf16 operands
+// over T >= 64 take the chunk-parallel tensor-core kernel of
+// rwkv6_chunk.cu instead.
 //
-// Replaces the TPU kernel `rwkv6_scan_pallas`
+// Replaces, on this route, the TPU kernel `rwkv6_scan_pallas`
 // (src/repro/kernels/rwkv6_scan.py:73, pl.pallas_call at :99), and the
 // model's jnp form `repro.models.layers.chunked_linear_attention` (:164)
 // that Hymba's SSM heads and the RWKV blocks run.  Computes what
@@ -20,21 +24,18 @@
 // the state never leaves the chip between steps and a thread reads and
 // writes only its own entries (state_in may alias state_out).  A step's
 // r_t S_{t-1} is four partial dot products summed by two shuffles.  The
-// sequence is walked in order (the recurrence, not the Pallas kernel's
-// chunk form: exact where that form's 1e-30 clamp of the running decay
-// product engages), 32 steps at a time: the block stages the chunk's r, k,
+// sequence is walked in order (exact at any decay: no running product is
+// divided by), 32 steps at a time: the block stages the chunk's r, k,
 // w (clipped) and its v columns in shared memory with coalesced loads, then
 // runs the 32 steps from shared memory (r, k, w are broadcast reads).  Dk
 // up to 64 (padded to 16, 32 or 64 with r = k = 0, w = 1), any Dv.
 //
 // What bounds it (H100 SXM data sheet: 3.35 TB/s; 67 TFLOP/s fp32).  The
-// scoring pass's call, (2, 4096, 25) heads with Dk = 16, Dv = 64 in bf16
-// (w fp32), moves about 79 MB (0.024 ms) and does 4 Dk Dv flops per step
-// and head, 0.8 GFLOP (0.012 ms): bound by bytes.  The decode step's call
-// (8, 1, 25) moves 1.7 MB, mostly state: 0.5 us.  The kernel is
-// latency-bound instead: 100 blocks of 128 threads walking 4,096 dependent
-// steps; a chunked form on tensor cores (the Pallas kernel's, with a
-// guard for the clamp) is the redesign.
+// decode step's call, (8, 1, 25) heads with Dk = 16, Dv = 64, moves 1.7 MB,
+// mostly state: 0.5 us; it takes a few us, the launch and one dependent
+// step.  Over long T the kernel is latency-bound (a block walks T dependent
+// steps; at the scoring pass's (2, 4096, 25) only 100 blocks), which is why
+// bf16 calls over T >= 64 take the chunk kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -577,6 +577,23 @@ flash_attention.launches = 0
 flash_attention.route_launches = {"wgmma": 0, "simt": 0}
 
 
+#: steps per chunk of the chunk-parallel scan kernel (rwkv6_chunk.cu)
+SCAN_CHUNK = 64
+
+
+def scan_route(dtype: torch.dtype, steps: int) -> str:
+    """The CUDA kernel :func:`rwkv6_scan` launches for r/k/v of ``dtype``
+    over ``steps`` steps: ``"chunk"``, the chunk-parallel tensor-core kernel
+    (``rwkv6_chunk.cu``), for bfloat16 with at least one full chunk of
+    :data:`SCAN_CHUNK` steps (Hymba's scoring pass); else ``"recurrence"``,
+    the step recurrence on the fp32 cores (``rwkv6_scan.cu``): fp32
+    operands stay in fp32, and a short call (a decode step, T = 1) is one
+    dependent walk either way."""
+    if dtype == torch.bfloat16 and steps >= SCAN_CHUNK:
+        return "chunk"
+    return "recurrence"
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: Optional[torch.Tensor] = None,
                state: Optional[torch.Tensor] = None):
@@ -588,12 +605,20 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w: (B, T, H, Dk) float32 or bfloat16, clipped to [1e-8, 1]; u: (H, Dk)
     or None; state: (B, H, Dk, Dv) float32 or None (zeros).  Returns
     ``(o (B, T, H, Dv) in r's dtype, final state (B, H, Dk, Dv) float32)``.
-    Both branches compute the exact step recurrence: the kernel on CUDA
-    (contiguous r, k, v, w; Dk <= 64), its plain version
-    :func:`repro_torch.kernels.ref.ref_rwkv6` on the CPU.  (The JAX
-    model's chunked form departs from it where a chunk's decay product
-    falls below its 1e-30 clamp; ``ref.chunked_linear_attention_ref``
-    keeps that form for the tests.)  Forward only, as
+    Every branch computes the step recurrence to float rounding.  On CUDA
+    (contiguous r, k, v, w; Dk <= 64) :func:`scan_route` picks the kernel
+    by dtype and T alone: bfloat16 with T >= 64 runs the chunk-parallel
+    tensor-core kernel, which forms every decay factor as exp of a
+    difference of log-cumsums that is <= 0 (or as a product of decays)
+    and so stays exact at any decay, where the JAX chunk form (the Pallas
+    kernel and ``repro.models.layers.chunked_linear_attention``) divides
+    by the running product clamped at 1e-30 and departs from the
+    recurrence; the rest runs the step recurrence kernel.  On the CPU the plain version
+    :func:`repro_torch.kernels.ref.ref_rwkv6` runs (the JAX chunk form is
+    kept as ``ref.chunked_linear_attention_ref`` for the tests).
+    ``rwkv6_scan.launches`` counts every call that launched a kernel and
+    ``rwkv6_scan.route_launches[route]`` each route's (the chunk route's
+    three kernels count as one).  Forward only, as
     :func:`flash_attention`."""
     op = "rwkv6_scan"
     _refuse_grad(op, r, k, v, w, u, state)
@@ -634,6 +659,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
+    route = scan_route(r.dtype, T)
+    if route == "chunk" and r.dtype != torch.bfloat16:
+        raise ValueError(f"{op}: the chunk kernel takes bfloat16 r, k, v, "
+                         f"got {r.dtype}")
 
     from . import build
     w = w.to(torch.float32)
@@ -641,19 +670,32 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = None if state is None else state.contiguous()
     out = torch.empty(B, T, H, Dv, dtype=r.dtype, device=dev)
     state_out = torch.empty(B, H, Dk, Dv, dtype=torch.float32, device=dev)
-    args = build.Rwkv6ScanArgs(
+    common = dict(
         r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=w.data_ptr(),
         u=None if u is None else u.data_ptr(),
         state_in=None if state is None else state.data_ptr(),
         out=out.data_ptr(), state_out=state_out.data_ptr(), batch=B,
-        steps=T, num_heads=H, dk=Dk, dv=Dv,
-        bf16=int(r.dtype == torch.bfloat16), device=_device_index(dev))
-    err = build.library().repro_rwkv6_scan(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+        steps=T, num_heads=H, dk=Dk, dv=Dv, device=_device_index(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "chunk":
+        n = -(-T // SCAN_CHUNK)
+        # each chunk's own state, then the state entering it; its decay
+        carry = torch.empty(B, H, n, Dk, Dv, dtype=torch.float32, device=dev)
+        decay = torch.empty(B, H, n, Dk, dtype=torch.float32, device=dev)
+        args = build.Rwkv6ChunkArgs(carry=carry.data_ptr(),
+                                    decay=decay.data_ptr(), **common)
+        err = build.library().repro_rwkv6_chunk(ctypes.byref(args), stream)
+    else:
+        args = build.Rwkv6ScanArgs(bf16=int(r.dtype == torch.bfloat16),
+                                   **common)
+        err = build.library().repro_rwkv6_scan(ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{op} kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
     rwkv6_scan.launches += 1
+    rwkv6_scan.route_launches[route] += 1
     return out, state_out
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.route_launches = {"chunk": 0, "recurrence": 0}

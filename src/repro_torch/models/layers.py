@@ -104,10 +104,15 @@ def chunked_linear_attention(r: torch.Tensor, k: torch.Tensor,
     (r_t . u . k_t) v_t``.  r/k/w: (B, T, H, Dk); v: (B, T, H, Dv); u:
     (H, Dk) or None; state: (B, H, Dk, Dv) or None.  Returns
     ``(o (B, T, H, Dv) in r's dtype, state_out float32)`` through
-    :func:`repro_torch.kernels.ops.rwkv6_scan`: the exact recurrence (the
-    scan kernel on CUDA, its plain version on the CPU).  The JAX layer's
-    ``chunk`` is not taken: its chunk form agrees with the recurrence to
-    float rounding except where a chunk's decay product falls below
-    1e-30, and there the recurrence is right (``ROADMAP.md``, queue 3)."""
+    :func:`repro_torch.kernels.ops.rwkv6_scan`, which computes the
+    recurrence to float rounding on every route: on CUDA
+    (``ops.scan_route``) bf16 over T >= 64 runs the chunk-parallel
+    tensor-core kernel and the rest the step recurrence kernel; on the CPU
+    the plain step recurrence.  The port's chunk form forms every decay
+    factor as exp of a difference of log-cumsums that is <= 0, so it stays
+    exact where the JAX layer's chunk form, which divides by the running
+    product clamped at 1e-30, departs from the recurrence (a chunk whose
+    decays multiply below 1e-30; ``ROADMAP.md``, queue 3).  The JAX layer's
+    ``chunk`` argument is not taken: the kernel's chunk is 64 steps."""
     return ops.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
                           w.contiguous(), u, state)

@@ -1,10 +1,11 @@
 """The port on a CUDA GPU: the hand-written kernels (decode step, decode
 attention, trajectory log-prob forward and backward, SubTB loss forward
-and backward, flash attention, RWKV6 scan) against their plain PyTorch
-versions, the serving engine on the card against ``forward_rollout``, two
-bitseq_tb training iterations, one full-size hypergrid_subtb iteration and
-Hymba's smoke config (scoring and decode) on the card against the CPU.  Imports no JAX, so it runs on a machine with a GPU
-and no JAX:
+and backward, flash attention, the RWKV6 scan on both of its routes)
+against their plain PyTorch versions, the serving engine on the card
+against ``forward_rollout``, two bitseq_tb training iterations, one
+full-size hypergrid_subtb iteration and Hymba's smoke config (scoring and
+decode) on the card against the CPU.  Imports no JAX, so it runs on a
+machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
@@ -493,7 +494,9 @@ def test_flash_attention_refuses_grad_and_strided_operands(cuda):
     (3, 33, 2, 8, 40, False, True, False),     # odd sizes
     (2, 70, 3, 24, 200, True, True, False),    # Dv past one column tile
 ], ids=str)
-def test_rwkv6_scan_kernel_matches_plain_version(cuda, case):
+def test_rwkv6_scan_kernel_matches_plain_version(cuda, case, monkeypatch):
+    """The step recurrence kernel (``scan_route`` held at "recurrence", so
+    the bf16 case at T = 300 runs it too)."""
     B, T, H, Dk, Dv, bonus, state, bf16 = case
     g = torch.Generator().manual_seed(T)
     dt = torch.bfloat16 if bf16 else torch.float32
@@ -503,10 +506,14 @@ def test_rwkv6_scan_kernel_matches_plain_version(cuda, case):
     w = (0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))).to(cuda)
     u = (0.1 * rn(H, Dk)).to(cuda) if bonus else None
     s0 = rn(B, H, Dk, Dv).to(cuda) if state else None
+    monkeypatch.setattr(ops, "scan_route", lambda dtype, steps: "recurrence")
     before = ops.rwkv6_scan.launches
+    routes = dict(ops.rwkv6_scan.route_launches)
     o, S = ops.rwkv6_scan(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert ops.rwkv6_scan.launches == before + 1
+    assert ops.rwkv6_scan.route_launches == {
+        "chunk": routes["chunk"], "recurrence": routes["recurrence"] + 1}
     assert o.dtype == dt and S.dtype == torch.float32
     # the plain version (the recurrence) and the chunk form, which agree
     # at these decays (no chunk's product falls below its 1e-30 clamp)
@@ -524,6 +531,85 @@ def test_rwkv6_scan_refuses_grad_on_cuda(cuda):
     w = torch.full_like(r, 0.5)
     with pytest.raises(RuntimeError, match="no gradient"):
         ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, w)
+
+
+def _scan_inputs(B, T, H, Dk, Dv, bonus, state, decay, device, seed):
+    """bf16 r, k, v ~ N(0, 1); w fp32 by ``decay``: "mild" 0.35 + 0.6
+    sigmoid(N(0, 1)), "strong" log-uniform in [1e-8, 0.3] (a chunk's
+    product far below JAX's 1e-30 clamp); u ~ 0.1 N(0, 1); a state."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g)
+    bf = torch.bfloat16
+    r, k, v = (rn(B, T, H, Dk).to(device, bf), rn(B, T, H, Dk).to(device, bf),
+               rn(B, T, H, Dv).to(device, bf))
+    if decay == "mild":
+        w = 0.35 + 0.6 * torch.sigmoid(rn(B, T, H, Dk))
+    else:
+        lo, hi = math.log(1e-8), math.log(0.3)
+        w = torch.exp(lo + (hi - lo) * torch.rand(B, T, H, Dk, generator=g))
+    u = (0.1 * rn(H, Dk)).to(device) if bonus else None
+    s0 = rn(B, H, Dk, Dv).to(device) if state else None
+    return r, k, v, w.to(device), u, s0
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, H, Dk, Dv, bonus, state, decay)
+    (2, 4096, 25, 16, 64, False, False, "mild"),    # Hymba's scoring call
+    (2, 4096, 25, 16, 64, False, True, "strong"),
+    (2, 300, 4, 64, 64, True, True, "mild"),        # RWKV6's heads
+    (2, 300, 4, 64, 64, True, True, "strong"),
+    (1, 1000, 5, 16, 64, True, True, "mild"),       # ragged T
+    (2, 64, 3, 32, 64, False, True, "strong"),      # one chunk
+    (1, 200, 3, 24, 200, True, True, "strong"),     # Dk 24, Dv past a tile
+    (3, 130, 2, 8, 33, False, True, "mild"),        # odd Dv
+    (2, 40, 3, 16, 64, True, True, "strong"),       # T < 64 (held to chunk)
+], ids=str)
+def test_rwkv6_chunk_kernel_matches_plain_version(cuda, case, monkeypatch):
+    """The chunk route against the step recurrence, entry by entry, at mild
+    and strong decays; one launch counted on the chunk route per call; a
+    repeat call is bitwise equal."""
+    B, T, H, Dk, Dv, bonus, state, decay = case
+    r, k, v, w, u, s0 = _scan_inputs(B, T, H, Dk, Dv, bonus, state, decay,
+                                     cuda, seed=T + Dk)
+    if T < ops.SCAN_CHUNK:
+        monkeypatch.setattr(ops, "scan_route", lambda dtype, steps: "chunk")
+    assert ops.scan_route(torch.bfloat16, T) == "chunk"
+    before = ops.rwkv6_scan.launches
+    routes = dict(ops.rwkv6_scan.route_launches)
+    o, S = ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    assert ops.rwkv6_scan.route_launches == {
+        "chunk": routes["chunk"] + 1, "recurrence": routes["recurrence"]}
+    assert o.dtype == torch.bfloat16 and S.dtype == torch.float32
+    want_o, want_S = ref_rwkv6(r, k, v, w, u, s0)
+    _close_bf16(o, want_o)
+    _close(S, want_S, 1e-4)
+    o2, S2 = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert torch.equal(o2, o) and torch.equal(S2, S)
+
+
+def test_scan_route_rule_and_the_chunk_route_on_cuda(cuda):
+    """bf16 at T >= 64 takes the chunk kernel, fp32 and T = 1 the
+    recurrence; the chunk route refuses grad and strided operands, and
+    leaves the state it is given as it was."""
+    assert ops.scan_route(torch.bfloat16, 64) == "chunk"
+    assert ops.scan_route(torch.bfloat16, 4096) == "chunk"
+    assert ops.scan_route(torch.bfloat16, 1) == "recurrence"
+    assert ops.scan_route(torch.float32, 4096) == "recurrence"
+    r, k, v, w, u, s0 = _scan_inputs(1, 128, 2, 16, 64, True, True, "mild",
+                                     cuda, seed=0)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.rwkv6_scan(r.float().requires_grad_(True).to(torch.bfloat16), k,
+                       v, w)
+    with pytest.raises(ValueError, match="v must be contiguous"):
+        ops.rwkv6_scan(r, k, v.transpose(1, 2).contiguous().transpose(1, 2),
+                       w)
+    want = ops.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    o, state_out = ops.rwkv6_scan(r, k, v, w, u, state)
+    assert torch.equal(o, want[0]) and torch.equal(state_out, want[1])
+    assert torch.equal(state, s0)
 
 
 def test_hymba_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch):

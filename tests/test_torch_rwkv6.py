@@ -2,7 +2,9 @@
 
 ``repro_torch.kernels.ops.rwkv6_scan`` on CPU tensors runs its plain
 version, the step recurrence ``repro_torch.kernels.ref.ref_rwkv6`` -- the
-arithmetic of the CUDA kernel, which is held against it on the card.  Here
+arithmetic of the recurrence kernel, and what both CUDA routes are held
+against on the card (the chunk kernel's arithmetic is emulated in
+``tests/test_torch_rwkv6_chunk.py``).  Here
 it is held against the Pallas kernel in interpret mode and JAX's step
 recurrence (``repro.kernels.ref.ref_rwkv6``) on the four ``RWKV_CASES`` of
 ``tests/test_kernels.py`` (tolerance 5e-4 fp32, 5e-2 bf16, the JAX
