@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent`` names a checkout of the parent commit: its decode_step and
+decode_attention kernels are built beside this tree's and timed on the same
+inputs (each of those rows prints ``parent_kernel_us``).
 
 Run from a checkout of the repository on a machine with a CUDA GPU.  It
 imports nothing of JAX or of the JAX package ``repro``.  Phases, each
@@ -10,7 +14,9 @@ printing one JSON line:
 1. device  - ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one ``nvcc`` per source, in parallel), and times one
-             ``nvcc -shared`` call over all sources beside it;
+             ``nvcc -shared`` call over all sources beside it; ptxas's
+             report with the function named on each line, and the
+             functions that spill;
 3. kernel  - each kernel (decode_step, decode_attention, traj_logprob and
              subtb_loss forward and backward, flash_attention,
              rwkv6_scan) against its plain PyTorch version on the card,
@@ -24,7 +30,11 @@ printing one JSON line:
              kernels for bf16 at T >= 64, else the step recurrence); a
              chunk row also holds and times the recurrence kernel on the
              same inputs, and one row draws decays far below the JAX
-             chunk form's 1e-30 clamp;
+             chunk form's 1e-30 clamp; the decode_step and decode_attention
+             rows print the launch floor measured in the run (``floor_us``,
+             a one-element in-place add);
+   decode_step_lanes - the serving batch against the same lanes reversed
+             and a 5-lane subset, and a repeated call: bitwise equal;
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
              dim-64 policy from a seeded generator, 64 lanes, 4 requests)
              through the scheduler; every sample is held against the port's
@@ -82,9 +92,12 @@ repository's ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -269,6 +282,77 @@ def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
                          f"{PROFILE_TRIES} tries")
 
 
+def launch_floor_us(device) -> float:
+    """The launch floor: profiled device time of a one-element in-place
+    ``torch.add_`` (the least a kernel launch costs on the card)."""
+    x = torch.zeros(1, device=device)
+    return profiled_device_us(lambda: x.add_(1.0))
+
+
+def named_ptxas(log: str) -> list:
+    """ptxas's report with the function named on every line: each
+    "Compiling entry function" line as it is, and every register, spill and
+    shared-memory line after it prefixed with that function."""
+    out, fn = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$.]+)'?", ln)
+        if m:
+            fn = m.group(1)
+        if "Compiling entry function" in ln:
+            out.append(ln.strip())
+        elif "registers" in ln or "spill" in ln or "smem" in ln:
+            out.append(f"{fn}: {ln.strip()}")
+    return out
+
+
+def spilling(lines: list) -> list:
+    """Functions whose ptxas line reports spill stores or loads."""
+    return sorted({ln.split(":")[0] for ln in lines
+                   if re.search(r"[1-9]\d* bytes spill", ln)})
+
+
+#: the decode kernels' sources, rebuilt from a checkout of the parent
+#: commit (``--parent``) to time them beside this tree's in the same run
+PARENT_SOURCES = ("decode_step.cu", "decode_attention.cu")
+
+
+def parent_library(parent: Path):
+    """Build a parent checkout's decode kernels into a library of their
+    own (its own namespace); returns it and its named ptxas lines."""
+    from repro_torch.kernels import build
+    csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "libparent_decode.so"
+        proc = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(path),
+             *(str(csrc / name) for name in PARENT_SOURCES)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent build failed:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        lib = ctypes.CDLL(str(path))
+    lib.repro_decode_step.argtypes = [ctypes.POINTER(build.DecodeStepArgs),
+                                      ctypes.c_void_p]
+    lib.repro_decode_step.restype = ctypes.c_int
+    lib.repro_decode_attention.argtypes = [
+        ctypes.POINTER(build.DecodeAttentionArgs), ctypes.c_void_p]
+    lib.repro_decode_attention.restype = ctypes.c_int
+    return lib, named_ptxas(proc.stdout + proc.stderr)
+
+
+def parent_call(fn, args, device):
+    """A call of a parent kernel on the current stream (no launch
+    counted)."""
+    def call():
+        err = fn(ctypes.byref(args), torch.cuda.current_stream(device)
+                 .cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent kernel launch failed: CUDA error "
+                               f"{err}")
+    return call
+
+
 # -- phase 3: decode_step against its plain version ---------------------------
 
 def random_step_inputs(B, L, C, D, H, F, A, seed, device):
@@ -326,7 +410,26 @@ def step_bound(inp) -> dict:
             "bytes": read + written, "flops": flops}
 
 
-def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
+def step_args(inp, cache, outs, device):
+    """``DecodeStepArgs`` of one call on these operands (as the wrapper
+    builds them), for a parent kernel."""
+    from repro_torch.kernels import build
+    L, B, C, H, hd = cache["k"].shape
+    ptrs = {"x_new": inp["x_new"], "k_cache": cache["k"],
+            "v_cache": cache["v"], "lengths": inp["lengths"],
+            "slot": inp["slot"], "logit_temp": inp["temp"],
+            "gumbel": inp["gumbel"], "mask": inp["mask"],
+            "w_out": inp["w_out"], "b_out": inp["b_out"], "action": outs[0],
+            "log_pf": outs[1], "y": outs[2], **inp["w"]}
+    return build.DecodeStepArgs(
+        **{k: ptrs[k].data_ptr() for k in build.DECODE_STEP_PTRS},
+        num_layers=L, batch=B, capacity=C, dim=H * hd, num_heads=H,
+        ff_dim=inp["w"]["ff1_w"].shape[-1], num_actions=inp["mask"].shape[1],
+        device=device.index or 0)
+
+
+def check_decode_step(B, L, C, D, H, F, A, seed, device, floor_us,
+                      parent=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_decode_step
 
@@ -367,10 +470,19 @@ def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
     wrapper_us = cuda_time_us(kernel)
     plain_us = profiled_device_us(plain, iters=10)
     plain_wall_us = cuda_time_us(plain, iters=20, warmup=3)
+    parent_us = None
+    if parent is not None:
+        pcache = {"k": inp["k"].clone(), "v": inp["v"].clone()}
+        pouts = (torch.empty(B, dtype=torch.int32, device=device),
+                 torch.empty(B, device=device), torch.empty(B, D, device=device))
+        parent_us = profiled_device_us(parent_call(
+            parent.repro_decode_step, step_args(inp, pcache, pouts, device),
+            device))
     row = {"B": B, "L": L, "C": C, "D": D, "H": H, "F": F, "A": A,
            "actions_equal": int(same.sum()), "near_ties": int(tie.sum()),
            "mismatched_actions": mismatched, "max_abs_err": err,
-           "kernel_us": kernel_us, "wrapper_us": wrapper_us,
+           "kernel_us": kernel_us, "floor_us": floor_us,
+           "parent_kernel_us": parent_us, "wrapper_us": wrapper_us,
            "plain_us": plain_us, "plain_wall_us": plain_wall_us,
            **step_bound(inp)}
     emit("kernel", name="decode_step", **row)
@@ -379,6 +491,45 @@ def check_decode_step(B, L, C, D, H, F, A, seed, device) -> dict:
         raise AssertionError(f"decode_step disagrees with its plain version "
                              f"at B={B}: {mismatched} actions, errors {err}")
     return row
+
+
+def check_decode_step_lanes(device) -> dict:
+    """A lane's outputs do not depend on its neighbours or its place in a
+    tile: the serving batch (64 lanes) against the same lanes reversed and
+    a 5-lane subset, and two calls on the same inputs; actions, log_pf, y
+    and the appended cache bitwise equal."""
+    from repro_torch.kernels import ops
+
+    B, L, C, D, H, F, A = SERVE_LANES, 3, 16, 64, 8, 256, 3840
+    inp = random_step_inputs(B, L, C, D, H, F, A, seed=7, device=device)
+
+    def run(idx):
+        cache = {"k": inp["k"][:, idx].clone(), "v": inp["v"][:, idx].clone()}
+        a, lp, y, _ = ops.decode_step(
+            inp["w"], inp["x_new"][idx], cache, inp["lengths"][idx],
+            inp["slot"][idx], inp["gumbel"][idx], inp["mask"][idx],
+            inp["w_out"], inp["b_out"], inp["temp"][idx], num_heads=H)
+        return a, lp, y, cache["k"], cache["v"]
+
+    every = torch.arange(B, device=device)
+    full = run(every)
+
+    def same(idx):
+        out = run(idx)
+        torch.cuda.synchronize()
+        return (all(torch.equal(o, f[idx]) for o, f in zip(out[:3], full))
+                and all(torch.equal(o, f[:, idx])
+                        for o, f in zip(out[3:], full[3:])))
+
+    checks = {"reversed": same(every.flip(0)),
+              "subset_5": same(torch.tensor([3, 17, 40, 41, 63],
+                                            device=device)),
+              "repeat": same(every)}
+    emit("decode_step_lanes", B=B, bitwise_equal=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"decode_step lanes depend on their tile: "
+                             f"{checks}")
+    return checks
 
 
 def timings(kernel, plain, library, match: str = "",
@@ -415,7 +566,8 @@ def bound(nbytes: float, flops: float,
 
 # -- phase 3: decode_attention against its plain version ------------------------
 
-def check_decode_attention(B, S, H, hd, kv_valid, seed, device) -> dict:
+def check_decode_attention(B, S, H, hd, kv_valid, seed, device, floor_us,
+                           parent=None) -> dict:
     """The kernel and its plain version on the same inputs; the library
     yardstick is ``F.scaled_dot_product_attention`` with a boolean mask over
     the rows that attend at least one slot (it gives NaN on an empty row)."""
@@ -452,9 +604,20 @@ def check_decode_attention(B, S, H, hd, kv_valid, seed, device) -> dict:
     live = int(torch.clamp(kv, 0, S).sum())
     nbytes = 4 * (2 * B * H * hd + 2 * live * H * hd + B)
     flops = live * H * (4 * hd + 3) + B * H * hd
+    parent_us = None
+    if parent is not None:
+        from repro_torch.kernels import build
+        pout = torch.empty_like(q)
+        parent_us = profiled_device_us(parent_call(
+            parent.repro_decode_attention, build.DecodeAttentionArgs(
+                q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                kv_valid=kv.data_ptr(), out=pout.data_ptr(), batch=B,
+                slots=S, num_heads=H, head_dim=hd,
+                device=device.index or 0), device))
     row = {"B": B, "S": S, "H": H, "hd": hd, "kv_valid": list(kv_valid),
            "max_abs_err": err, "empty_rows_exact_zero": empty_exact,
-           **timings(kernel, plain, library),
+           **timings(kernel, plain, library), "floor_us": floor_us,
+           "parent_kernel_us": parent_us,
            "library_call": "F.scaled_dot_product_attention(bool mask), "
                            "rows with kv_valid >= 1",
            "library_max_abs_err": library_err, **bound(nbytes, flops)}
@@ -1619,6 +1782,13 @@ def lm_profile(cfg, params, device) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout of the parent commit: its decode_step and "
+             "decode_attention kernels are built and timed beside this "
+             "tree's on the same inputs (parent_kernel_us)")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a CUDA GPU only", file=sys.stderr)
@@ -1650,24 +1820,43 @@ def main() -> int:
                         *map(str, build.SOURCES)],
                        check=True, capture_output=True, timeout=600)
         single_s = time.perf_counter() - t0
+    ptxas = named_ptxas(log)
     emit("build", seconds=seconds, single_nvcc_call_seconds=single_s,
-         library=str(Path(path).relative_to(ROOT)),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "smem" in ln])
+         library=str(Path(path).relative_to(ROOT)), ptxas=ptxas,
+         spilling=spilling(ptxas))
+    parent = None
+    if opts.parent is not None:
+        parent, parent_ptxas = parent_library(opts.parent.resolve())
+        emit("parent_build", sources=list(PARENT_SOURCES), ptxas=parent_ptxas,
+             spilling=spilling(parent_ptxas))
 
+    floor_us = launch_floor_us(device)
     rows = [check_decode_step(B, 3, 16, 64, 8, 256, 3840, seed=B,
-                              device=device)
+                              device=device, floor_us=floor_us, parent=parent)
             for B in (1, 7, SERVE_LANES, 128, 256)]
     rows.append(check_decode_step(5, 2, 9, 48, 6, 80, 203, seed=99,
-                                  device=device))
+                                  device=device, floor_us=floor_us,
+                                  parent=parent))
     main_row = next(r for r in rows if r["B"] == SERVE_LANES)
+    check_decode_step_lanes(device)
+    # the training rollout's shape first; odd S and H with empty rows; then
+    # every head dim up to 64 at the training shape and at S = 100 (several
+    # chunks of the online softmax)
     attn = [check_decode_attention(16, 16, 8, 8, list(range(1, 17)), seed=0,
-                                   device=device),
+                                   device=device, floor_us=floor_us,
+                                   parent=parent),
             check_decode_attention(5, 37, 3, 8, [0, 1, 36, 37, 0], seed=1,
-                                   device=device),
-            check_decode_attention(16, 100, 8, 8,
-                                   [(7 * i) % 101 for i in range(16)],
-                                   seed=2, device=device)]
+                                   device=device, floor_us=floor_us,
+                                   parent=parent)]
+    attn += [check_decode_attention(16, 16, 8, hd, list(range(1, 17)),
+                                    seed=2 + hd, device=device,
+                                    floor_us=floor_us, parent=parent)
+             for hd in (16, 32, 64)]
+    attn += [check_decode_attention(16, 100, 8, hd,
+                                    [(7 * i) % 101 for i in range(16)],
+                                    seed=3 + hd, device=device,
+                                    floor_us=floor_us, parent=parent)
+             for hd in (8, 16, 32, 64)]
     traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device),
             check_traj_logprob(16, 15, 15, seed=1, device=device),
             check_traj_logprob(3, 50, 203, seed=2, device=device)]

@@ -170,8 +170,6 @@ def library() -> ctypes.CDLL:
     lib.repro_decode_step.argtypes = [ctypes.POINTER(DecodeStepArgs),
                                       ctypes.c_void_p]
     lib.repro_decode_step.restype = ctypes.c_int
-    lib.repro_decode_step_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.repro_decode_step_smem_bytes.restype = ctypes.c_size_t
     lib.repro_decode_attention.argtypes = [
         ctypes.POINTER(DecodeAttentionArgs), ctypes.c_void_p]
     lib.repro_decode_attention.restype = ctypes.c_int

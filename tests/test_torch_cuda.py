@@ -90,6 +90,34 @@ def test_kernel_matches_plain_version(cuda, shape):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("order", ["reversed", "subset", "repeat"])
+def test_kernel_lanes_are_bitwise_independent_of_their_tile(cuda, order):
+    """The fused step's lanes run in tiles of a thread-block cluster: a
+    lane's action, log_pf, y and appended cache row are bitwise the same
+    whatever its neighbours and place, and a repeated call is equal."""
+    B, L, C, D, H, F, A = 64, 3, 16, 64, 8, 256, 3840
+    w, x, k, v, lengths, slot, gumbel, mask, w_out, b_out, temp = \
+        _step_inputs(B, L, C, D, H, F, A, seed=11, device=cuda)
+
+    def run(idx):
+        cache = {"k": k[:, idx].clone(), "v": v[:, idx].clone()}
+        a, lp, y, cache = ops.decode_step(
+            w, x[idx], cache, lengths[idx], slot[idx], gumbel[idx],
+            mask[idx], w_out, b_out, temp[idx], num_heads=H)
+        return a, lp, y, cache["k"], cache["v"]
+
+    every = torch.arange(B, device=cuda)
+    idx = {"reversed": every.flip(0),
+           "subset": torch.tensor([3, 17, 40, 41, 63], device=cuda),
+           "repeat": every}[order]
+    full, part = run(every), run(idx)
+    torch.cuda.synchronize()
+    for got, want in zip(part[:3], full):
+        assert torch.equal(got, want[idx])
+    for got, want in zip(part[3:], full[3:]):
+        assert torch.equal(got, want[:, idx])
+
+
 def test_kernel_rejects_operands_on_another_device(cuda):
     w, x, k, v, lengths, slot, gumbel, mask, w_out, b_out, temp = \
         _step_inputs(2, 1, 7, 16, 2, 40, 33, seed=0, device=cuda)
@@ -126,6 +154,13 @@ def _attn_inputs(B, S, H, hd, kv_valid, device, seed=0):
     (5, 37, 3, 8, [0, 1, 36, 37, 0]),            # odd, with empty rows
     (4, 100, 8, 8, [100, 33, 64, 1]),            # several 32-slot chunks
     (3, 5, 2, 64, [0, 5, 9]),                    # wide heads, S < 8
+    (16, 16, 8, 16, list(range(1, 17))),         # every head dim to 64
+    (16, 16, 8, 32, list(range(1, 17))),
+    (16, 16, 8, 64, list(range(1, 17))),
+    (4, 100, 8, 16, [100, 0, 57, 3]),            # and at S = 100
+    (4, 100, 8, 32, [100, 0, 57, 3]),
+    (4, 100, 8, 64, [100, 0, 57, 3]),
+    (3, 9, 5, 6, [9, 4, 0]),                     # hd not a multiple of 4
 ])
 def test_decode_attention_kernel_matches_plain_version(cuda, B, S, H, hd,
                                                        kv_valid):
