@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-``--parent`` names a checkout of the parent commit: its decode_step and
-decode_attention kernels are built beside this tree's and timed on the same
-inputs (each of those rows prints ``parent_kernel_us``).
+``--parent`` names a checkout of the parent commit: its decode_step,
+decode_attention, traj_logprob backward and subtb_loss kernels are built
+beside this tree's and timed on the same inputs (each of those rows prints
+``parent_kernel_us``).
 
 Run from a checkout of the repository on a machine with a CUDA GPU.  It
 imports nothing of JAX or of the JAX package ``repro``.  Phases, each
@@ -30,9 +31,13 @@ printing one JSON line:
              kernels for bf16 at T >= 64, else the step recurrence); a
              chunk row also holds and times the recurrence kernel on the
              same inputs, and one row draws decays far below the JAX
-             chunk form's 1e-30 clamp; the decode_step and decode_attention
-             rows print the launch floor measured in the run (``floor_us``,
-             a one-element in-place add);
+             chunk form's 1e-30 clamp; subtb rows also take potentials at
+             an offset of 1e3 (where JAX's expanded prefix form cancels),
+             lambda = 1 and two tiles of the block layout, each backward
+             held row by row; the decode_step, decode_attention,
+             traj_logprob backward and subtb rows print the launch floor
+             measured in the run (``floor_us``, a one-element in-place
+             add);
    decode_step_lanes - the serving batch against the same lanes reversed
              and a 5-lane subset, and a repeated call: bitwise equal;
 4. serve   - the bitseq serving path at full width (n=120, k=8, a 3-layer
@@ -312,18 +317,31 @@ def spilling(lines: list) -> list:
                    if re.search(r"[1-9]\d* bytes spill", ln)})
 
 
-#: the decode kernels' sources, rebuilt from a checkout of the parent
-#: commit (``--parent``) to time them beside this tree's in the same run
-PARENT_SOURCES = ("decode_step.cu", "decode_attention.cu")
+#: the kernels' sources rebuilt from a checkout of the parent commit
+#: (``--parent``) to time them beside this tree's in the same run
+PARENT_SOURCES = ("decode_step.cu", "decode_attention.cu", "traj_logprob.cu",
+                  "subtb_loss.cu")
+
+
+class ParentSubtbArgs(ctypes.Structure):
+    """Mirror of the parent's ``SubtbArgs`` (its subtb_loss.cu): this
+    tree's without ``table``, the scratch weight table it filled past
+    ``repro_subtb_smem_states()`` states."""
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("phi", "length", "g", "loss", "dphi", "table")]
+                + [(n, ctypes.c_longlong) for n in ("phi_sb", "phi_st")]
+                + [("lam", ctypes.c_float)]
+                + [(n, ctypes.c_int) for n in ("batch", "states", "device")])
 
 
 def parent_library(parent: Path):
-    """Build a parent checkout's decode kernels into a library of their
-    own (its own namespace); returns it and its named ptxas lines."""
+    """Build a parent checkout's kernels (``PARENT_SOURCES``) into a library
+    of their own (its own namespace); returns it and its named ptxas
+    lines."""
     from repro_torch.kernels import build
     csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "libparent_decode.so"
+        path = Path(tmp) / "libparent.so"
         proc = subprocess.run(
             [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(path),
              *(str(csrc / name) for name in PARENT_SOURCES)],
@@ -338,6 +356,14 @@ def parent_library(parent: Path):
     lib.repro_decode_attention.argtypes = [
         ctypes.POINTER(build.DecodeAttentionArgs), ctypes.c_void_p]
     lib.repro_decode_attention.restype = ctypes.c_int
+    lib.repro_traj_logprob_bwd.argtypes = [
+        ctypes.POINTER(build.TrajLogprobArgs), ctypes.c_void_p]
+    lib.repro_traj_logprob_bwd.restype = ctypes.c_int
+    for fn in (lib.repro_subtb_fwd, lib.repro_subtb_bwd):
+        fn.argtypes = [ctypes.POINTER(ParentSubtbArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.repro_subtb_smem_states.argtypes = []
+    lib.repro_subtb_smem_states.restype = ctypes.c_int
     return lib, named_ptxas(proc.stdout + proc.stderr)
 
 
@@ -660,11 +686,12 @@ def bwd_excess(d_k, d_p, actions, valid, g_total, g_step):
     return ((d_k - d_p).abs() / (BWD_ATOL + BWD_RTOL * scale)).max()
 
 
-def check_traj_logprob(B, T, A, seed, device):
+def check_traj_logprob(B, T, A, seed, device, floor_us, parent=None):
     """Forward and backward kernels against their plain versions; returns
     the two rows.  The forward's library yardstick is one
     ``F.cross_entropy(reduction="none")`` over logits masked beforehand
-    (timed alone); the backward has none."""
+    (timed alone); the backward has none.  With ``parent`` the parent's
+    backward kernel is timed on the same inputs (``parent_kernel_us``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -718,11 +745,19 @@ def check_traj_logprob(B, T, A, seed, device):
     torch.cuda.synchronize()
     berr = float((d_k - d_p).abs().max())
     b_excess = float(bwd_excess(d_k, d_p, actions, valid, g_total, g_step))
+    parent_us = None
+    if parent is not None:
+        pout = torch.empty(B, T, A, device=device)
+        parent_us = profiled_device_us(parent_call(
+            parent.repro_traj_logprob_bwd, ops._traj_args(
+                logits, actions, mask, valid, g_total=g_total, g_step=g_step,
+                dlogits=pout), device), match="traj_logprob")
     bwd = {**shape, "max_abs_err": berr,
            "max_err_over_allowed": b_excess,
            "allowed": f"{BWD_ATOL} + {BWD_RTOL} * |plain| (the taken "
                       f"action's entry: * |coeff|)",
-           **timings(bwd_kernel, bwd_plain, None),
+           **timings(bwd_kernel, bwd_plain, None, match="traj_logprob"),
+           "floor_us": floor_us, "parent_kernel_us": parent_us,
            **bound(4 * nbta + nbta + 8 * nbt + nbt + 4 * (B + nbt)
                    + 4 * nbta, 9 * nbta)}
     emit("kernel", name="traj_logprob_bwd", **bwd)
@@ -737,33 +772,71 @@ def check_traj_logprob(B, T, A, seed, device):
 
 # -- phase 3: subtb_loss forward and backward against their plain versions --------
 
-def subtb_inputs(B, T1, seed, device):
-    """Time-major potentials (T+1, B) handed over as the (B, T+1) view the
-    loss passes; lengths (int64, as the loss gives them) starting T, 0, 1
-    (a single row gets T); a cotangent."""
+def subtb_inputs(B, T1, seed, device, kind="normal", offset=0.0):
+    """Time-major potentials (T+1, B), N(0, 1) or a random walk along T,
+    plus ``offset`` (the level log Z sets), handed over as the (B, T+1)
+    view the loss passes; lengths (int64, as the loss gives them) starting
+    T, 0, 1 (a single row gets T); a cotangent."""
     g = torch.Generator().manual_seed(seed)
     phi_tm = torch.randn(T1, B, generator=g)
+    if kind == "walk":
+        phi_tm = phi_tm.cumsum(0)
+    phi_tm = phi_tm + offset
     length = torch.randint(0, T1, (B,), generator=g)
     length[:3] = torch.tensor([T1 - 1, 0, 1])[:B]
     return (phi_tm.to(device).T, length.to(device),
             torch.randn(B, generator=g).to(device))
 
 
-def check_subtb(B, T1, lam, seed, device):
+def row_err_over_scale(got, want) -> float:
+    """The largest error over the largest entry, trajectory by trajectory
+    (a short trajectory's large entries would hide a long one's errors),
+    the worst of them; a row whose gradient is all 0 counts as inf unless
+    it is exactly 0."""
+    scale = want.abs().amax(1)
+    err = (got - want).abs().amax(1)
+    live = scale > 0
+    dead_exact = bool(torch.all(err[~live] == 0))
+    worst = float((err[live] / scale[live]).max()) if live.any() else 0.0
+    return worst if dead_exact else math.inf
+
+
+def parent_subtb_us(parent, fn, phi, length, lam, device, **ptrs) -> float:
+    """Device time of one of the parent's SubTB kernels on these inputs,
+    with the scratch table it takes past its shared-memory size."""
+    B, T1 = phi.shape
+    table = None
+    if T1 > parent.repro_subtb_smem_states():
+        table = torch.empty(T1, device=device)
+    length32 = length.to(torch.int32).contiguous()
+    args = ParentSubtbArgs(
+        phi=phi.data_ptr(), length=length32.data_ptr(),
+        **{k: v.data_ptr() for k, v in ptrs.items()},
+        table=None if table is None else table.data_ptr(),
+        phi_sb=phi.stride(0), phi_st=phi.stride(1), lam=lam, batch=B,
+        states=T1, device=device.index or 0)
+    return profiled_device_us(parent_call(fn, args, device), match="subtb")
+
+
+def check_subtb(B, T1, lam, seed, device, floor_us, kind="normal",
+                offset=0.0, parent=None):
     """Forward and backward kernels against their plain versions at one
     shape; returns the two rows.  No single PyTorch call computes the
     SubTB form, so there is no library yardstick.  The kernel's device
-    time is its own kernels' (``subtb``); the wrapper's operand checks
+    time is its own kernel's (``subtb``); the wrapper's operand checks
     (an ``aminmax`` of the lengths and their int32 copy) are in
-    ``wrapper_us``."""
+    ``wrapper_us``.  The bound counts what the O(T) scan needs: phi read
+    once, the lengths, the loss or dphi written once; ~20 FLOP an
+    on-trajectory state forward, ~40 backward.  With ``parent`` the
+    parent's kernels are timed on the same inputs."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_subtb, ref_subtb_backward
 
-    phi, length, g = subtb_inputs(B, T1, seed, device)
+    phi, length, g = subtb_inputs(B, T1, seed, device, kind, offset)
     n = length.long().cpu()
     on_traj = int((n + 1).sum())
-    pairs = int((n * (n + 1) // 2).sum())
-    shape = {"B": B, "T1": T1, "lam": lam, "lengths": n.tolist()[:8]}
+    shape = {"B": B, "T1": T1, "lam": lam, "phi": kind, "offset": offset,
+             "lengths": n.tolist()[:8]}
 
     def fwd_kernel():
         with torch.no_grad():
@@ -779,10 +852,16 @@ def check_subtb(B, T1, lam, seed, device):
     rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
     bitwise = bool(torch.equal(again, got))
     zero_exact = bool(torch.all(got[length == 0] == 0))
+    parent_fwd = parent_bwd = None
+    if parent is not None:
+        parent_fwd = parent_subtb_us(
+            parent, parent.repro_subtb_fwd, phi, length, lam, device,
+            loss=torch.empty(B, device=device))
     fwd = {**shape, "max_abs_err": err, "max_rel_err": rel,
            "repeat_bitwise_equal": bitwise, "empty_rows_exact_zero":
            zero_exact, **timings(fwd_kernel, fwd_plain, None, match="subtb"),
-           **bound(4 * on_traj + 8 * B + 4 * B, 5 * pairs + B)}
+           "floor_us": floor_us, "parent_kernel_us": parent_fwd,
+           **bound(4 * on_traj + 8 * B + 4 * B, 20 * on_traj)}
     emit("kernel", name="subtb_loss_fwd", **fwd)
 
     def bwd_kernel():
@@ -792,22 +871,35 @@ def check_subtb(B, T1, lam, seed, device):
         return ref_subtb_backward(phi, length, lam, g)
 
     d_k, d_p = bwd_kernel(), bwd_plain()
+    d_again = bwd_kernel()
     torch.cuda.synchronize()
     berr = float((d_k - d_p).abs().max())
     scale = float(d_p.abs().max())
+    b_bitwise = bool(torch.equal(d_again, d_k))
+    b_zero_exact = bool(torch.all(d_k[length == 0] == 0))
+    if parent is not None:
+        parent_bwd = parent_subtb_us(
+            parent, parent.repro_subtb_bwd, phi, length, lam, device, g=g,
+            dphi=torch.empty(B, T1, device=device))
     bwd = {**shape, "max_abs_err": berr,
            "max_err_over_scale": berr / scale if scale else berr,
+           "max_row_err_over_scale": row_err_over_scale(d_k, d_p),
+           "repeat_bitwise_equal": b_bitwise,
+           "empty_rows_exact_zero": b_zero_exact,
            **timings(bwd_kernel, bwd_plain, None, match="subtb"),
-           **bound(4 * on_traj + 8 * B + 4 * B + 4 * B * T1,
-                   3 * 2 * pairs + 3 * int(n.sum()) + B * T1)}
+           "floor_us": floor_us, "parent_kernel_us": parent_bwd,
+           **bound(4 * on_traj + 8 * B + 4 * B + 4 * B * T1, 40 * on_traj)}
     emit("kernel", name="subtb_loss_bwd", **bwd)
-    if not (rel <= TOL and bitwise and zero_exact
-            and bwd["max_err_over_scale"] <= TOL):
+    if not (rel <= TOL and bitwise and zero_exact and b_bitwise
+            and b_zero_exact and bwd["max_err_over_scale"] <= TOL
+            and bwd["max_row_err_over_scale"] <= TOL):
         raise AssertionError(f"subtb_loss disagrees with its plain version "
-                             f"at {(B, T1, lam)}: forward rel {rel}, "
-                             f"backward {bwd['max_err_over_scale']} of its "
-                             f"scale, repeat bitwise {bitwise}, n = 0 exact "
-                             f"zero {zero_exact}")
+                             f"at {(B, T1, lam, kind, offset)}: forward rel "
+                             f"{rel}, backward {bwd['max_err_over_scale']} "
+                             f"of its scale ({bwd['max_row_err_over_scale']}"
+                             f" row by row), repeat bitwise {bitwise} / "
+                             f"{b_bitwise}, n = 0 exact zero {zero_exact} / "
+                             f"{b_zero_exact}")
     return fwd, bwd
 
 
@@ -1785,9 +1877,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--parent", type=Path, default=None,
-        help="a checkout of the parent commit: its decode_step and "
-             "decode_attention kernels are built and timed beside this "
-             "tree's on the same inputs (parent_kernel_us)")
+        help="a checkout of the parent commit: its decode_step, "
+             "decode_attention, traj_logprob backward and subtb_loss "
+             "kernels are built and timed beside this tree's on the same "
+             "inputs (parent_kernel_us)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1857,15 +1950,30 @@ def main() -> int:
                                     seed=3 + hd, device=device,
                                     floor_us=floor_us, parent=parent)
              for hd in (8, 16, 32, 64)]
-    traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device),
-            check_traj_logprob(16, 15, 15, seed=1, device=device),
-            check_traj_logprob(3, 50, 203, seed=2, device=device)]
-    # (16, 30) is the main path's (4x8^4); 78 the paper grid's; 7000 keeps
-    # phi and the weight table in device memory (past shared memory)
-    subtb = [check_subtb(B, T1, lam, seed=i, device=device)
-             for i, (B, T1, lam) in enumerate(
-                 [(16, 30, 0.9), (16, 78, 0.9), (3, 100, 0.8),
-                  (1, 7, 0.5), (4, 200, 0.99), (3, 7000, 0.999)])]
+    traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device,
+                               floor_us=floor_us, parent=parent),
+            check_traj_logprob(16, 15, 15, seed=1, device=device,
+                               floor_us=floor_us, parent=parent),
+            check_traj_logprob(3, 50, 203, seed=2, device=device,
+                               floor_us=floor_us, parent=parent)]
+    # (16, 30) is the main path's (4x8^4, a warp per trajectory); 78 the
+    # paper grid's; 7000 a long trajectory (a block of 896 threads); then
+    # potentials at the offset log Z gives them (1e3), where JAX's expanded
+    # prefix form cancels, as N(0, 1) and as a random walk, and lambda = 1;
+    # 9000 takes two tiles (8 states x 1,024 threads each)
+    subtb = [check_subtb(B, T1, lam, seed=i, device=device,
+                         floor_us=floor_us, kind=kind, offset=offset,
+                         parent=parent)
+             for i, (B, T1, lam, kind, offset) in enumerate(
+                 [(16, 30, 0.9, "normal", 0.0), (16, 78, 0.9, "normal", 0.0),
+                  (3, 100, 0.8, "normal", 0.0), (1, 7, 0.5, "normal", 0.0),
+                  (4, 200, 0.99, "normal", 0.0),
+                  (3, 7000, 0.999, "normal", 0.0),
+                  (16, 30, 0.9, "normal", 1e3),
+                  (3, 7000, 0.999, "normal", 1e3),
+                  (3, 7000, 0.999, "walk", 1e3),
+                  (3, 7000, 1.0, "normal", 1e3),
+                  (2, 9000, 0.999, "walk", 1e3)])]
     # the scoring pass's attention: Hymba's heads over 2 x 4,096 tokens in
     # bf16, window 2,048 (the tensor-core route), and the same geometry in
     # fp32 (the SIMT route; holds the skipping of key tiles outside the

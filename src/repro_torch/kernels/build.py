@@ -79,7 +79,7 @@ class TrajLogprobArgs(ctypes.Structure):
 class SubtbArgs(ctypes.Structure):
     """Mirror of ``SubtbArgs`` in subtb_loss.cu."""
     _fields_ = ([(n, ctypes.c_void_p)
-                 for n in ("phi", "length", "g", "loss", "dphi", "table")]
+                 for n in ("phi", "length", "g", "loss", "dphi")]
                 + [(n, ctypes.c_longlong) for n in ("phi_sb", "phi_st")]
                 + [("lam", ctypes.c_float)]
                 + [(n, ctypes.c_int) for n in ("batch", "states", "device")])
@@ -179,8 +179,6 @@ def library() -> ctypes.CDLL:
     for fn in (lib.repro_subtb_fwd, lib.repro_subtb_bwd):
         fn.argtypes = [ctypes.POINTER(SubtbArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.repro_subtb_smem_states.argtypes = []
-    lib.repro_subtb_smem_states.restype = ctypes.c_int
     for fn in (lib.repro_flash_attention, lib.repro_flash_attention_wgmma):
         fn.argtypes = [ctypes.POINTER(FlashAttentionArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -26,12 +26,27 @@
 // each row's thread 0 writes per_step and counts itself in an int32 arrival
 // counter per trajectory (a scratch buffer the wrapper keeps per device,
 // zero between launches) with an acquire-release atomic; the block that
-// brings it to T sums per_step[b, :] and returns the counter to 0.  No float atomics, so two
-// runs agree bit for bit.  The backward re-derives the row's online (max,
-// sum of exp) pair and writes the gradient row in a second sweep.  Logits,
-// mask, actions and valid are read through their (B, T) strides with a
-// unit stride along A, so the transposed time-major views of the training
-// path need no copy.
+// brings it to T sums per_step[b, :] and returns the counter to 0.  No
+// float atomics, so two runs agree bit for bit.
+//
+// Backward: one launch, one block per (b, t) row, the same two paths.  On
+// the 16-byte path (the output row on a 16-byte boundary too) a row of up
+// to 4,096 elements is read once into registers by the forward's loads;
+// its max and its sum of exp are block reductions over those registers
+// (each expf kept in place of its logit), and the gradient row goes out
+// from the same registers in float4 stores: one read, one write.  A longer
+// row takes the forward's (max, sum) over its chunks, then reads each
+// chunk again to write it.  The scalar path takes a max pass, a sum pass
+// and a write pass over strided loads.  Thread 0 reads the step's valid
+// flag, action and cotangents while the row's loads are in flight; the
+// first reduction's barriers hand them to the block.  A dead row
+// (coefficient 0) is computed like any other: its zeros are 0 * (onehot -
+// p), as in the plain version, which a shortcut that skipped the read
+// would not match on a row holding an inf or a NaN.
+//
+// Logits, mask, actions and valid are read through their (B, T) strides
+// with a unit stride along A, so the transposed time-major views of the
+// training path need no copy.
 //
 // What bounds it (H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s fp32).  At the
 // training shape (16, 15, 3840) the forward must read 3.7 MB of logits and
@@ -66,16 +81,6 @@ namespace {
 
 constexpr int kMaxWarps = 8;
 
-// Fold v into the online pair (m, s): s = sum exp(x - m) over folded x.
-__device__ __forceinline__ void online_add(float& m, float& s, float v) {
-  if (v > m) {
-    s = s * expf(m - v) + 1.f;  // m = -inf at first: s = 0 * 0 + 1
-    m = v;
-  } else {
-    s += expf(v - m);
-  }
-}
-
 // Merge (m2, s2) into (m, s).  m = -inf only for a pair that folded nothing.
 __device__ __forceinline__ void online_merge(float& m, float& s, float m2,
                                              float s2) {
@@ -89,33 +94,16 @@ __device__ __forceinline__ void online_merge(float& m, float& s, float m2,
   if (m2 != -INFINITY) s += s2 * expf(m2 - m);
 }
 
-// Block-wide (max, sum of exp) of the row; every thread gets the result.
-__device__ void block_pair(float& m, float& s) {
-  __shared__ float sm[kMaxWarps], ss[kMaxWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    online_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o),
-                 __shfl_xor_sync(0xffffffffu, s, o));
-  if (lane == 0) {
-    sm[warp] = m;
-    ss[warp] = s;
-  }
-  __syncthreads();
-  m = -INFINITY;
-  s = 0.f;
-  for (int w = 0; w < nwarps; ++w) online_merge(m, s, sm[w], ss[w]);
-}
-
 __device__ __forceinline__ float masked_at(const float* x, const uint8_t* mk,
                                            int j) {
   return mk[j] ? x[j] : -FLT_MAX;
 }
 
-constexpr int kFwdThreads = 128;
+// threads of the 16-byte path, and the elements a chunk holds in registers
+constexpr int kVecThreads = 128;
 constexpr int kUnit = 16;                  // elements per 16-byte mask load
 constexpr int kUnitsPerThread = 2;
-constexpr int kChunk = kFwdThreads * kUnit * kUnitsPerThread;  // 4,096
+constexpr int kChunk = kVecThreads * kUnit * kUnitsPerThread;  // 4,096
 
 // Block-wide max; every thread gets it.
 __device__ float block_max(float v, float* red) {
@@ -142,14 +130,15 @@ __device__ float block_sum(float v, float* red) {
   return v;
 }
 
-// (max, sum of exp) of one chunk of a row, read with 16-byte loads into
-// registers: n elements from x / mk, n % 16 == 0, both 16-byte aligned.
-__device__ void chunk_pair_vec(const float* x, const uint8_t* mk, int n,
-                               float& m, float& s, float* red) {
-  float v[kUnitsPerThread][kUnit];
+// One chunk of a row, read with 16-byte loads into registers: n elements
+// from x / mk, n % 16 == 0, both 16-byte aligned; masked entries at
+// -FLT_MAX, the pads past n at -inf.
+__device__ __forceinline__ void load_chunk_vec(
+    const float* x, const uint8_t* mk, int n,
+    float (&v)[kUnitsPerThread][kUnit]) {
 #pragma unroll
   for (int u = 0; u < kUnitsPerThread; ++u) {
-    const int e = (threadIdx.x + u * kFwdThreads) * kUnit;
+    const int e = (threadIdx.x + u * kVecThreads) * kUnit;
     if (e < n) {
       const uint4 mb = *reinterpret_cast<const uint4*>(mk + e);
       const uint32_t words[4] = {mb.x, mb.y, mb.z, mb.w};
@@ -166,12 +155,25 @@ __device__ void chunk_pair_vec(const float* x, const uint8_t* mk, int n,
       for (int i = 0; i < kUnit; ++i) v[u][i] = -INFINITY;
     }
   }
+}
+
+// The chunk's max over the block; every thread gets it.
+__device__ __forceinline__ float chunk_max(
+    const float (&v)[kUnitsPerThread][kUnit], float* red) {
   float cm = -INFINITY;
 #pragma unroll
   for (int u = 0; u < kUnitsPerThread; ++u)
 #pragma unroll
     for (int i = 0; i < kUnit; ++i) cm = fmaxf(cm, v[u][i]);
-  cm = block_max(cm, red);
+  return block_max(cm, red);
+}
+
+// (max, sum of exp) of one chunk of a row, folded into (m, s).
+__device__ void chunk_pair_vec(const float* x, const uint8_t* mk, int n,
+                               float& m, float& s, float* red) {
+  float v[kUnitsPerThread][kUnit];
+  load_chunk_vec(x, mk, n, v);
+  const float cm = chunk_max(v, red);
   float cs = 0.f;
 #pragma unroll
   for (int u = 0; u < kUnitsPerThread; ++u)
@@ -181,7 +183,15 @@ __device__ void chunk_pair_vec(const float* x, const uint8_t* mk, int n,
   online_merge(m, s, cm, cs);
 }
 
-__global__ void __launch_bounds__(kFwdThreads)
+// Whether a row takes the 16-byte path: A % 16 == 0 and its logits and
+// mask start on 16-byte boundaries.
+__device__ __forceinline__ bool vec_row(const float* x, const uint8_t* mk,
+                                        int A) {
+  return (A % kUnit) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(mk) & 15) == 0;
+}
+
+__global__ void __launch_bounds__(kVecThreads)
     traj_logprob_fwd_kernel(const TrajLogprobArgs a) {
   __shared__ float red[kMaxWarps];
   const int T = a.steps, A = a.num_actions;
@@ -203,8 +213,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     if (taken) lpa = masked_at(x, mk, (int)act);
   }
   float m = -INFINITY, s = 0.f;
-  if ((A % kUnit) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(mk) & 15) == 0) {
+  if (vec_row(x, mk, A)) {
     for (int c = 0; c < A; c += kChunk)
       chunk_pair_vec(x + c, mk + c, min(kChunk, A - c), m, s, red);
   } else {  // scalar path: max, then sum of exp, over strided loads
@@ -247,25 +256,91 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-__global__ void traj_logprob_bwd_rows(const TrajLogprobArgs a) {
+// Writes a chunk's gradient, coeff * (onehot(act) - e * inv_s), from the
+// exps in e: n elements from out, which starts at element c of the row.
+__device__ __forceinline__ void store_chunk_vec(
+    float* out, int n, int c, const float (&e)[kUnitsPerThread][kUnit],
+    int act, float coeff, float inv_s) {
+#pragma unroll
+  for (int u = 0; u < kUnitsPerThread; ++u) {
+    const int j = (threadIdx.x + u * kVecThreads) * kUnit;
+    if (j < n) {
+      float o[kUnit];
+#pragma unroll
+      for (int i = 0; i < kUnit; ++i)
+        o[i] = coeff * ((c + j + i == act ? 1.f : 0.f) - e[u][i] * inv_s);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(out + j + 4 * q) =
+            make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+    }
+  }
+}
+
+__global__ void traj_logprob_bwd_kernel(const TrajLogprobArgs a) {
+  __shared__ float red[kMaxWarps];
+  __shared__ float s_coeff;
+  __shared__ int s_act;
   const int T = a.steps, A = a.num_actions;
   const int b = blockIdx.x / T, t = blockIdx.x % T;
   const float* x = a.logits + b * a.logits_sb + t * a.logits_st;
   const uint8_t* mk = a.mask + b * a.mask_sb + t * a.mask_st;
-  float m = -INFINITY, s = 0.f;
-  for (int j = threadIdx.x; j < A; j += blockDim.x)
-    online_add(m, s, masked_at(x, mk, j));
-  block_pair(m, s);
-  const bool live = a.valid[b * a.valid_sb + t * a.valid_st] != 0;
-  const float coeff =
-      (a.g_total[b] + a.g_step[b * a.g_step_sb + t * a.g_step_st]) *
-      (live ? 1.f : 0.f);
-  const int64_t act = a.actions[b * a.actions_sb + t * a.actions_st];
   float* out = a.dlogits + ((size_t)b * T + t) * A;
-  for (int j = threadIdx.x; j < A; j += blockDim.x) {
-    const float p = expf(masked_at(x, mk, j) - m) / s;  // softmax
-    out[j] = coeff * ((j == act ? 1.f : 0.f) - p);
+  // the step's scalars, read while the row's loads are in flight; the
+  // first block reduction's barriers publish them
+  if (threadIdx.x == 0) {
+    const bool live = a.valid[b * a.valid_sb + t * a.valid_st] != 0;
+    s_coeff = (a.g_total[b] + a.g_step[b * a.g_step_sb + t * a.g_step_st]) *
+              (live ? 1.f : 0.f);
+    const int64_t act = a.actions[b * a.actions_sb + t * a.actions_st];
+    s_act = act >= 0 && act < A ? (int)act : -1;  // outside: no onehot
   }
+  if (vec_row(x, mk, A) && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    float v[kUnitsPerThread][kUnit];
+    if (A <= kChunk) {  // one read: the row stays in registers
+      load_chunk_vec(x, mk, A, v);
+      const float m = chunk_max(v, red);
+      float cs = 0.f;
+#pragma unroll
+      for (int u = 0; u < kUnitsPerThread; ++u)
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i) {
+          v[u][i] = expf(v[u][i] - m);  // pads: 0
+          cs += v[u][i];
+        }
+      const float inv_s = 1.f / block_sum(cs, red);
+      store_chunk_vec(out, A, 0, v, s_act, s_coeff, inv_s);
+      return;
+    }
+    float m = -INFINITY, s = 0.f;
+    for (int c = 0; c < A; c += kChunk)
+      chunk_pair_vec(x + c, mk + c, min(kChunk, A - c), m, s, red);
+    const float inv_s = 1.f / s;
+    for (int c = 0; c < A; c += kChunk) {
+      const int n = min(kChunk, A - c);
+      load_chunk_vec(x + c, mk + c, n, v);
+#pragma unroll
+      for (int u = 0; u < kUnitsPerThread; ++u)
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i) v[u][i] = expf(v[u][i] - m);
+      store_chunk_vec(out + c, n, c, v, s_act, s_coeff, inv_s);
+    }
+    return;
+  }
+  // scalar path: max, sum of exp, then the write, over strided loads
+  float cm = -INFINITY;
+  for (int j = threadIdx.x; j < A; j += blockDim.x)
+    cm = fmaxf(cm, masked_at(x, mk, j));
+  const float m = block_max(cm, red);
+  float cs = 0.f;
+  for (int j = threadIdx.x; j < A; j += blockDim.x)
+    cs += expf(masked_at(x, mk, j) - m);
+  const float inv_s = 1.f / block_sum(cs, red);
+  const int act = s_act;
+  const float coeff = s_coeff;
+  for (int j = threadIdx.x; j < A; j += blockDim.x)
+    out[j] = coeff * ((j == act ? 1.f : 0.f) -
+                      expf(masked_at(x, mk, j) - m) * inv_s);
 }
 
 int threads_for(int A) {
@@ -295,7 +370,7 @@ int repro_traj_logprob_fwd(const TrajLogprobArgs* args, void* stream) {
   const long long blocks =
       a.steps > 0 ? (long long)a.batch * a.steps : (long long)a.batch;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  traj_logprob_fwd_kernel<<<(unsigned)blocks, kFwdThreads, 0,
+  traj_logprob_fwd_kernel<<<(unsigned)blocks, kVecThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
@@ -306,8 +381,12 @@ int repro_traj_logprob_bwd(const TrajLogprobArgs* args, void* stream) {
   const int err = check(a);
   if (err != 0) return err;
   if (a.batch == 0 || a.steps == 0) return 0;
-  traj_logprob_bwd_rows<<<a.batch * a.steps, threads_for(a.num_actions), 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+  const long long blocks = (long long)a.batch * a.steps;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const bool vec = a.num_actions % kUnit == 0;  // the kernel checks alignment
+  traj_logprob_bwd_kernel<<<(unsigned)blocks,
+                            vec ? kVecThreads : threads_for(a.num_actions),
+                            0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -384,17 +384,11 @@ def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
 def _subtb_args(phi, length, lam, **ptrs):
     from . import build
     B, T1 = phi.shape
-    table = None
-    if T1 > build.library().repro_subtb_smem_states():
-        table = torch.empty(T1, dtype=torch.float32, device=phi.device)
-    ptrs["table"] = table
-    args = build.SubtbArgs(
+    return build.SubtbArgs(
         phi=phi.data_ptr(), length=length.data_ptr(),
-        **{k: (None if v is None else v.data_ptr())
-           for k, v in ptrs.items()},
+        **{k: v.data_ptr() for k, v in ptrs.items()},
         phi_sb=phi.stride(0), phi_st=phi.stride(1), lam=float(lam),
         batch=B, states=T1, device=_device_index(phi.device))
-    return args, table
 
 
 def _subtb_forward(phi: torch.Tensor, length: torch.Tensor,
@@ -406,7 +400,7 @@ def _subtb_forward(phi: torch.Tensor, length: torch.Tensor,
         raise ValueError(f"subtb_loss: no kernel for device {dev}")
     from . import build
     loss = torch.empty(phi.shape[0], dtype=torch.float32, device=dev)
-    args, table = _subtb_args(phi, length, lam, loss=loss)
+    args = _subtb_args(phi, length, lam, loss=loss)
     err = build.library().repro_subtb_fwd(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -436,7 +430,7 @@ def subtb_loss_backward(phi: torch.Tensor, length: torch.Tensor,
     from . import build
     g = g.contiguous()
     dphi = torch.empty(phi.shape, dtype=torch.float32, device=dev)
-    args, table = _subtb_args(phi, length, lam, g=g, dphi=dphi)
+    args = _subtb_args(phi, length, lam, g=g, dphi=dphi)
     err = build.library().repro_subtb_bwd(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

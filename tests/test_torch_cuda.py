@@ -198,8 +198,10 @@ def _traj_inputs(B, T, A, device, seed=0):
 
 
 @pytest.mark.parametrize("B,T,A", [(16, 15, 3840), (16, 15, 15),
-                                   (3, 50, 203)])
+                                   (3, 50, 203), (4, 5, 8192)])
 def test_traj_logprob_kernels_match_plain_version(cuda, B, T, A):
+    """A = 8192 takes two chunks of the 16-byte path (the backward reads
+    each chunk twice)."""
     logits, actions, mask, valid = _traj_inputs(B, T, A, cuda, seed=A)
     g = torch.Generator().manual_seed(1)
     g_total = torch.randn(B, generator=g).to(cuda)
@@ -226,6 +228,36 @@ def test_traj_logprob_kernels_match_plain_version(cuda, B, T, A):
     with torch.no_grad():        # no float atomics: runs agree bit for bit
         again = ops.traj_logprob(logits, actions, mask, valid)
     assert torch.equal(again[0], total) and torch.equal(again[1], per_step)
+
+
+def test_traj_logprob_backward_dead_rows_are_exact_zeros(cuda):
+    """The backward at the training shape (16, 15, 3840) on the time-major
+    views, with one dead row (valid 0) and one row whose cotangents sum to
+    0: entry by entry within 1e-4 of the plain version's own size (the
+    taken action's entry within 1e-4 of |coeff|), and exactly 0 on those
+    two rows."""
+    B, T, A = 16, 15, 3840
+    logits, actions, mask, valid = _traj_inputs(B, T, A, cuda, seed=11)
+    valid = valid.clone()
+    valid[:, 0] = True
+    valid[3, 0] = False                                   # dead row
+    g = torch.Generator().manual_seed(2)
+    g_total = torch.randn(B, generator=g).to(cuda)
+    g_step = torch.randn(T, B, generator=g).to(cuda).T.clone()
+    g_step[5, 0] = -g_total[5]                            # zero cotangent
+    b0 = ops.traj_logprob_backward.launches
+    got = ops.traj_logprob_backward(logits, actions, mask, valid, g_total,
+                                    g_step)
+    torch.cuda.synchronize()
+    assert ops.traj_logprob_backward.launches == b0 + 1
+    want = ref_traj_logprob_backward(logits, actions, mask, valid, g_total,
+                                     g_step)
+    coeff = ((g_total[:, None] + g_step) * valid).abs()
+    scale = want.abs().scatter(-1, actions.long()[..., None],
+                               coeff[..., None])
+    assert torch.all((got - want).abs() <= 1e-8 + 1e-4 * scale)
+    assert torch.all(got[3, 0] == 0) and torch.all(got[5, 0] == 0)
+    assert torch.all(got[~valid] == 0)
 
 
 def _kernel_launches(fn, match):
@@ -347,11 +379,15 @@ def test_fused_step_follows_adam_on_cuda(cuda):
 
 # -- subtb_loss -------------------------------------------------------------------
 
-def _subtb_inputs(B, T1, device, seed=0):
-    """Time-major potentials (T+1, B), handed over as the (B, T+1) view the
-    loss passes, and lengths starting T, 0, 1 (a single row gets T)."""
+def _subtb_inputs(B, T1, device, seed=0, walk=False, offset=0.0):
+    """Time-major potentials (T+1, B), N(0, 1) or a random walk along T,
+    plus ``offset``, handed over as the (B, T+1) view the loss passes, and
+    lengths starting T, 0, 1 (a single row gets T)."""
     g = torch.Generator().manual_seed(seed)
     phi_tm = torch.randn(T1, B, generator=g)
+    if walk:
+        phi_tm = phi_tm.cumsum(0)
+    phi_tm = phi_tm + offset
     length = torch.randint(0, T1, (B,), generator=g)
     length[:3] = torch.tensor([T1 - 1, 0, 1])[:B]
     return phi_tm.to(device).T, length.to(device)
@@ -362,8 +398,8 @@ def _subtb_inputs(B, T1, device, seed=0):
                                       (4, 200, 0.99), (3, 7000, 0.999)])
 def test_subtb_kernels_match_plain_version(cuda, B, T1, lam):
     """Forward rtol 1e-4 (fp32 sums in another order), backward to 1e-4 of
-    its largest entry; (3, 7000) is past the shared-memory size, where
-    phi and the weight table stay in device memory."""
+    its largest entry; T+1 <= 32 takes the warp layout, the rest the block
+    layout ((3, 7000): 896 threads, runs of 8 states)."""
     phi, length = _subtb_inputs(B, T1, cuda, seed=T1)
     g = torch.linspace(-1.0, 2.0, B, device=cuda)
     f0, b0 = ops.subtb_loss.launches, ops.subtb_loss_backward.launches
@@ -381,6 +417,38 @@ def test_subtb_kernels_match_plain_version(cuda, B, T1, lam):
         want.abs().max())
     with torch.no_grad():        # no float atomics: runs agree bit for bit
         assert torch.equal(ops.subtb_loss(phi, length, lam), loss.detach())
+
+
+@pytest.mark.parametrize("B,T1,lam,walk", [(16, 30, 0.9, False),
+                                           (3, 7000, 0.999, False),
+                                           (3, 7000, 0.999, True),
+                                           (3, 7000, 1.0, False),
+                                           (2, 9000, 0.999, True)])
+def test_subtb_kernels_hold_at_an_offset(cuda, B, T1, lam, walk):
+    """Potentials at the level log Z gives them (offset 1e3), N(0, 1) or a
+    random walk, where JAX's expanded prefix form cancels: the forward
+    within 1e-4 (relative), the backward within 1e-4 of each trajectory's
+    largest entry, n = 0 rows exactly 0, a repeat bitwise equal.  9,000
+    states take two tiles of the block layout (8 states x 1,024 threads
+    each)."""
+    phi, length = _subtb_inputs(B, T1, cuda, seed=T1 + 3, walk=walk,
+                                offset=1e3)
+    g = torch.linspace(-1.0, 2.0, B, device=cuda)
+    loss = ops.subtb_loss(phi, length, lam)
+    dphi = ops.subtb_loss_backward(phi, length, g, lam)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss, ref_subtb(phi, length, lam),
+                               rtol=1e-4, atol=0)
+    want = ref_subtb_backward(phi, length, lam, g)
+    scale = want.abs().amax(1)
+    live = scale > 0
+    err = (dphi - want).abs().amax(1)
+    assert torch.all(err[live] <= 1e-4 * scale[live])
+    assert torch.all(dphi[~live] == 0)
+    assert torch.all(loss[length == 0] == 0)
+    assert torch.all(dphi[length == 0] == 0)
+    assert torch.equal(ops.subtb_loss(phi, length, lam), loss)
+    assert torch.equal(ops.subtb_loss_backward(phi, length, g, lam), dphi)
 
 
 def test_subtb_on_cuda_never_runs_the_plain_version(cuda, monkeypatch):
