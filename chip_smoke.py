@@ -21,9 +21,12 @@ printing one JSON line:
 3. kernel  - each kernel (decode_step, decode_attention, traj_logprob and
              subtb_loss forward and backward, flash_attention,
              rwkv6_scan) against its plain PyTorch version on the card,
-             at the main paths' shapes and at odd ones, with its device
-             time, the plain version's, the least time the card could
-             take (``bound``) and, where one PyTorch call computes the
+             at the main paths' shapes (the sequence recipes' included:
+             decode_attention at (16, 9 / 61, 8, 8) with ragged lengths,
+             traj_logprob at (16, 8, 4), (16, 5, 22), (128, 61, 21), the
+             fused step at their eval rollouts') and at odd ones, with its
+             device time, the plain version's, the least time the card
+             could take (``bound``) and, where one PyTorch call computes the
              same function, that call's (``library_us``); each flash row
              names the route it took (``ops.flash_route``: the
              tensor-core kernel for bf16 at D % 16 == 0, else SIMT), and
@@ -47,9 +50,10 @@ printing one JSON line:
    serve_profile - the serving loop's device idle share, device and host
              tops;
 5. train   - ``bitseq_tb`` training at full width (16 envs) for 50
-             iterations through ``repro_torch.run.run_recipe``, the
-             launches of every kernel counted (45 decode_attention, 2
-             traj_logprob forward and 1 backward per iteration);
+             iterations through ``repro_torch.run.run_recipe`` (evals off:
+             seqs_evals times them), the launches of every kernel counted
+             (45 decode_attention, 2 traj_logprob forward and 1 backward
+             per iteration);
    train_hold - one iteration on the card and on the CPU (plain versions)
              from the same parameters and noise: actions, loss, gradients;
    train_profile - one iteration's device idle share, device and host tops;
@@ -70,7 +74,25 @@ printing one JSON line:
              samples under 0.12, with the exact-DP TV beside it; and the
              exact DP of the paper's 20^4 grid on the card against the
              CPU's;
-7. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
+7. seqs_train - ``tfbind8_tb`` and ``qm9_tb`` (50 iterations) and
+             ``amp_tb`` (10) at full width through ``run_recipe``, evals
+             off; it/s, samples/s and the launches of every iteration held
+             exactly (decode_attention / traj_logprob forward / backward:
+             tfbind8 16 / 2 / 1, qm9 0 / 2 / 1, amp 183 / 0 / 0);
+   seqs_hold - one iteration of each on the card and on the CPU, as
+             train_hold;
+   seqs_profile - that iteration's device idle share and tops;
+   seqs_kv_valid - an AMP rollout's cached queries attend length + 1
+             slots (BOS included), ragged across rows;
+   seqs_evals - the eval suite of bitseq_tb, tfbind8_tb, qm9_tb and
+             amp_tb once at full width (and AMP's top-100 reward and
+             diversity): metrics, seconds, launches; every metric finite,
+             the correlations in [-1, 1];
+   path_shapes - every shape at which the phases the kernels line counts
+             (serve, train, hypergrid_train, seqs_train, seqs_evals)
+             launched decode_step, decode_attention or traj_logprob has a
+             row of phase 3, held against the plain version;
+8. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
              full width and depth (32 layers, d_model 1600, bf16, random
              weights from a seeded generator on the card): batch 8, 32
              prompt tokens, 32 generated; tokens/s, steps/s, exactly 32
@@ -123,6 +145,7 @@ BWD_ATOL = 1e-8
 #: lanes whose two best Gumbel scores lie this close may pick either
 TIE_GAP = 1e-5
 #: profiler windows tried before a kernel's device time counts as missing
+#: (or before a window that lost some of a kernel's records is used)
 PROFILE_TRIES = 3
 SERVE_LANES = 64
 TRAIN_ITERS = 50
@@ -142,6 +165,29 @@ HYPERGRID_LAUNCHES_PER_ITER = {"decode_attention": 0, "traj_logprob_fwd": 0,
                                "subtb_loss_fwd": 1, "subtb_loss_bwd": 1,
                                "flash_attention": 0, "rwkv6_scan": 0}
 HYPERGRID_EVAL_LAUNCHES = {"traj_logprob_fwd": 2}
+#: the sequence-design recipes at full width: iterations of seqs_train,
+#: and each iteration's launches (read from the code: a cached exploring
+#: rollout queries decode_attention once per layer and step; a loss
+#: without a stop action takes two traj_logprob forwards, P_F and P_B, and
+#: one backward, P_F's; AMP's stop-action loss takes none)
+SEQ_ITERS = {"tfbind8_tb": 50, "qm9_tb": 50, "amp_tb": 10}
+SEQ_LAUNCHES_PER_ITER = {
+    # 2 layers x 8 steps
+    "tfbind8_tb": {"decode_attention": 16, "traj_logprob_fwd": 2,
+                   "traj_logprob_bwd": 1},
+    # the pooled encoder over 5 blocks: no cache
+    "qm9_tb": {"decode_attention": 0, "traj_logprob_fwd": 2,
+               "traj_logprob_bwd": 1},
+    # 3 layers x 61 steps (60 symbols and the stop)
+    "amp_tb": {"decode_attention": 183, "traj_logprob_fwd": 0,
+               "traj_logprob_bwd": 0}}
+SEQ_RECIPES = {"tfbind8_tb": "TFBind8 (length 8, vocab 4, A=4, A_b=1)",
+               "qm9_tb": "QM9 (5 blocks of 11, A=22, A_b=2)",
+               "amp_tb": "AMP (max_len 60, vocab 20 + stop, A=21, A_b=2)"}
+SEQ_POLICIES = {"tfbind8_tb": "decode arch, 2 layers, dim 64, 8 heads",
+                "qm9_tb": "pooled arch, 2 layers, dim 64, 8 heads",
+                "amp_tb": "decode arch, 3 layers, dim 64, 8 heads, "
+                          "log Z from 150"}
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
@@ -227,6 +273,68 @@ def read_launches() -> dict:
     return {k: w.launches for k, w in wrappers().items()}
 
 
+#: the shapes the main path handed each kernel, recorded while
+#: ``recording_path_shapes`` is on; each needs a row of its check
+PATH_SHAPES = {"decode_step": set(), "decode_attention": set(),
+               "traj_logprob": set()}
+
+
+@contextlib.contextmanager
+def recording_path_shapes():
+    """Record the shape of every call the port's modules make, on a CUDA
+    tensor, to the decode_step, decode_attention and traj_logprob wrappers
+    (the backward's logits are the forward's).  The modules hold each
+    wrapper under an imported name; that name is swapped for a recorder
+    that calls the wrapper itself, so launch counts are untouched.  The
+    checks call ``ops`` and are not recorded."""
+    from repro_torch.core import objectives, policies
+    from repro_torch.kernels import ops
+    from repro_torch.nn import transformer
+
+    def step_shape(w, x_new, cache, *args, **kwargs):
+        L, B, C, H, hd = cache["k"].shape
+        return x_new, (B, L, C, H * hd, H, w["ff1_w"].shape[-1],
+                       args[4].shape[1])
+
+    sites = [(policies, "decode_step", ops.decode_step, step_shape),
+             (transformer, "decode_attention", ops.decode_attention,
+              lambda q, k, *a, **kw: (q, tuple(k.shape))),
+             (objectives, "traj_logprob", ops.traj_logprob,
+              lambda logits, *a, **kw: (logits, tuple(logits.shape)))]
+
+    def recorder(name, wrapper, shape):
+        def call(*args, **kwargs):
+            t, key = shape(*args, **kwargs)
+            if t.is_cuda:
+                PATH_SHAPES[name].add(tuple(int(d) for d in key))
+            return wrapper(*args, **kwargs)
+        return call
+
+    for module, name, wrapper, shape in sites:
+        setattr(module, name, recorder(name, wrapper, shape))
+    try:
+        yield
+    finally:
+        for module, name, wrapper, _ in sites:
+            setattr(module, name, wrapper)
+
+
+def check_path_shapes(rows, attn, traj) -> None:
+    """Every shape the main path launched a kernel at has a row of that
+    kernel's check (held against its plain version); fails otherwise."""
+    checked = {"decode_step": {tuple(r[k] for k in "BLCDHFA") for r in rows},
+               "decode_attention": {(r["B"], r["S"], r["H"], r["hd"])
+                                    for r in attn},
+               "traj_logprob": {(f["B"], f["T"], f["A"]) for f, _ in traj}}
+    unchecked = {k: sorted(v - checked[k]) for k, v in PATH_SHAPES.items()}
+    emit("path_shapes", launched={k: sorted(v)
+                                  for k, v in PATH_SHAPES.items()},
+         unchecked=unchecked)
+    if not all(PATH_SHAPES.values()) or any(unchecked.values()):
+        raise AssertionError(f"kernel shapes on the main path with no "
+                             f"check row: {unchecked}")
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -266,25 +374,57 @@ def device_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
-    """Mean device time of the CUDA kernels ``fn`` launches whose name
-    holds ``match``, summed from ``torch.profiler`` (fails if the profiler
-    saw no such device time)."""
+def profiled_rows(fn, iters: int = 50, match: str = "") -> list:
+    """``device_rows`` of ``iters`` calls of ``fn`` whose name holds
+    ``match``.  Now and then the profiler hands back no kernel records for
+    a short window (seen once for a 2.5 us kernel), or only some of them
+    (seen as a library call read at a third of the launch floor).  A
+    window in which some kernel was not recorded a whole number of times
+    per call is profiled again; after PROFILE_TRIES windows the one with
+    the most records counts (fails if none recorded any)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # now and then the profiler hands back no kernel records at all for a
-    # short window (seen once for a 2.5 us kernel); profile it again
+    best = []
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(t for name, t, _ in device_rows(prof) if match in name)
-        if total > 0:
-            return total / iters
-    raise AssertionError(f"torch.profiler recorded no device time in "
-                         f"{PROFILE_TRIES} tries")
+        rows = [r for r in device_rows(prof) if match in r[0]]
+        if rows and all(n % iters == 0 for _, _, n in rows):
+            return rows
+        if sum(n for _, _, n in rows) > sum(n for _, _, n in best):
+            best = rows
+    if not best:
+        raise AssertionError(f"torch.profiler recorded no device time in "
+                             f"{PROFILE_TRIES} tries")
+    return best
+
+
+def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
+    """Mean device time of the CUDA kernels ``fn`` launches whose name
+    holds ``match``, summed from ``torch.profiler``."""
+    return sum(t for _, t, _ in profiled_rows(fn, iters, match)) / iters
+
+
+def profiled_kernels(fn, iters: int = 50) -> dict:
+    """``fn``'s device time per call from ``torch.profiler`` and every
+    device kernel it saw, ``{name: launches per call}``."""
+    rows = profiled_rows(fn, iters)
+    return {"us": sum(t for _, t, _ in rows) / iters,
+            "kernels": {name: n / iters for name, _, n in rows}}
+
+
+def sdpa_backend(kernels) -> str:
+    """The ``scaled_dot_product_attention`` backend named by the device
+    kernels it launched."""
+    names = " ".join(kernels).lower()
+    for key, backend in (("fmha", "efficient"), ("flash", "flash"),
+                         ("cudnn", "cudnn")):
+        if key in names:
+            return backend
+    return "math"
 
 
 def launch_floor_us(device) -> float:
@@ -627,6 +767,11 @@ def check_decode_attention(B, S, H, hd, kv_valid, seed, device, floor_us,
         return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask)
 
     library_err = float((library()[:, :, 0] - want[rows]).abs().max())
+    # the yardstick read three times more, each with the kernels the
+    # profiler matched and the SDPA backend they name
+    readings = [profiled_kernels(library) for _ in range(3)]
+    for r in readings:
+        r["backend"] = sdpa_backend(r["kernels"])
     live = int(torch.clamp(kv, 0, S).sum())
     nbytes = 4 * (2 * B * H * hd + 2 * live * H * hd + B)
     flops = live * H * (4 * hd + 3) + B * H * hd
@@ -646,7 +791,8 @@ def check_decode_attention(B, S, H, hd, kv_valid, seed, device, floor_us,
            "parent_kernel_us": parent_us,
            "library_call": "F.scaled_dot_product_attention(bool mask), "
                            "rows with kv_valid >= 1",
-           "library_max_abs_err": library_err, **bound(nbytes, flops)}
+           "library_max_abs_err": library_err,
+           "library_readings": readings, **bound(nbytes, flops)}
     emit("kernel", name="decode_attention", **row)
     if not (err <= TOL) or not empty_exact:
         raise AssertionError(f"decode_attention disagrees with its plain "
@@ -1209,8 +1355,10 @@ def train_phase(device) -> dict:
     lines = []
     reset_launches()
     t0 = time.perf_counter()
+    # evals off: run_recipe evaluates at iteration 0, which would count
+    # the evals' launches and time here (seqs_evals times them)
     out = run_recipe("bitseq_tb", iterations=TRAIN_ITERS, seed=0,
-                     device=device, log=lines.append)
+                     device=device, eval_every=0, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1571,7 +1719,164 @@ def trained_fused_step(loop, state, before: dict, device) -> None:
             f"weights {fresh}, actions equal {same}, log_pf error {err}")
 
 
-# -- phase 7: Hymba-1.5B serving: decode and prompt scoring -----------------------
+# -- phase 7: the sequence-design recipes -------------------------------------
+
+def seqs_train_phase(device) -> dict:
+    """``tfbind8_tb``, ``qm9_tb`` and ``amp_tb`` at full width through
+    ``run_recipe`` (evals off; seqs_evals times them), launches read at
+    every iteration and held to SEQ_LAUNCHES_PER_ITER exactly.  Returns
+    the launches of all three runs."""
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name, iters in SEQ_ITERS.items():
+        reset_launches()
+        last = read_launches()
+        per_it = []
+
+        def log(line):
+            if line.startswith("it "):
+                now = read_launches()
+                per_it.append({k: now[k] - last[k] for k in now})
+                last.update(now)
+
+        t0 = time.perf_counter()
+        out = run_recipe(name, iterations=iters, seed=0, device=device,
+                         eval_every=0, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = _only(launches, **SEQ_LAUNCHES_PER_ITER[name])
+        bad = [(it, got) for it, got in enumerate(per_it) if got != want]
+        if len(per_it) != iters or bad:
+            raise AssertionError(f"{name}: {len(per_it)} iterations; "
+                                 f"iterations launching other than {want}:"
+                                 f" {bad[:3]}")
+        hist = out["history"]
+        if not all(math.isfinite(r[k]) for r in hist
+                   for k in ("loss", "log_z", "mean_log_reward")):
+            raise AssertionError(f"{name}: rows not finite: {hist[-2:]}")
+        steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+        emit("seqs_train", nvidia_smi=smi, recipe=name,
+             env=SEQ_RECIPES[name], policy=SEQ_POLICIES[name], num_envs=16,
+             iterations=iters, wall_s=wall, iterations_per_s=iters / wall,
+             steady_iterations_per_s=steady,
+             samples_per_s=16 * iters / wall,
+             steady_samples_per_s=16 * steady,
+             first={k: hist[0][k] for k in ("loss", "log_z",
+                                            "mean_log_reward")},
+             last={k: hist[-1][k] for k in ("loss", "log_z",
+                                            "mean_log_reward")},
+             launches=launches, launches_per_iteration=want)
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def seqs_evals_phase(device) -> dict:
+    """Each sequence recipe's eval suite once at full width (bitseq_tb's
+    too: n=120, k=8), on a policy from a seeded generator, the sampling
+    evals over 2,000 samples; and AMP's top-100 reward and diversity over
+    256 samples.  Every metric finite, the correlations in [-1, 1].
+    Returns the launches of the four suites (their non-exploring rollouts
+    take the fused step; the log Z bounds' losses traj_logprob)."""
+    from repro_torch import recipes
+    from repro_torch.evals import EvalSuite
+    from repro_torch.recipes.seqs import amp_eval
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name in ("bitseq_tb", "tfbind8_tb", "qm9_tb", "amp_tb"):
+        rec = recipes.get_train(name)
+        env = rec.make_env()
+        params = env.init(device)
+        policy = rec.make_policy(env, seed=0, device=device)
+        t0 = time.perf_counter()
+        suite = EvalSuite(rec.make_evals(env, params, policy, seed=0,
+                                         eval_batch=2000), every=1, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        suite.run(0)                 # warm: cuBLAS, the allocator
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        row = suite.run(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        extra = {}
+        if name == "amp_tb":
+            t1 = time.perf_counter()
+            extra = amp_eval(env, params, policy)(7)
+            torch.cuda.synchronize()
+            extra["top100_seconds"] = time.perf_counter() - t1
+        emit("seqs_evals", nvidia_smi=smi, recipe=name,
+             evaluators=[type(e).__name__ for e in suite.evaluators],
+             metrics=row, seconds=seconds, build_seconds=build_s,
+             launches=launches, **extra)
+        values = [v for k, v in row.items() if k != "step"] + [
+            v for k, v in extra.items() if k != "top100_seconds"]
+        corr = [row[k] for k in ("pearson", "spearman")]
+        if not all(math.isfinite(v) for v in values) or not all(
+                -1 <= c <= 1 for c in corr):
+            raise AssertionError(f"{name} evals: {row} {extra}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def seqs_profile(device) -> None:
+    """One iteration of each sequence recipe, card against CPU
+    (``hold_iteration``, phase seqs_hold), then that iteration's device
+    idle share and tops on the card (phase seqs_profile); for AMP, the
+    lengths decode_attention saw (seqs_kv_valid)."""
+    for name in SEQ_ITERS:
+        _, loop, state = hold_iteration("seqs_hold", name, device)
+        if name == "amp_tb":
+            # before any optimizer step: log Z starts at 150, far above
+            # log R, and a few TB steps teach the policy not to stop
+            amp_kv_valid(loop, state)
+        profile_step("seqs_profile", lambda: loop.step(state), recipe=name)
+
+
+def amp_kv_valid(loop, state) -> None:
+    """An AMP rollout's cached queries on the card: at step t every layer's
+    decode_attention must attend ``kv_valid = length_t + 1`` slots (the
+    row's symbols so far and BOS), read back from the batch's
+    observations, and the lengths must be ragged (rows stop at different
+    steps)."""
+    from repro_torch.nn import transformer
+
+    seen = []
+    real = transformer.decode_attention
+
+    def spy(q, k, v, kv_valid):
+        seen.append(kv_valid.clone())
+        return real(q, k, v, kv_valid)
+
+    transformer.decode_attention = spy
+    try:
+        batch = loop.sample(state)
+    finally:
+        transformer.decode_attention = real
+    T = batch.actions.shape[0]
+    layers = len(seen) // T
+    want = (batch.obs[:-1] != loop.env.pad).sum(-1).to(torch.int32) + 1
+    got = torch.stack(seen).reshape(T, layers, -1)
+    same = bool(torch.equal(got, want[:, None, :].expand_as(got)))
+    ragged = int(sum(len(set(row.tolist())) > 1 for row in want))
+    emit("seqs_kv_valid", recipe="amp_tb", steps=T, layers=layers,
+         launches=len(seen), kv_valid_equal_length_plus_1=same,
+         ragged_steps=ragged, max_kv_valid=int(want.max()),
+         stop_steps=sorted(set(batch.valid.sum(0).tolist())))
+    if not same or layers != 3 or not ragged:
+        raise AssertionError(f"AMP's decode_attention lengths: equal "
+                             f"{same}, layers {layers}, ragged steps "
+                             f"{ragged}")
+
+
+# -- phase 8: Hymba-1.5B serving: decode and prompt scoring -----------------------
 
 def hymba_config(**changes):
     import dataclasses
@@ -1924,12 +2229,22 @@ def main() -> int:
              spilling=spilling(parent_ptxas))
 
     floor_us = launch_floor_us(device)
+    # the serving batch and the lane counts the serve phase's requests are
+    # held at (forward_rollout over 7, 16 and 200 samples), 128 (bitseq's
+    # log Z bounds) and 256
     rows = [check_decode_step(B, 3, 16, 64, 8, 256, 3840, seed=B,
                               device=device, floor_us=floor_us, parent=parent)
-            for B in (1, 7, SERVE_LANES, 128, 256)]
+            for B in (1, 7, 16, SERVE_LANES, 128, 200, 256)]
     rows.append(check_decode_step(5, 2, 9, 48, 6, 80, 203, seed=99,
                                   device=device, floor_us=floor_us,
                                   parent=parent))
+    # the sequence recipes' eval rollouts (non-exploring: the fused step):
+    # tfbind8's 256 and 2,000 lanes, AMP's 128 over 61 slots and its
+    # top-100's 256
+    rows += [check_decode_step(B, L, C, 64, 8, 256, A, seed=100 + B,
+                               device=device, floor_us=floor_us)
+             for B, L, C, A in ((256, 2, 9, 4), (2000, 2, 9, 4),
+                                (128, 3, 61, 21), (256, 3, 61, 21))]
     main_row = next(r for r in rows if r["B"] == SERVE_LANES)
     check_decode_step_lanes(device)
     # the training rollout's shape first; odd S and H with empty rows; then
@@ -1950,12 +2265,33 @@ def main() -> int:
                                     seed=3 + hd, device=device,
                                     floor_us=floor_us, parent=parent)
              for hd in (8, 16, 32, 64)]
+    # tfbind8's training rollout (9 slots, BOS included) and AMP's (61
+    # slots), ragged: rows stop at different steps
+    attn += [check_decode_attention(16, 9, 8, 8,
+                                    [1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 9, 5,
+                                     5, 1, 3], seed=20, device=device,
+                                    floor_us=floor_us),
+             check_decode_attention(16, 61, 8, 8,
+                                    [1, 2, 6, 11, 61, 60, 33, 7, 61, 2, 45,
+                                     19, 61, 30, 3, 58], seed=21,
+                                    device=device, floor_us=floor_us)]
     traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device,
                                floor_us=floor_us, parent=parent),
             check_traj_logprob(16, 15, 15, seed=1, device=device,
                                floor_us=floor_us, parent=parent),
             check_traj_logprob(3, 50, 203, seed=2, device=device,
                                floor_us=floor_us, parent=parent)]
+    # the sequence recipes' losses (tfbind8 P_F, QM9 P_F), AMP's log Z
+    # bounds (128 trajectories of 61 steps), the losses' P_B (tfbind8,
+    # QM9); the other log Z bounds, P_F and P_B: bitseq's 128 x 15,
+    # tfbind8's 256 x 8, QM9's 256 x 5, AMP's P_B, the hypergrid's 256 x 29
+    traj += [check_traj_logprob(B, T, A, seed=10 + i, device=device,
+                                floor_us=floor_us)
+             for i, (B, T, A) in enumerate([
+                 (16, 8, 4), (16, 5, 22), (128, 61, 21), (16, 8, 1),
+                 (16, 5, 2), (128, 15, 3840), (128, 15, 15), (256, 8, 4),
+                 (256, 8, 1), (256, 5, 22), (256, 5, 2), (128, 61, 2),
+                 (256, 29, 5)])]
     # (16, 30) is the main path's (4x8^4, a warp per trajectory); 78 the
     # paper grid's; 7000 a long trajectory (a block of 896 threads); then
     # potentials at the offset log Z gives them (1e3), where JAX's expanded
@@ -2027,16 +2363,25 @@ def main() -> int:
                              bf16=True, seed=6, device=device,
                              decay="strong")]
 
-    serve = serve_phase(device)
-    train = train_phase(device)
+    # the phases the kernels line counts record the shapes they launch at
+    with recording_path_shapes():
+        serve = serve_phase(device)
+        train = train_phase(device)
     loop, state, before = train_hold_phase(device)
     train_profile(loop, state)
     trained_fused_step(loop, state, before, device)
-    hypergrid = hypergrid_train_phase(device)
+    with recording_path_shapes():
+        hypergrid = hypergrid_train_phase(device)
     _, loop, state = hold_iteration("hypergrid_hold", "hypergrid_subtb",
                                     device)
     train_profile(loop, state, phase="hypergrid_profile")
     hypergrid_converge(device)
+    with recording_path_shapes():
+        seqs = seqs_train_phase(device)
+    seqs_profile(device)
+    with recording_path_shapes():
+        seqs_evals = seqs_evals_phase(device)
+    check_path_shapes(rows, attn, traj)
     hymba = hymba_config()
     params = hymba_params(hymba, device)
     decode, decode_scan = lm_decode_phase(hymba, params, device)
@@ -2059,20 +2404,28 @@ def main() -> int:
                 "library_ms": None if main.get("library_us") is None
                 else main["library_us"] / 1e3}
 
+    def main_launches(kernel):
+        """A kernel's launches on bitseq_tb's, the hypergrid's and the
+        sequence recipes' paths (training and evals)."""
+        return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals))
+
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         entry("decode_step", csrc + "decode_step.cu",
               "src/repro/kernels/decode_attention.py:239",
-              serve["decode_step"], rows, main_row),
+              serve["decode_step"] + seqs_evals["decode_step"], rows,
+              main_row),
         entry("decode_attention", csrc + "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:98",
-              train["decode_attention"], attn, attn[0]),
+              main_launches("decode_attention"), attn, attn[0]),
         entry("traj_logprob_fwd", csrc + "traj_logprob.cu",
               "src/repro/kernels/traj_logprob.py:61",
-              train["traj_logprob_fwd"], [f for f, _ in traj], traj[0][0]),
+              main_launches("traj_logprob_fwd"), [f for f, _ in traj],
+              traj[0][0]),
         entry("traj_logprob_bwd", csrc + "traj_logprob.cu",
               "src/repro/kernels/ops.py:130",
-              train["traj_logprob_bwd"], [b for _, b in traj], traj[0][1]),
+              main_launches("traj_logprob_bwd"), [b for _, b in traj],
+              traj[0][1]),
         entry("subtb_loss_fwd", csrc + "subtb_loss.cu",
               "src/repro/kernels/subtb_loss.py:58",
               hypergrid["subtb_loss_fwd"], [f for f, _ in subtb],

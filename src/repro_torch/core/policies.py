@@ -1,14 +1,19 @@
 """Policies of the port: the MLP policy (port of
-``repro.core.policies.make_mlp_policy``) and the decode-arch transformer
-policy (port of ``make_transformer_policy(arch="decode")``).
+``repro.core.policies.make_mlp_policy``) and the transformer policy (port
+of ``make_transformer_policy``), in its two architectures.
 
-In the transformer policy, per-layer K/V come from frozen token + position embeddings, and a learned
-latent query reads the state out (see :mod:`repro_torch.nn.transformer`).
-The parameter tree is the JAX package's: ``embed/table``, ``pos/pos``,
-``bos``, ``decoder/layer_{i}/...``, ``readout/{w,b}``, ``log_z``.  The pad
-(empty) token is ``vocab_size - 1``.  The readout has the heads of the
-bitseq recipe: A forward logits and one state-flow head (the JAX factory's
-defaults; its learned backward head is not ported yet).
+``arch="decode"``: per-layer K/V come from frozen token + position
+embeddings, and a learned latent query reads the state out (see
+:mod:`repro_torch.nn.transformer`); it has the KV-cache entry points.  Its
+parameter tree is the JAX package's: ``embed/table``, ``pos/pos``,
+``bos``, ``decoder/layer_{i}/...``, ``readout/{w,b}``, ``log_z``.
+``arch="pooled"``: the bidirectional encoder over the padded sequence,
+then a mean over positions, with no pad mask and no cache entry points,
+as in the JAX package; its tree is ``embed``, ``pos``,
+``encoder/layer_{i}/...``, ``readout``, ``log_z``.  The pad (empty) token
+is ``vocab_size - 1``.  The readout has A forward logits and one
+state-flow head (the JAX factory's defaults; its learned backward head is
+not ported yet).
 """
 from __future__ import annotations
 
@@ -23,8 +28,9 @@ from ..nn.core import (ParamTree, dense_apply, dense_init, embedding_apply,
                        embedding_init, load_flat, mlp_apply, mlp_init,
                        normal_init)
 from ..nn.transformer import (Cache, cache_init, decode_encoder_init,
-                              decoder_stacked_weights, encoder_apply_bank,
-                              encoder_apply_cached)
+                              decoder_stacked_weights, encoder_apply,
+                              encoder_apply_bank, encoder_apply_cached,
+                              encoder_init, positional_embedding_init)
 
 
 class MLPPolicy(nn.Module):
@@ -77,38 +83,62 @@ class MLPPolicy(nn.Module):
 
 
 class TransformerPolicy(nn.Module):
-    """The latent-query policy with KV-cache entry points.
+    """The transformer policy; ``arch="decode"`` (the latent-query policy
+    with KV-cache entry points) or ``"pooled"`` (the encoder, mean-pooled).
 
     Weights are drawn from ``torch.Generator`` seeded with ``seed`` on the
     CPU and moved to ``device``; :meth:`load_params` replaces them with
     parameters carried across from JAX (:mod:`repro_torch.convert`).
     ``requires_grad=True`` makes them trainable (the training recipes);
-    a served policy's are not.
+    a served policy's are not.  ``log_z`` starts at ``init_log_z``.
+
+    One class with an ``arch`` switch, as in the JAX package, so that a
+    policy is built the same way in both and the parity tests pair them by
+    their arguments; the pooled arch refuses the cache entry points and
+    reports ``supports_cache`` False, which the rollout reads.
     """
 
     def __init__(self, vocab_size: int, max_len: int, action_dim: int, *,
                  num_layers: int = 3, dim: int = 64, num_heads: int = 8,
+                 init_log_z: float = 0.0, arch: str = "decode",
                  seed: int = 0, device: DeviceLike = None,
                  requires_grad: bool = False):
         super().__init__()
+        if arch not in ("decode", "pooled"):
+            raise ValueError(f"unknown transformer arch {arch!r}")
         dev = resolve_device(device)
+        self.arch = arch
         self.vocab_size, self.max_len = vocab_size, max_len
         self.action_dim, self.dim, self.num_heads = action_dim, dim, num_heads
         self.pad_id = vocab_size - 1
         g = cpu_generator(seed)
         kw = dict(generator=g, device=dev)
-        self.params = ParamTree({
-            "embed": embedding_init(vocab_size, dim, **kw),
-            "pos": {"pos": normal_init((max_len, dim), std=0.02, **kw)},
-            "bos": normal_init((dim,), std=0.02, **kw),
-            "decoder": decode_encoder_init(num_layers=num_layers, dim=dim,
-                                           num_heads=num_heads, **kw),
-            "readout": dense_init(dim, action_dim + 1, **kw),
-            "log_z": torch.zeros((), device=dev),
-        }, requires_grad=requires_grad)
+        tree = {"embed": embedding_init(vocab_size, dim, **kw),
+                "pos": positional_embedding_init(max_len, dim, **kw)}
+        if arch == "decode":
+            tree["bos"] = normal_init((dim,), std=0.02, **kw)
+            tree["decoder"] = decode_encoder_init(
+                num_layers=num_layers, dim=dim, num_heads=num_heads, **kw)
+        else:
+            tree["encoder"] = encoder_init(num_layers=num_layers, dim=dim,
+                                           num_heads=num_heads, **kw)
+        tree["readout"] = dense_init(dim, action_dim + 1, **kw)
+        tree["log_z"] = torch.full((), float(init_log_z), device=dev)
+        self.params = ParamTree(tree, requires_grad=requires_grad)
         self._kernel_weights: Optional[Dict[str, torch.Tensor]] = None
         self._kernel_weights_key: Optional[tuple] = None
         self._param_seq = tuple(self.params.parameters())
+
+    @property
+    def supports_cache(self) -> bool:
+        """True when the policy has the KV-cache entry points (the decode
+        arch), which the cached rollout branches need."""
+        return self.arch == "decode"
+
+    def _need_cache(self, what: str) -> None:
+        if not self.supports_cache:
+            raise ValueError(f"{what}: the pooled transformer has no "
+                             "KV-cache entry points (arch='decode' has)")
 
     # -- parameters ------------------------------------------------------------
     def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
@@ -130,6 +160,7 @@ class TransformerPolicy(nn.Module):
         optimizer step, ``load_params`` or any other in-place write bumps
         it) and the module has not been moved with ``.to()``: the fused
         step never runs weights that differ from ``self.params``."""
+        self._need_cache("kernel_weights")
         key = tuple(p._version for p in self._param_seq)
         if self._kernel_weights is None or key != self._kernel_weights_key:
             r = self.params["readout"]
@@ -159,6 +190,12 @@ class TransformerPolicy(nn.Module):
     def apply(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Uncached pass over (B, S) token observations."""
         B, S = tokens.shape
+        if self.arch == "pooled":
+            x = (embedding_apply(self.params["embed"], tokens.long())
+                 + self.params["pos"]["pos"][None, :S])
+            h = encoder_apply(self.params["encoder"], x,
+                              num_heads=self.num_heads)
+            return self.heads(h.mean(1))
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
         xs = self._embed(tokens, pos)
         bos = self.params["bos"][None, None, :].expand(B, 1, self.dim)
@@ -172,6 +209,7 @@ class TransformerPolicy(nn.Module):
     # -- KV-cache protocol --------------------------------------------------------
     def cache_init(self, batch_size: int) -> Cache:
         """Stacked (num_layers, B, max_len + 1, H, hd) cache, BOS at slot 0."""
+        self._need_cache("cache_init")
         x0 = self.params["bos"][None, :].expand(batch_size, self.dim)
         return cache_init(self.params["decoder"], x0, self.max_len + 1,
                           num_heads=self.num_heads)
@@ -190,6 +228,7 @@ class TransformerPolicy(nn.Module):
                      step: Union[int, torch.Tensor]):
         """Append the newest token's K/V (in place) and query the cache;
         the plain path.  Returns ``(heads dict, cache)``."""
+        self._need_cache("apply_cached")
         y, cache = encoder_apply_cached(
             self.params["decoder"], self._embed(token, pos), cache, length,
             num_heads=self.num_heads, slot=self._slot(step))

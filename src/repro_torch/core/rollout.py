@@ -69,8 +69,9 @@ class RolloutBatch:
 
 def _cache_engaged(env: Environment, policy) -> bool:
     """The cached branches need both sides: a policy with KV-cache entry
-    points and an env that reports each step's new observation token."""
-    return (hasattr(policy, "apply_cached")
+    points (``policy.supports_cache``) and an env that reports each step's
+    new observation token."""
+    return (getattr(policy, "supports_cache", False)
             and getattr(env, "supports_incremental_obs", False))
 
 
@@ -79,7 +80,8 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
                     num_envs: int, *,
                     noise: Union[NoiseSource, StepNoiseSource, None] = None,
                     logit_temp: Optional[float] = None,
-                    exploration_eps: Optional[float] = None) -> RolloutBatch:
+                    exploration_eps: Optional[float] = None,
+                    return_final_state: bool = False):
     """Sample ``num_envs`` trajectories of ``env.max_steps`` steps on the
     device of ``env_params``.  Row i's noise at step t is
     ``noise(seed, i, t, A)``: a :class:`StepNoise` when exploring
@@ -87,7 +89,8 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
     (B, A) Gumbel tensor otherwise (default :func:`hash_gumbel`).  ``seed``
     may use 64 bits.  ``logit_temp`` scales the forward logits (a tempered
     policy, as the serving engine's per-lane temperature); only the fused
-    branch takes it, as only serving uses it."""
+    branch takes it, as only serving uses it.  Returns the batch, or
+    ``(batch, final_state)`` with ``return_final_state``."""
     explore = exploration_eps is not None
     cached = _cache_engaged(env, policy)
     if logit_temp is not None and (explore or not cached):
@@ -149,7 +152,7 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
         state = new_state
         prev = actions
     # no ported env has per-state rewards or energies: both are zeros
-    return RolloutBatch(
+    batch = RolloutBatch(
         obs=torch.stack(ys["obs"] + [env.observe(state, env_params)]),
         fwd_mask=torch.stack(ys["fwd_mask"]
                              + [env.forward_mask(state, env_params)]),
@@ -163,6 +166,7 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
         log_r_state=zeros.expand(T + 1, num_envs).clone(),
         energy=zeros.expand(T + 1, num_envs).clone(),
         log_pf_beh=torch.stack(ys["log_pf"]))
+    return (batch, state) if return_final_state else batch
 
 
 class BackwardRollout(NamedTuple):
@@ -172,10 +176,13 @@ class BackwardRollout(NamedTuple):
 
 
 @torch.no_grad()
-def backward_rollout(seed: int, env: Environment, env_params, policy,
-                     terminal_state, *, noise: Optional[NoiseSource] = None,
+def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
+                     env_params, policy, terminal_state, *,
+                     noise: Optional[NoiseSource] = None,
                      backward_policy: str = "learned",
-                     collect: bool = False) -> BackwardRollout:
+                     collect: bool = False,
+                     index: Optional[torch.Tensor] = None
+                     ) -> BackwardRollout:
     """Sample tau ~ P_B(. | x) back from ``terminal_state`` for
     ``env.max_steps`` steps and return log P_F(tau) and log P_B(tau | x)
     per row (paper §B.2).
@@ -184,8 +191,10 @@ def backward_rollout(seed: int, env: Environment, env_params, policy,
     it has one and the uniform P_B otherwise; ``"uniform"`` forces the
     uniform P_B.  log P_F re-evaluates the policy at each previous state.
     Row i's draw at step t is
-    ``noise(seed, i, t, Ab)``, a (B, Ab) Gumbel tensor (default
-    :func:`hash_backward_gumbel`, a stream no forward rollout uses).
+    ``noise(seed, index[i], t, Ab)``, a (B, Ab) Gumbel tensor (default
+    :func:`hash_backward_gumbel`, a stream no forward rollout uses);
+    ``seed`` is one number or a (B,) int64 tensor of per-row seeds, and
+    ``index`` defaults to the row number.
     ``collect=True`` (the forward-ordered batch the replay samplers need)
     is not ported yet and raises."""
     if collect:
@@ -197,8 +206,11 @@ def backward_rollout(seed: int, env: Environment, env_params, policy,
         noise = hash_backward_gumbel
     dev = terminal_state.steps.device
     B = terminal_state.steps.shape[0]
-    ids = torch.arange(B, dtype=torch.int64, device=dev)
-    seeds = torch.full((B,), int(seed), dtype=torch.int64, device=dev)
+    ids = (torch.arange(B, dtype=torch.int64, device=dev) if index is None
+           else index.to(device=dev, dtype=torch.int64))
+    seeds = (seed.to(device=dev, dtype=torch.int64)
+             if isinstance(seed, torch.Tensor)
+             else torch.full((B,), int(seed), dtype=torch.int64, device=dev))
     acc_pf = torch.zeros(B, dtype=torch.float32, device=dev)
     acc_pb = torch.zeros(B, dtype=torch.float32, device=dev)
     state = terminal_state

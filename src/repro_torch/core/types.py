@@ -181,6 +181,19 @@ def eval_seed(seed: int, iteration: int, index: int) -> int:
     return (seed << 40 | index << 32 | iteration) - 2 ** 63
 
 
+def sample_seeds(seed: int, num_samples: int) -> list:
+    """The 64-bit noise seeds of ``num_samples`` independent draws keyed on
+    one seed (the port's counterpart of ``jax.random.split(key, n)``):
+    sample i's is ``seed + (i + 1) * 0x9E3779B97F4A7C15`` modulo 2**64,
+    read as a signed int64.  Distinct for every i < 2**64, and a function
+    of (seed, i) alone."""
+    out = []
+    for i in range(int(num_samples)):
+        u = (int(seed) + (i + 1) * 0x9E3779B97F4A7C15) % 2 ** 64
+        out.append(u - 2 ** 64 if u >= 2 ** 63 else u)
+    return out
+
+
 @dataclasses.dataclass
 class TrainState:
     """Training carry (port of ``repro.core.types.TrainState``).

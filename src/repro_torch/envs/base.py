@@ -17,12 +17,40 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
 EnvState = Any
 EnvParams = Any
+
+
+class SeqTerminal(NamedTuple):
+    """Terminal representation of the sequence environments: left-aligned
+    ``tokens`` (B, L) int32 (pad beyond ``length``) and ``length`` (B,)."""
+    tokens: torch.Tensor
+    length: torch.Tensor
+
+
+def flat_index_of_tokens(tokens: torch.Tensor, base: int,
+                         length: int) -> torch.Tensor:
+    """Base-``base`` flat index of (..., length) token sequences, C-order:
+    the order of ``flatten_index``, exact-DP targets and
+    ``true_log_rewards`` tables."""
+    idx = torch.zeros(tokens.shape[:-1], dtype=torch.int64,
+                      device=tokens.device)
+    for i in range(length):
+        idx = idx * base + tokens[..., i].long()
+    return idx
+
+
+def tokens_of_flat_index(idx: torch.Tensor, base: int,
+                         length: int) -> torch.Tensor:
+    """Inverse of :func:`flat_index_of_tokens`: (...,) -> (..., length)
+    int32."""
+    idx = idx.long()
+    return torch.stack([(idx // base ** (length - 1 - i)) % base
+                        for i in range(length)], dim=-1).to(torch.int32)
 
 
 def select_state(pred: torch.Tensor, old: EnvState, new: EnvState) -> EnvState:

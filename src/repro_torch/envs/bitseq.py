@@ -3,7 +3,8 @@
 A length-n bit string is split into L = n/k words of k bits.  The initial
 state has all L positions empty (token m = 2^k); each forward action picks
 an empty position and writes one of m words: action = position * m + word.
-Terminal after exactly L steps.  The reward is
+Terminal after exactly L steps.  A backward action empties one filled
+position.  The reward is
 :class:`repro_torch.rewards.bitseq.BitSeqRewardModule`.
 """
 from __future__ import annotations
@@ -75,6 +76,14 @@ class BitSeqEnvironment(Environment):
         tokens[rows, action // self.m] = (action % self.m).to(torch.int32)
         return BitSeqState(tokens=tokens, steps=state.steps + 1)
 
+    def _backward(self, state: BitSeqState, action: torch.Tensor,
+                  params: BitSeqParams) -> BitSeqState:
+        rows = torch.arange(action.shape[0], device=action.device)
+        tokens = state.tokens.clone()
+        tokens[rows, action.long()] = self.empty
+        return BitSeqState(tokens=tokens,
+                           steps=torch.clamp(state.steps - 1, min=0))
+
     def is_terminal(self, state: BitSeqState,
                     params: BitSeqParams) -> torch.Tensor:
         return state.steps >= self.L
@@ -101,6 +110,20 @@ class BitSeqEnvironment(Environment):
                             next_state: BitSeqState,
                             params: BitSeqParams) -> torch.Tensor:
         return action // self.m
+
+    def get_forward_action(self, state: BitSeqState,
+                           bwd_action: torch.Tensor, prev_state: BitSeqState,
+                           params: BitSeqParams) -> torch.Tensor:
+        rows = torch.arange(bwd_action.shape[0], device=bwd_action.device)
+        pos = bwd_action.long()
+        return pos * self.m + state.tokens[rows, pos].long()
+
+    def terminal_state_from_words(self, words: torch.Tensor) -> BitSeqState:
+        """The terminal states holding the (B, L) word sequences."""
+        return BitSeqState(
+            tokens=words.to(torch.int32),
+            steps=torch.full((words.shape[0],), self.L, dtype=torch.int32,
+                             device=words.device))
 
     def observe_last(self, state: BitSeqState, params: BitSeqParams,
                      last_action: torch.Tensor):

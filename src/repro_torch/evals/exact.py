@@ -1,6 +1,6 @@
 """Exact terminal distributions of the learned policy by dynamic
-programming (port of the hypergrid part of ``repro.evals.exact``; paper
-§B.1 exact-TV curves).
+programming (port of ``repro.evals.exact``; paper §B.1 exact-TV curves):
+the hypergrid's and a small bitseq's.
 
 For an enumerable environment the terminal distribution
 
@@ -14,10 +14,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.types import masked_logprobs
-from ..envs.bitseq import BitSeqEnvironment
+from ..envs.bitseq import BitSeqEnvironment, BitSeqState
 from ..envs.hypergrid import HypergridEnvironment, HypergridState
 from ..metrics.distributions import jensen_shannon, total_variation
 
@@ -72,6 +73,61 @@ def make_hypergrid_dp(env: HypergridEnvironment, env_params,
     return dp
 
 
+def make_bitseq_dp(env: BitSeqEnvironment, env_params,
+                   policy) -> Callable[[], torch.Tensor]:
+    """Returns ``dp() -> (m**L,)``: the terminal distribution of
+    ``policy``'s current parameters over full word sequences, flat base-m
+    C-order (word 0 most significant).
+
+    The non-autoregressive DAG is graded by fill count: partial states sit
+    at base-(m+1) indices (empty token = m), and writing word w at empty
+    position p moves the index by ``(w - m) * (m+1)**(L-1-p)``, an offset
+    that does not depend on the state, so one scatter-add per level moves
+    every transition."""
+    L, m = env.L, env.m
+    base = m + 1
+    Np = base ** L
+    if Np > MAX_ENUM_STATES:
+        raise ValueError(f"bitseq has {Np} partial states > "
+                         f"{MAX_ENUM_STATES}; use a sampling evaluator")
+    dev = env_params.device
+    tokens = np.stack(np.meshgrid(*[np.arange(base)] * L, indexing="ij"),
+                      axis=-1).reshape(-1, L).astype(np.int32)
+    filled = (tokens != m).sum(-1).astype(np.int32)
+    states = BitSeqState(tokens=torch.as_tensor(tokens, device=dev),
+                         steps=torch.as_tensor(filled, device=dev))
+    obs = env.observe(states, env_params)
+    fmask = env.forward_mask(states, env_params)             # (Np, L*m)
+    delta = np.array([(w - m) * base ** (L - 1 - p)
+                      for p in range(L) for w in range(m)], np.int64)
+    # an illegal action's target may leave the index range; its mass is 0
+    next_idx = torch.as_tensor(
+        np.clip(np.arange(Np, dtype=np.int64)[:, None] + delta[None, :],
+                0, Np - 1).reshape(-1), device=dev)
+    init_idx = int((base ** L - 1) // (base - 1) * m)       # all empty
+    full = filled == L
+    pw = m ** np.arange(L - 1, -1, -1)
+    word_idx = torch.as_tensor((np.where(full[:, None], tokens, 0) * pw)
+                               .sum(-1), device=dev)
+    full = torch.as_tensor(full, device=dev)
+
+    @torch.no_grad()
+    def dp() -> torch.Tensor:
+        logits = policy.apply(obs)["logits"]
+        probs = torch.exp(masked_logprobs(logits, fmask)) * fmask
+        p = torch.zeros(Np, dtype=torch.float32, device=dev)
+        p[init_idx] = 1.0
+        for _ in range(L):
+            p = torch.zeros_like(p).index_add_(
+                0, next_idx, (p[:, None] * probs).reshape(-1))
+        flat = torch.zeros(m ** L, dtype=torch.float32,
+                           device=dev).index_add_(
+            0, word_idx, torch.where(full, p, 0.0))
+        return flat / torch.clamp(flat.sum(), min=1e-9)
+
+    return dp
+
+
 def make_exact_dp(env, env_params, policy) -> Callable[[], torch.Tensor]:
     """The DP builder of the environment's type; a wrapped env (a reward
     transform) dispatches on the env it wraps."""
@@ -81,11 +137,9 @@ def make_exact_dp(env, env_params, policy) -> Callable[[], torch.Tensor]:
     if isinstance(bare, HypergridEnvironment):
         return make_hypergrid_dp(env, env_params, policy)
     if isinstance(bare, BitSeqEnvironment):
-        raise NotImplementedError(
-            "the bitseq exact DP (make_bitseq_dp) is not ported yet; see "
-            "ROADMAP.md, queue 1")
+        return make_bitseq_dp(env, env_params, policy)
     raise TypeError(f"no exact-DP evaluator for {type(bare).__name__}; "
-                    "enumerable envs: Hypergrid")
+                    "enumerable envs: Hypergrid, BitSeq")
 
 
 class ExactDistributionEval:

@@ -11,7 +11,7 @@ are the JAX checkpoint's leaf names.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Mapping, Sequence
+from typing import Any, Callable, Dict, Iterator, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -86,13 +86,16 @@ def mlp_init(in_dim: int, hidden: Sequence[int], out_dim: int, *,
             for i in range(len(dims) - 1)}
 
 
-def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Dense layers with ReLU between them (none after the last)."""
+def mlp_apply(p: Params, x: torch.Tensor,
+              activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu
+              ) -> torch.Tensor:
+    """Dense layers with ``activation`` (default ReLU, as the JAX
+    package's) between them, none after the last."""
     n = len(list(p))
     for i in range(n):
         x = dense_apply(p[f"layer_{i}"], x)
         if i < n - 1:
-            x = torch.relu(x)
+            x = activation(x)
     return x
 
 

@@ -1,7 +1,11 @@
-"""Latent-query decoder with a stacked K/V cache (port of the decode arch of
-``repro.nn.transformer``).
+"""The transformer layers of the port (port of ``repro.nn.transformer``):
+the bidirectional pre-LayerNorm encoder (the pooled policy, the AMP proxy)
+and the latent-query decoder with a stacked K/V cache (the decode arch).
 
-Each layer computes K/V from a token's frozen input embedding (token +
+The encoder is plain attention: the JAX package runs it outside any
+kernel, and so does the port.
+
+In the latent-query decoder each layer computes K/V from a token's frozen input embedding (token +
 position) alone, and a learned latent query ``q0`` evolves through the
 layer stack and cross-attends to the cache.  Appending one token's K/V is
 therefore exact whatever the insertion order, and the cached pass and the
@@ -17,7 +21,7 @@ returns the same dict.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -26,6 +30,64 @@ from .core import (Params, dense_apply, dense_init, gelu, layernorm_apply,
                    layernorm_init, normal_init)
 
 Cache = Dict[str, torch.Tensor]
+
+
+def encoder_init(*, num_layers: int, dim: int, num_heads: int,
+                 generator: torch.Generator,
+                 device: torch.device) -> Dict[str, Any]:
+    """Per layer: ``ln1``, ``qkv`` (D -> 3D), ``proj``, ``ln2``, ``ff1``,
+    ``ff2`` (MLP width 4 * dim); then ``ln_f``."""
+    kw = dict(generator=generator, device=device)
+    layers: Dict[str, Any] = {}
+    for i in range(num_layers):
+        layers[f"layer_{i}"] = {
+            "ln1": layernorm_init(dim, device),
+            "qkv": dense_init(dim, 3 * dim, **kw),
+            "proj": dense_init(dim, dim, **kw),
+            "ln2": layernorm_init(dim, device),
+            "ff1": dense_init(dim, 4 * dim, **kw),
+            "ff2": dense_init(4 * dim, dim, **kw),
+        }
+    layers["ln_f"] = layernorm_init(dim, device)
+    return layers
+
+
+def positional_embedding_init(max_len: int, dim: int, *,
+                              generator: torch.Generator,
+                              device: torch.device) -> Dict[str, Any]:
+    return {"pos": normal_init((max_len, dim), std=0.02,
+                               generator=generator, device=device)}
+
+
+def _mha(p: Params, x: torch.Tensor, num_heads: int,
+         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Self-attention over x (B, S, D); ``mask`` (B, S) marks the keys
+    that may be attended.  Masked logits become ``finfo.min``, not
+    ``-inf``, as in the JAX package (a row with no valid key is uniform,
+    not NaN)."""
+    B, S, D = x.shape
+    hd = D // num_heads
+    qkv = dense_apply(p["qkv"], x).reshape(B, S, 3, num_heads, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :], logits,
+                             torch.finfo(logits.dtype).min)
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
+    return dense_apply(p["proj"], out)
+
+
+def encoder_apply(p: Params, x: torch.Tensor, *, num_heads: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bidirectional pre-LayerNorm encoder over x (B, S, D); ``mask``
+    (B, S), True = a valid key.  GELU is JAX's tanh approximation."""
+    for i in range(num_layers_of(p)):
+        lp = p[f"layer_{i}"]
+        x = x + _mha(lp, layernorm_apply(lp["ln1"], x), num_heads, mask)
+        h = layernorm_apply(lp["ln2"], x)
+        x = x + dense_apply(lp["ff2"], gelu(dense_apply(lp["ff1"], h)))
+    return layernorm_apply(p["ln_f"], x)
 
 
 def decode_encoder_init(*, num_layers: int, dim: int, num_heads: int,

@@ -8,7 +8,7 @@ half of ``repro.recipes``), run by :mod:`repro_torch.run`."""
 from __future__ import annotations
 
 import ast
-from typing import Callable, Dict, Iterable, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, NamedTuple
 
 from . import hypergrid, seqs
 
@@ -34,17 +34,37 @@ class TrainRecipe(NamedTuple):
     make_config: Callable       # (env, num_envs, iterations) -> GFNConfig
     iterations: int
     num_envs: int
-    #: (env, env_params, policy, *, seed) -> evaluators; None: the
-    #: recipe's evals are not ported
-    make_evals: Optional[Callable] = None
-    eval_every: int = 0
+    #: (env, env_params, policy, *, seed, eval_batch) -> evaluators
+    make_evals: Callable
+    eval_every: int
 
 
 _TRAIN_RECIPES = {
     "bitseq_tb": TrainRecipe(
-        "bitseq_tb", "TB on 120-bit sequences (8-bit words), paper §B.2",
+        "bitseq_tb", "TB on 120-bit sequences (8-bit words), reward/log-prob "
+        "correlation on held-out modes (paper §B.2)",
         seqs.bitseq_env, seqs.bitseq_policy, seqs.bitseq_config,
-        iterations=50000, num_envs=16),
+        iterations=50000, num_envs=16, make_evals=seqs.bitseq_evals,
+        eval_every=1000),
+    "tfbind8_tb": TrainRecipe(
+        "tfbind8_tb", "TB on TFBind8 DNA sequences (4^8 states), TV vs "
+        "proxy-reward target (paper §B.2.1)",
+        seqs.tfbind8_env, seqs.tfbind8_policy, seqs.seq_tb_config,
+        iterations=100000, num_envs=16, make_evals=seqs.enumerable_evals,
+        eval_every=2000),
+    "qm9_tb": TrainRecipe(
+        "qm9_tb", "TB on QM9 small molecules (prepend/append, 11^5 "
+        "states), TV vs proxy-reward target (paper §B.2.1)",
+        seqs.qm9_env, seqs.qm9_policy, seqs.seq_tb_config,
+        iterations=100000, num_envs=16, make_evals=seqs.enumerable_evals,
+        eval_every=2000),
+    "amp_tb": TrainRecipe(
+        "amp_tb", "TB on antimicrobial-peptide design (variable length "
+        "<= 60, vocab 20), reward correlation and log Z bounds (paper "
+        "§B.2.2)",
+        seqs.amp_env, seqs.amp_policy, seqs.amp_config,
+        iterations=20000, num_envs=16, make_evals=seqs.amp_evals,
+        eval_every=500),
 }
 for _obj in ("tb", "db", "subtb"):
     _TRAIN_RECIPES[f"hypergrid_{_obj}"] = TrainRecipe(

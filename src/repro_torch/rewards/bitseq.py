@@ -34,6 +34,25 @@ def make_mode_set(seed: int, n: int, num_modes: int = 60) -> np.ndarray:
     return modes
 
 
+def make_test_set(seed: int, modes: np.ndarray) -> np.ndarray:
+    """The flip test set (paper §B.2): for every mode and every
+    0 <= i < n, the mode with i random bits flipped, drawn with
+    ``np.random.RandomState(seed + 1)`` (the JAX package's exact draws).
+    Returns (|M| * n, n) int32 bits."""
+    rng = np.random.RandomState(seed + 1)
+    num_modes, n = modes.shape
+    out = np.zeros((num_modes * n, n), np.int32)
+    row = 0
+    for mi in range(num_modes):
+        for i in range(n):
+            x = modes[mi].copy()
+            flip = rng.choice(n, size=i, replace=False)
+            x[flip] = 1 - x[flip]
+            out[row] = x
+            row += 1
+    return out
+
+
 def popcount(x: torch.Tensor, bits: int) -> torch.Tensor:
     c = torch.zeros_like(x)
     for i in range(bits):

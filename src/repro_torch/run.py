@@ -5,14 +5,17 @@
     python -m repro_torch.run --recipe hypergrid_subtb --iterations 3 \\
         --device cpu --set dim=2 --set side=4
     python -m repro_torch.run --recipe bitseq_tb --iterations 3 \\
-        --device cpu --set n=16 --set k=4
+        --device cpu --set n=16 --set k=4 --eval-every 1
+    python -m repro_torch.run --recipe amp_tb --iterations 3 \\
+        --device cpu --set max_len=10
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  Each iteration prints one row: loss, ``log_z``
-and ``mean_log_reward``.  Recipes with evals (the hypergrid ones) run them
-every ``--eval-every`` iterations (default: the recipe's; 0 turns them
-off) and print one ``eval`` row per evaluation at the end, as
-``python -m repro.run`` does.  ``bitseq_tb``'s evals are not ported yet.
+and ``mean_log_reward``.  Every recipe runs its evals every
+``--eval-every`` iterations (default: the recipe's; 0 turns them off;
+always at iteration 0), its sampling evals over ``--eval-batch`` samples
+(default 2,000), and prints one ``eval`` row per evaluation at the end, as
+``python -m repro.run`` does.
 """
 from __future__ import annotations
 
@@ -29,13 +32,14 @@ def run_recipe(name: str, *, seed: int = 0,
                iterations: Optional[int] = None,
                num_envs: Optional[int] = None,
                env: Optional[Dict] = None, device: DeviceLike = None,
-               eval_every: Optional[int] = None,
+               eval_every: Optional[int] = None, eval_batch: int = 2000,
                log: Callable[[str], None] = print) -> dict:
     """Train recipe ``name``.  ``env`` overrides go to the env factory; an
     env with a reward seed takes ``seed`` unless overridden, as in the JAX
     package; the policy is drawn from ``seed`` and iteration i's noise is
     keyed on ``(seed, i)``.  ``eval_every`` (default: the recipe's; 0 turns
-    evals off) runs the recipe's evals.  Returns ``{recipe, state, history, rows, device,
+    evals off) runs the recipe's evals, the sampling ones over
+    ``eval_batch`` samples.  Returns ``{recipe, state, history, rows, device,
     policy}``: each history row holds the iteration's metrics and
     ``wall_s``, the seconds since the loop started; ``rows`` are the eval
     rows, ``[{"step": it, metric: value, ...}]``."""
@@ -58,11 +62,8 @@ def run_recipe(name: str, *, seed: int = 0,
     every = recipe.eval_every if eval_every is None else int(eval_every)
     suite = None
     if every > 0:
-        if recipe.make_evals is None:
-            raise NotImplementedError(f"{name}'s evals are not ported yet; "
-                                      "pass eval_every=0")
         suite = EvalSuite(recipe.make_evals(environment, env_params, policy,
-                                            seed=seed),
+                                            seed=seed, eval_batch=eval_batch),
                           every=every, seed=seed)
     t0 = time.perf_counter()
 
@@ -101,6 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-every", type=int, default=None,
                     help="evaluate every N iterations (default: the "
                          "recipe's; 0 turns evals off)")
+    ap.add_argument("--eval-batch", type=int, default=2000,
+                    help="samples of the sampling evals (default 2000)")
     args = ap.parse_args(argv)
 
     from . import recipes
@@ -113,7 +116,8 @@ def main(argv=None) -> int:
     out = run_recipe(args.recipe, seed=args.seed,
                      iterations=args.iterations, num_envs=args.num_envs,
                      env=recipes.parse_overrides(args.overrides, ap.error),
-                     device=args.device, eval_every=args.eval_every)
+                     device=args.device, eval_every=args.eval_every,
+                     eval_batch=args.eval_batch)
     print(f"trained {args.recipe} for {len(out['history'])} iterations on "
           f"{out['device']}")
     return 0

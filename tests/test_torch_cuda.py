@@ -3,7 +3,8 @@ attention, trajectory log-prob forward and backward, SubTB loss forward
 and backward, flash attention, the RWKV6 scan on both of its routes)
 against their plain PyTorch versions, the serving engine on the card
 against ``forward_rollout``, two bitseq_tb training iterations, one
-full-size hypergrid_subtb iteration and Hymba's smoke config (scoring and
+full-size hypergrid_subtb iteration, one iteration of each sequence-design
+recipe (tfbind8_tb, qm9_tb, amp_tb) and Hymba's smoke config (scoring and
 decode) on the card against the CPU.  Imports no JAX, so it runs on a
 machine with a GPU and no JAX:
 
@@ -69,7 +70,9 @@ def _step_inputs(B, L, C, D, H, F, A, seed, device):
 
 @pytest.mark.parametrize("shape", [(64, 3, 16, 64, 8, 256, 3840),
                                    (5, 2, 9, 48, 6, 80, 203),
-                                   (1, 1, 7, 16, 2, 40, 33)])
+                                   (1, 1, 7, 16, 2, 40, 33),
+                                   (256, 2, 9, 64, 8, 256, 4),
+                                   (128, 3, 61, 64, 8, 256, 21)])
 def test_kernel_matches_plain_version(cuda, shape):
     B, L, C, D, H, F, A = shape
     w, x, k, v, lengths, slot, gumbel, mask, w_out, b_out, temp = \
@@ -161,6 +164,9 @@ def _attn_inputs(B, S, H, hd, kv_valid, device, seed=0):
     (4, 100, 8, 32, [100, 0, 57, 3]),
     (4, 100, 8, 64, [100, 0, 57, 3]),
     (3, 9, 5, 6, [9, 4, 0]),                     # hd not a multiple of 4
+    (16, 9, 8, 8, [1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 9, 5, 5, 1, 3]),
+    (16, 61, 8, 8, [1, 2, 6, 11, 61, 60, 33, 7, 61, 2, 45, 19, 61, 30, 3,
+                    58]),                        # tfbind8, ragged amp
 ])
 def test_decode_attention_kernel_matches_plain_version(cuda, B, S, H, hd,
                                                        kv_valid):
@@ -198,7 +204,9 @@ def _traj_inputs(B, T, A, device, seed=0):
 
 
 @pytest.mark.parametrize("B,T,A", [(16, 15, 3840), (16, 15, 15),
-                                   (3, 50, 203), (4, 5, 8192)])
+                                   (3, 50, 203), (4, 5, 8192), (16, 8, 4),
+                                   (16, 8, 1), (16, 5, 22), (128, 61, 21),
+                                   (256, 8, 4)])
 def test_traj_logprob_kernels_match_plain_version(cuda, B, T, A):
     """A = 8192 takes two chunks of the 16-byte path (the backward reads
     each chunk twice)."""
@@ -332,7 +340,7 @@ def test_training_on_cuda_launches_the_kernels(cuda):
               ops.traj_logprob_backward)
     before = [c.launches for c in counts]
     out = run_recipe("bitseq_tb", iterations=2, env={"n": 16, "k": 4},
-                     device=cuda, log=lambda s: None)
+                     device=cuda, eval_every=0, log=lambda s: None)
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counts, before)] == [24, 4, 2]
     assert all(math.isfinite(r["loss"]) for r in out["history"])
@@ -479,6 +487,48 @@ def test_hypergrid_subtb_iteration_on_cuda(cuda):
     assert math.isfinite(out["history"][0]["loss"])
     assert [r["step"] for r in out["rows"]] == [0]
     assert all(math.isfinite(v) for v in out["rows"][0].values())
+
+
+@pytest.mark.parametrize("recipe,env,per_iteration", [
+    ("tfbind8_tb", {}, [16, 2, 1]),
+    ("qm9_tb", {}, [0, 2, 1]),
+    ("amp_tb", {}, [183, 0, 0]),
+])
+def test_sequence_recipe_iteration_on_cuda(cuda, recipe, env, per_iteration):
+    """One iteration of each sequence-design recipe at full width on the
+    card: its decode_attention, traj_logprob forward and backward launches
+    (AMP: 61 steps x 3 layers of cached queries, its stop-action loss
+    takes no traj_logprob), then the same iteration on the CPU from the
+    same parameters and noise: actions equal, loss to 1e-5 relative, each
+    gradient to 1e-4 of its largest entry."""
+    from repro_torch.algo import TrainLoop
+    counts = (ops.decode_attention, ops.traj_logprob,
+              ops.traj_logprob_backward)
+    rec = recipes.get_train(recipe)
+    environment = rec.make_env(**env)
+    cfg = rec.make_config(environment, 16, rec.iterations)
+    pol_g = rec.make_policy(environment, seed=1, device=cuda,
+                            requires_grad=True)
+    pol_c = rec.make_policy(environment, seed=1, device="cpu",
+                            requires_grad=True)
+    loop_g = TrainLoop(environment, environment.init(cuda), pol_g, cfg)
+    loop_c = TrainLoop(environment, environment.init("cpu"), pol_c, cfg)
+    st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+    before = [c.launches for c in counts]
+    batch_g = loop_g.sample(st_g)
+    loss_g = float(loop_g.loss_and_grads(batch_g))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == per_iteration
+    batch_c = loop_c.sample(st_c)
+    assert torch.equal(batch_g.actions.cpu(), batch_c.actions)
+    cpu_batch = type(batch_g)(**{f.name: getattr(batch_g, f.name).cpu()
+                                 for f in dataclasses.fields(batch_g)})
+    loss_c = float(loop_c.loss_and_grads(cpu_batch))
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
+    for k, p in pol_g.params.flat().items():
+        scale = float(grads_c[k].abs().max())
+        assert float((p.grad.cpu() - grads_c[k]).abs().max()) <= 1e-4 * scale
 
 
 # -- flash_attention and rwkv6_scan ------------------------------------------------

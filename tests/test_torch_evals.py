@@ -106,9 +106,21 @@ def test_hypergrid_dp_matches_jax(dim, side):
 
 
 def test_exact_dp_refuses_bitseq_by_name():
+    """The bitseq DP is ported (``make_bitseq_dp``; held against JAX's in
+    ``tests/test_torch_seqs.py``): ``make_exact_dp`` no longer refuses
+    bitseq, and refuses by name only an env it cannot enumerate."""
     env = BitSeqEnvironment(n=8, k=4)
-    with pytest.raises(NotImplementedError, match="make_bitseq_dp"):
-        make_exact_dp(env, env.init(CPU), None)
+    policy = MLPPolicy(env.L * (env.m + 1), env.action_dim, hidden=(8,),
+                       device=CPU)
+    policy.apply = lambda obs: {"logits": torch.zeros(
+        obs.shape[0], env.action_dim)}
+    dist = make_exact_dp(env, env.init(CPU), policy)()
+    assert dist.shape == (env.m ** env.L,)
+    # the uniform policy: every word sequence has probability m^-L
+    np.testing.assert_allclose(dist.numpy(), 1.0 / env.m ** env.L,
+                               rtol=1e-6)
+    with pytest.raises(TypeError, match="BitSeq"):
+        make_exact_dp(object(), None, policy)
 
 
 @pytest.mark.parametrize("case", ["plain", "out_of_range", "empty",
