@@ -51,9 +51,11 @@ printing one JSON line:
              tops;
 5. train   - ``bitseq_tb`` training at full width (16 envs) for 50
              iterations through ``repro_torch.run.run_recipe`` (evals off:
-             seqs_evals times them), the launches of every kernel counted
-             (45 decode_attention, 2 traj_logprob forward and 1 backward
-             per iteration);
+             seqs_evals times them), which runs iteration 0 eagerly and
+             replays its CUDA graph for the rest: the launches of every
+             kernel counted, the eager ones by the wrappers and the
+             replays' from the capture (45 decode_attention, 2
+             traj_logprob forward and 1 backward per iteration);
    train_hold - one iteration on the card and on the CPU (plain versions)
              from the same parameters and noise: actions, loss, gradients;
    train_profile - one iteration's device idle share, device and host tops;
@@ -61,24 +63,29 @@ printing one JSON line:
              before it, the fused step's weight cache (filled before them)
              holds the live weights, and the fused step equals its plain
              chain;
+   replayed_fused_step - the same after replays of a captured iteration;
+             a bare replay (the loop's skipped) must leave the cache
+             stale, the fault the loop's replay repairs;
 6. hypergrid_train - ``hypergrid_subtb`` at full size (4x8^4, 16 envs, MLP
-             2x256) for 50 iterations through ``run_recipe``, with its
-             evals at iterations 0 and 49; launches read at every
-             iteration (1 subtb_loss forward and 1 backward each, 2
+             2x256) for 50 iterations through ``run_recipe`` (captured, as
+             train), with its evals at iterations 0 and 49; launches read
+             at every iteration (1 subtb_loss forward and 1 backward each, 2
              traj_logprob forwards at the eval iterations, nothing else);
    hypergrid_hold - one iteration on the card and on the CPU, as
              train_hold;
    hypergrid_profile - one iteration's device idle share and tops;
    hypergrid_converge - SubTB on the 2x8 grid for 2,500 iterations
-             (``tests/test_training.py:19-43``): empirical TV of 4,000
+             (``tests/test_training.py:19-43``), through the captured
+             run: empirical TV of 4,000
              samples under 0.12, with the exact-DP TV beside it; and the
              exact DP of the paper's 20^4 grid on the card against the
              CPU's;
 7. seqs_train - ``tfbind8_tb`` and ``qm9_tb`` (50 iterations) and
-             ``amp_tb`` (10) at full width through ``run_recipe``, evals
-             off; it/s, samples/s and the launches of every iteration held
-             exactly (decode_attention / traj_logprob forward / backward:
-             tfbind8 16 / 2 / 1, qm9 0 / 2 / 1, amp 183 / 0 / 0);
+             ``amp_tb`` (10) at full width through ``run_recipe``
+             (captured, as train), evals off; it/s, samples/s and the
+             launches of every iteration held exactly (decode_attention
+             / traj_logprob forward / backward: tfbind8 16 / 2 / 1, qm9
+             0 / 2 / 1, amp 183 / 0 / 0);
    seqs_hold - one iteration of each on the card and on the CPU, as
              train_hold;
    seqs_profile - that iteration's device idle share and tops;
@@ -92,7 +99,16 @@ printing one JSON line:
              (serve, train, hypergrid_train, seqs_train, seqs_evals)
              launched decode_step, decode_attention or traj_logprob has a
              row of phase 3, held against the plain version;
-8. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
+8. graph_train - each of the seven on-policy recipes (bitseq_tb,
+             tfbind8_tb, qm9_tb, amp_tb, hypergrid_tb / _db / _subtb) at
+             full width: 3 iterations through a captured iteration held
+             to eager ones (iteration 0's actions bitwise; losses and
+             parameters within two eager runs' own difference, bitwise
+             where those are), one replay's launches equal to one eager
+             iteration's, then eager and captured it/s over the same
+             iterations, the warm-up and capture seconds;
+   graph_profile - one replay's device idle share, kernels and tops;
+9. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
              full width and depth (32 layers, d_model 1600, bf16, random
              weights from a seeded generator on the card): batch 8, 32
              prompt tokens, 32 generated; tokens/s, steps/s, exactly 32
@@ -188,6 +204,20 @@ SEQ_POLICIES = {"tfbind8_tb": "decode arch, 2 layers, dim 64, 8 heads",
                 "qm9_tb": "pooled arch, 2 layers, dim 64, 8 heads",
                 "amp_tb": "decode arch, 3 layers, dim 64, 8 heads, "
                           "log Z from 150"}
+#: graph_train: every on-policy recipe at full width, with the launches of
+#: one iteration (eager, and in one replay of its capture alike); the
+#: kernels left out launch 0 times
+GRAPH_LAUNCHES_PER_ITER = {
+    "bitseq_tb": {"decode_attention": 45, "traj_logprob_fwd": 2,
+                  "traj_logprob_bwd": 1},
+    **SEQ_LAUNCHES_PER_ITER,
+    "hypergrid_tb": {}, "hypergrid_db": {},
+    "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1}}
+#: graph_train: iterations of each eager and captured run held against each
+#: other, and the iterations each of the two is timed over after them
+GRAPH_HOLD_ITERS = 3
+GRAPH_RATE_ITERS = {"amp_tb": 10}
+GRAPH_RATE_ITERS_DEFAULT = 40
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
@@ -271,6 +301,15 @@ def forced_scan_route(route: str):
 
 def read_launches() -> dict:
     return {k: w.launches for k, w in wrappers().items()}
+
+
+def run_launches(eager: dict, captured) -> dict:
+    """A training run's launches on the card: those the wrappers counted
+    (the eager warm-up iteration, evals) and one replay's (what the capture
+    recorded) times the replays.  A replay runs no Python, so no wrapper
+    counts its launches."""
+    return {k: eager[k] + captured.launches[k] * captured.replays
+            for k in eager}
 
 
 #: the shapes the main path handed each kernel, recorded while
@@ -1361,12 +1400,18 @@ def train_phase(device) -> dict:
                      device=device, eval_every=0, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    eager = read_launches()
+    captured = out["loop"].captured
+    launches = run_launches(eager, captured)
     hist = out["history"]
     want = {k: n * TRAIN_ITERS for k, n in TRAIN_LAUNCHES_PER_ITER.items()}
-    if launches != want:
-        raise AssertionError(f"training launched {launches}, expected "
-                             f"{want}")
+    # iteration 0 eagerly, the rest replays of its capture
+    if launches != want or eager != TRAIN_LAUNCHES_PER_ITER \
+            or captured.launches != TRAIN_LAUNCHES_PER_ITER \
+            or captured.replays != TRAIN_ITERS - 1:
+        raise AssertionError(f"training launched {launches} (eager "
+                             f"{eager}, {captured.replays} replays of "
+                             f"{captured.launches}), expected {want}")
     if len(hist) != TRAIN_ITERS or not all(
             math.isfinite(r[k]) for r in hist
             for k in ("loss", "log_z", "mean_log_reward")):
@@ -1386,7 +1431,9 @@ def train_phase(device) -> dict:
                                       "mean_log_reward")},
          last={k: last[k] for k in ("it", "loss", "log_z",
                                     "mean_log_reward")},
-         launches=launches,
+         launches=launches, graph_launches=captured.launches,
+         replays=captured.replays,
+         capture_seconds=captured.capture_seconds,
          launches_per_iteration={k: v / TRAIN_ITERS
                                  for k, v in launches.items()})
     return launches
@@ -1559,7 +1606,12 @@ def hypergrid_train_phase(device) -> dict:
                      log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    captured = out["loop"].captured
+    launches = run_launches(read_launches(), captured)
+    # iterations 1.. replay the capture of iteration 1 (0 runs eagerly)
+    per_it = [got if it == 0 else {k: v + captured.launches[k]
+                                   for k, v in got.items()}
+              for it, got in enumerate(per_it)]
     hist, rows = out["history"], out["rows"]
     eval_its = list(range(0, HYPERGRID_ITERS, HYPERGRID_EVAL_EVERY))
     for it, got in enumerate(per_it):
@@ -1592,7 +1644,9 @@ def hypergrid_train_phase(device) -> dict:
          first={k: hist[0][k] for k in ("loss", "log_z", "mean_log_reward")},
          last={k: hist[-1][k] for k in ("loss", "log_z",
                                         "mean_log_reward")},
-         evals=rows, launches=launches,
+         evals=rows, launches=launches, graph_launches=captured.launches,
+         replays=captured.replays,
+         capture_seconds=captured.capture_seconds,
          launches_per_iteration={k: v / HYPERGRID_ITERS
                                  for k, v in launches.items()})
     return launches
@@ -1626,12 +1680,13 @@ def hypergrid_converge(device) -> None:
                     exploration_anneal_steps=CONVERGE_ITERS // 2)
     reset_launches()
     t0 = time.perf_counter()
-    _, hist = TrainLoop(env, params, policy, cfg).run(
+    loop = TrainLoop(env, params, policy, cfg)
+    _, hist = loop.run(
         1, CONVERGE_ITERS, callback=lambda it, st, m, b: float(m["loss"])
         if it % 500 == 0 or it == CONVERGE_ITERS - 1 else None)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = run_launches(read_launches(), loop.captured)
     true = env.true_distribution(params)
     batch = forward_rollout(2, env, params, policy, 4000)
     emp = empirical_distribution(terminal_index_fn(env)(batch),
@@ -1660,6 +1715,7 @@ def hypergrid_converge(device) -> None:
          sample_tv_4000=tv, bar=CONVERGE_TV, exact_tv=exact["exact_tv"],
          exact_jsd=exact["exact_jsd"],
          launches={k: v for k, v in launches.items() if v},
+         replays=loop.captured.replays,
          dp_20x4={"states": env20.num_terminal_states,
                   "cuda_seconds": dp_s, "max_abs_err_vs_cpu": dp_err,
                   "tv_vs_cpu": dp_tv, "sum": float(dp_g.sum())})
@@ -1672,7 +1728,8 @@ def hypergrid_converge(device) -> None:
             f"{launches}, 20^4 DP error {dp_err}, TV to the CPU {dp_tv}")
 
 
-def trained_fused_step(loop, state, before: dict, device) -> None:
+def trained_fused_step(loop, state, before: dict, device,
+                       phase: str = "trained_fused_step", **fields) -> None:
     """After the optimizer steps of train_hold and train_profile (torch's
     Adam on the card), the fused step's weight cache, filled before them,
     must hold the live weights, and the fused step (the serving kernel)
@@ -1708,15 +1765,49 @@ def trained_fused_step(loop, state, before: dict, device) -> None:
     torch.cuda.synchronize()
     same = bool(torch.equal(a_f.long(), a_p))
     err = float((lp_f - lp_p).abs().max())
-    emit("trained_fused_step", optimizer=type(optimizer).__name__,
+    emit(phase, optimizer=type(optimizer).__name__,
          foreach=optimizer.defaults.get("foreach"),
-         fused=optimizer.defaults.get("fused"), weights_moved=moved,
-         cache_equals_live_weights=fresh,
-         actions_equal=same, log_pf_err=err)
+         fused=optimizer.defaults.get("fused"),
+         capturable=optimizer.defaults.get("capturable"),
+         weights_moved=moved, cache_equals_live_weights=fresh,
+         actions_equal=same, log_pf_err=err, **fields)
     if not (moved and fresh and same and err <= TOL):
         raise AssertionError(
-            f"trained fused step: weights moved {moved}, cache equals live "
+            f"{phase}: weights moved {moved}, cache equals live "
             f"weights {fresh}, actions equal {same}, log_pf error {err}")
+
+
+def replayed_fused_step(loop, state, device) -> None:
+    """The fused step after replays of a captured iteration.  A replay's
+    Adam step writes the parameters without moving their version
+    counters, so a bare replay leaves the fused step's weight cache
+    (filled just before it) stale: shown here, and required, as the fault
+    the loop's replay repairs.  Then two replays through the loop, which
+    drop the cache after each, and ``trained_fused_step``'s checks."""
+    from repro_torch.nn.transformer import decoder_stacked_weights
+
+    policy = loop.policy
+    captured = loop.capture(state)
+    before = {k: v.clone() for k, v in
+              policy.kernel_weights()["stacked"].items()}
+    captured.graph.replay()                 # the loop's replay skipped
+    torch.cuda.synchronize()
+    live = decoder_stacked_weights(policy.params["decoder"])
+    cached = policy.kernel_weights()["stacked"]
+    # the stacked matrices are copies (ln_f and q0 alias the parameters)
+    stale = all(torch.equal(cached[k], before[k])
+                and not torch.equal(cached[k], live[k])
+                for k in ("q_w", "ff1_w", "ff2_w"))
+    if not stale:
+        raise AssertionError("a bare replay did not leave the fused "
+                             "step's weight cache stale; the check that "
+                             "the loop repairs it cannot fail")
+    captured()
+    captured()
+    trained_fused_step(loop, state, before, device,
+                       phase="replayed_fused_step",
+                       stale_after_bare_replay=stale,
+                       replays=captured.replays + 1)
 
 
 # -- phase 7: the sequence-design recipes -------------------------------------
@@ -1746,7 +1837,11 @@ def seqs_train_phase(device) -> dict:
                          eval_every=0, log=log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        captured = out["loop"].captured
+        launches = run_launches(read_launches(), captured)
+        per_it = [got if it == 0 else {k: v + captured.launches[k]
+                                       for k, v in got.items()}
+                  for it, got in enumerate(per_it)]
         want = _only(launches, **SEQ_LAUNCHES_PER_ITER[name])
         bad = [(it, got) for it, got in enumerate(per_it) if got != want]
         if len(per_it) != iters or bad:
@@ -1768,7 +1863,9 @@ def seqs_train_phase(device) -> dict:
                                             "mean_log_reward")},
              last={k: hist[-1][k] for k in ("loss", "log_z",
                                             "mean_log_reward")},
-             launches=launches, launches_per_iteration=want)
+             launches=launches, launches_per_iteration=want,
+             graph_launches=captured.launches, replays=captured.replays,
+             capture_seconds=captured.capture_seconds)
         for k, v in launches.items():
             total[k] += v
     return total
@@ -1876,7 +1973,131 @@ def amp_kv_valid(loop, state) -> None:
                              f"{ragged}")
 
 
-# -- phase 8: Hymba-1.5B serving: decode and prompt scoring -----------------------
+# -- phase 8: captured training iterations -------------------------------------
+
+def _hold_run(loop, state, captured: bool):
+    """GRAPH_HOLD_ITERS iterations of a fresh loop, eagerly or through a
+    captured iteration (iteration 0 eager, then replays): every
+    iteration's actions and loss, and the parameters after them."""
+    actions, losses, graph = [], [], None
+    for it in range(GRAPH_HOLD_ITERS):
+        if not captured:
+            _, metrics, batch = loop.step(state)
+        elif graph is None:
+            graph = loop.capture(state)
+            metrics, batch = graph.warmup
+        else:
+            metrics, batch = graph()
+        actions.append(batch.actions.clone())
+        losses.append(metrics["loss"].clone())
+    torch.cuda.synchronize()
+    return {"actions": actions, "loss": torch.stack(losses),
+            "params": {k: v.detach().clone()
+                       for k, v in loop.policy.params.flat().items()},
+            "graph": graph}
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max([float((a["loss"] - b["loss"]).abs().max())]
+               + [float((a["params"][k] - b["params"][k]).abs().max())
+                  for k in a["params"]])
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return torch.equal(a["loss"], b["loss"]) and all(
+        torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+
+
+def graph_train_phase(device) -> None:
+    """Each on-policy recipe at full width (GRAPH_LAUNCHES_PER_ITER), from
+    one fresh state (the recipe's policy drawn from seed 1, loop seed 5):
+    two eager runs of GRAPH_HOLD_ITERS iterations (``loop.step``) measure
+    how closely the card repeats itself, and a captured run (iteration 0
+    eager, then replays) is held to that: iteration 0's actions bitwise,
+    the losses and parameters within the eager runs' own difference
+    (bitwise where they are bitwise).  One iteration's launches, eager and
+    in one replay, equal the recipe's.  Then both runs go on for the same
+    iterations, timed (it/s captured against eager), and one replay is
+    profiled (graph_profile: the device's idle share and the kernels of
+    an iteration)."""
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+
+    smi = nvidia_smi()
+    for name, per_iter in GRAPH_LAUNCHES_PER_ITER.items():
+        rec = recipes.get_train(name)
+        env = rec.make_env()
+        env_params = env.init(device)
+        cfg = rec.make_config(env, 16, rec.iterations)
+
+        def fresh():
+            policy = rec.make_policy(env, seed=1, device=device,
+                                     requires_grad=True)
+            loop = TrainLoop(env, env_params, policy, cfg)
+            return loop, loop.init(seed=5)
+
+        loop_a, state_a = fresh()
+        reset_launches()
+        a = _hold_run(loop_a, state_a, captured=False)
+        eager = read_launches()
+        b = _hold_run(*fresh(), captured=False)
+        loop_c, state_c = fresh()
+        reset_launches()
+        c = _hold_run(loop_c, state_c, captured=True)
+        warm = read_launches()
+        graph = c["graph"]
+        want = _only(eager, **per_iter)
+        tol = _max_abs(a, b)
+        eager_bitwise = _bitwise(a, b)
+        err = _max_abs(c, a)
+        actions0 = torch.equal(c["actions"][0], a["actions"][0])
+        actions_all = all(torch.equal(x, y) for x, y in
+                          zip(c["actions"], a["actions"]))
+
+        iters = GRAPH_RATE_ITERS.get(name, GRAPH_RATE_ITERS_DEFAULT)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loop_a.step(state_a)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            graph()
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        emit("graph_train", nvidia_smi=smi, recipe=name, num_envs=16,
+             hold_iterations=GRAPH_HOLD_ITERS,
+             eager_vs_eager_max_abs=tol, eager_runs_bitwise=eager_bitwise,
+             captured_vs_eager_max_abs=err,
+             captured_bitwise=_bitwise(c, a),
+             actions_equal_iteration_0=actions0,
+             actions_equal_every_iteration=actions_all,
+             losses=c["loss"].tolist(),
+             launches_per_iteration={k: v // GRAPH_HOLD_ITERS
+                                     for k, v in eager.items()},
+             graph_launches=graph.launches,
+             warmup_seconds=graph.warmup_seconds,
+             capture_seconds=graph.capture_seconds,
+             timed_iterations=iters,
+             eager_iterations_per_s=iters / eager_s,
+             captured_iterations_per_s=iters / graph_s,
+             speedup=eager_s / graph_s)
+        want_hold = {k: v * GRAPH_HOLD_ITERS for k, v in want.items()}
+        if not (actions0 and err <= tol and (_bitwise(c, a)
+                                              or not eager_bitwise)):
+            raise AssertionError(
+                f"graph_train {name}: captured run {err} from eager (eager "
+                f"runs {tol} apart), iteration 0's actions equal {actions0}")
+        if eager != want_hold or graph.launches != want or warm != want:
+            raise AssertionError(
+                f"graph_train {name}: eager launched {eager} in "
+                f"{GRAPH_HOLD_ITERS} iterations, the warm-up {warm}, one "
+                f"replay {graph.launches}; each iteration should {want}")
+        profile_step("graph_profile", graph, recipe=name,
+                     graph_launches=graph.launches)
+
+
+# -- phase 9: Hymba-1.5B serving: decode and prompt scoring -----------------------
 
 def hymba_config(**changes):
     import dataclasses
@@ -2370,6 +2591,7 @@ def main() -> int:
     loop, state, before = train_hold_phase(device)
     train_profile(loop, state)
     trained_fused_step(loop, state, before, device)
+    replayed_fused_step(loop, state, device)
     with recording_path_shapes():
         hypergrid = hypergrid_train_phase(device)
     _, loop, state = hold_iteration("hypergrid_hold", "hypergrid_subtb",
@@ -2382,6 +2604,7 @@ def main() -> int:
     with recording_path_shapes():
         seqs_evals = seqs_evals_phase(device)
     check_path_shapes(rows, attn, traj)
+    graph_train_phase(device)
     hymba = hymba_config()
     params = hymba_params(hymba, device)
     decode, decode_scan = lm_decode_phase(hymba, params, device)

@@ -1,22 +1,110 @@
 """The on-policy training loop (port of ``repro.algo.loop.TrainLoop``,
-python mode, single-device plan).
+single-device plan).
 
 One iteration is the JAX step's ``core`` (``repro/algo/loop.py:128-151``):
 sample a batch, compute the objective's additive ``(num, den)`` parts,
 differentiate ``num``, divide the gradients by ``max(den, 1)``, take the
 Adam step.  Parameters and optimizer state update in place; the loop's
-carry is a :class:`repro_torch.core.types.TrainState`.
+carry is a :class:`repro_torch.core.types.TrainState`, whose iteration
+counter (and the noise seed and epsilon read from it) lives on the device.
+
+How the loop is driven, as JAX's ``mode``:
+
+- ``mode="python"``: one iteration at a time, with the eval suite and a
+  callback between iterations (JAX jits the step and calls host code
+  between calls).
+- ``mode="scan"``: the whole run, with the metrics of every iteration
+  written into device buffers and read once, at the end (JAX's
+  ``lax.scan`` over the step).
+
+On CUDA both modes run the run's first iteration eagerly, capture the
+next in a CUDA graph (:class:`CapturedIteration`, the counterpart of
+JAX's jitted step) and replay it for every iteration after: the
+iteration's thousands of kernel launches go out without the Python host.
+On the CPU both run :meth:`TrainLoop.step`'s body in a loop; it is the
+same Python function the graph captures.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.rollout import RolloutBatch
 from ..core.trainer import GFNConfig, make_loss_parts_fn, make_optimizer
 from ..core.types import TrainState, train_seed
+from ..kernels import ops
 from .samplers import OnPolicySampler
+
+#: the metrics of an iteration, in the order of JAX's metrics dict
+METRICS = ("loss", "log_z", "mean_log_reward")
+
+
+class ScanLog(NamedTuple):
+    """``mode="scan"``'s per-iteration outputs on the device: ``metrics``
+    name -> (num_iterations,) and ``log_rewards`` (num_iterations, B); the
+    iteration at counter i writes row i."""
+    metrics: Dict[str, torch.Tensor]
+    log_rewards: torch.Tensor
+
+
+class CapturedIteration:
+    """One training iteration captured in a CUDA graph (the port's
+    counterpart of JAX's jitted step).
+
+    Building it runs the iteration the state is at eagerly, on a side
+    stream (the warm-up that capture needs: cuBLAS workspaces, the
+    optimizer's state, every lazily made buffer), under
+    ``torch.cuda.set_sync_debug_mode("error")`` so that any host sync in
+    the body raises there, with its op named.  Its outputs are
+    :attr:`warmup`.  Then it captures the next iteration on the same
+    stream; the capture runs nothing.  Each call replays the graph: one
+    iteration, on the static input and output buffers the capture made
+    (the state's counter, parameters, gradients and optimizer state are
+    updated in place), and returns the static ``(metrics, batch)``, which
+    the next replay overwrites.  A failure to capture or replay raises;
+    nothing falls back to the eager loop.
+
+    :attr:`launches` holds each kernel wrapper's launches in one replay,
+    :attr:`replays` the replays so far, :attr:`warmup_seconds` and
+    :attr:`capture_seconds` the one-off costs."""
+
+    def __init__(self, loop: "TrainLoop", state: TrainState,
+                 log: Optional[ScanLog] = None):
+        dev = state.counter.device
+        ops.device_error_counts(dev)          # outlives the graph
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.warmup = loop.iteration(state, log)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        ops.check_device_errors(dev)
+        self.warmup_seconds = time.perf_counter() - t0
+        self.graph = torch.cuda.CUDAGraph()
+        before = ops.captured_launches()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.outputs = loop.iteration(state, log)
+        self.capture_seconds = time.perf_counter() - t0
+        after = ops.captured_launches()
+        self.launches = {k: after[k] - before[k] for k in after}
+        self.replays = 0
+        self._weights_replaced = getattr(loop.policy, "weights_replaced",
+                                         None)
+
+    def __call__(self) -> Tuple[Dict[str, torch.Tensor], RolloutBatch]:
+        self.graph.replay()
+        self.replays += 1
+        if self._weights_replaced is not None:
+            self._weights_replaced()
+        return self.outputs
 
 
 class TrainLoop:
@@ -26,7 +114,9 @@ class TrainLoop:
     :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
     grad; ``sampler`` defaults to
     :class:`OnPolicySampler`.  Iteration ``i`` of a run seeded ``seed``
-    draws its rollout noise from ``train_seed(seed, i)``."""
+    draws its rollout noise from ``train_seed(seed, i)``.  After
+    :meth:`run` on CUDA, :attr:`captured` is the run's
+    :class:`CapturedIteration` (None before, and on the CPU)."""
 
     def __init__(self, env, env_params, policy, cfg: GFNConfig,
                  sampler: Optional[OnPolicySampler] = None):
@@ -38,22 +128,29 @@ class TrainLoop:
         self.sampler = sampler or OnPolicySampler()
         self._sample = self.sampler.build(env, env_params, policy, cfg)
         self.parts_fn = make_loss_parts_fn(env, policy, cfg)
+        self.captured: Optional[CapturedIteration] = None
 
     def init(self, seed: int) -> TrainState:
+        train_seed(seed, 0)                   # the seed's range check
         params = self.policy.params
+        dev = next(params.parameters()).device
         return TrainState(params=params,
                           optimizer=make_optimizer(self.cfg, params),
-                          step=0, seed=int(seed))
+                          seed=int(seed),
+                          counter=torch.zeros((), dtype=torch.int64,
+                                              device=dev))
 
     def sample(self, state: TrainState) -> RolloutBatch:
         """The batch of the iteration ``state`` is at."""
-        return self._sample(train_seed(state.seed, state.step), state.step)
+        return self._sample(state.noise_seed(), state.counter)
 
     def loss_and_grads(self, batch: RolloutBatch) -> torch.Tensor:
         """Set every parameter's ``.grad`` to the gradient of the loss on
         ``batch`` and return the loss, ``num / max(den, 1)``.  A parameter
         the loss does not reach gets a zero gradient, so Adam moves it on
-        its momentum, as the JAX optimizer does."""
+        its momentum, as the JAX optimizer does.  The gradients are made
+        anew at each call; under capture that makes them the graph's
+        static buffers, which every replay rewrites."""
         params = list(self.policy.params.parameters())
         for p in params:
             p.grad = None
@@ -67,35 +164,97 @@ class TrainLoop:
                 p.grad.div_(den)
         return num.detach() / den
 
-    def step(self, state: TrainState
-             ) -> Tuple[TrainState, Dict[str, torch.Tensor], RolloutBatch]:
-        """One iteration.  Returns ``(state, metrics, batch)``; metrics are
+    def iteration(self, state: TrainState, log: Optional[ScanLog] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], RolloutBatch]:
+        """One iteration on the state's tensors, with no host read: the
+        body that :meth:`step` runs and that :class:`CapturedIteration`
+        captures.  Writes its metrics into ``log``'s row ``counter``, then
+        advances the counter.  Returns ``(metrics, batch)``; metrics are
         0-dim tensors on the device (``loss``, ``log_z`` after the update,
-        ``mean_log_reward``), read without a host sync."""
+        ``mean_log_reward``)."""
         batch = self.sample(state)
         loss = self.loss_and_grads(batch)
         state.optimizer.step()
-        state.step += 1
         metrics = {"loss": loss,
                    "log_z": self.policy.params["log_z"].detach().clone(),
                    "mean_log_reward": batch.log_reward.mean()}
+        if log is not None:
+            row = state.counter.view(1)
+            for k, buf in log.metrics.items():
+                buf.index_copy_(0, row, metrics[k].view(1))
+            log.log_rewards.index_copy_(0, row, batch.log_reward[None])
+        state.counter.add_(1)
+        return metrics, batch
+
+    def step(self, state: TrainState
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor], RolloutBatch]:
+        """One eager iteration (the reference on the card).  Returns
+        ``(state, metrics, batch)``; metrics read without a host sync."""
+        metrics, batch = self.iteration(state)
         return state, metrics, batch
 
-    def run(self, seed: int, num_iterations: int, *,
+    def capture(self, state: TrainState,
+                log: Optional[ScanLog] = None) -> CapturedIteration:
+        """Run the iteration ``state`` is at eagerly and capture the next
+        in a CUDA graph (:class:`CapturedIteration`); CUDA only."""
+        if not state.counter.is_cuda:
+            raise ValueError("TrainLoop.capture needs a CUDA device; the "
+                             "CPU runs step()")
+        return CapturedIteration(self, state, log)
+
+    def run(self, seed: int, num_iterations: int, *, mode: str = "python",
             callback: Optional[Callable] = None, suite=None):
-        """Run ``num_iterations`` iterations from a fresh state.  Returns
-        ``(state, history)``; history collects ``callback(it, state,
-        metrics, batch)`` after every iteration.  An
-        :class:`repro_torch.evals.EvalSuite` records its rows after the
-        iterations ``it`` with ``it % suite.every == 0`` (``suite.rows()``);
-        it reads the parameters and draws noise of its own, so training
-        runs the same with and without it."""
+        """Run ``num_iterations`` iterations from a fresh state.
+
+        - ``mode="python"``: returns ``(state, history)``; history
+          collects ``callback(it, state, metrics, batch)`` after every
+          iteration.  On CUDA, ``metrics`` and ``batch`` are the graph's
+          static outputs from iteration 1 on: the next replay overwrites
+          them, so a callback copies what it keeps.
+        - ``mode="scan"``: returns ``(state, (metrics, log_rewards))``,
+          stacked over time as JAX's (``metrics`` name -> (n,),
+          ``log_rewards`` (n, B)), on the device; a callback raises, as in
+          JAX.
+
+        An :class:`repro_torch.evals.EvalSuite` records its rows after the
+        iterations ``it`` with ``it % suite.every == 0`` (``suite.rows()``)
+        in both modes, between replays; it reads the parameters and draws
+        noise of its own, so training runs the same with and without it.
+        On CUDA the first iteration runs eagerly and the rest replay one
+        captured iteration (:attr:`captured`); a SubTB length out of range
+        inside the graph raises after the run."""
+        if mode not in ("python", "scan"):
+            raise ValueError(f"unknown mode {mode!r}; expected 'python' | "
+                             "'scan'")
+        if callback is not None and mode != "python":
+            raise ValueError(
+                f"callback is only supported in mode='python' (got "
+                f"mode={mode!r}); compiled modes cannot call host code")
         state = self.init(seed)
+        dev = state.counter.device
+        log = None
+        if mode == "scan":
+            f32 = dict(dtype=torch.float32, device=dev)
+            log = ScanLog({k: torch.zeros(num_iterations, **f32)
+                           for k in METRICS},
+                          torch.zeros(num_iterations, self.cfg.num_envs,
+                                      **f32))
+        self.captured = None
         history = []
         for it in range(num_iterations):
-            state, metrics, batch = self.step(state)
+            if not state.counter.is_cuda:
+                metrics, batch = self.iteration(state, log)
+            elif self.captured is None:
+                self.captured = self.capture(state, log)
+                metrics, batch = self.captured.warmup
+            else:
+                metrics, batch = self.captured()
             if suite is not None:
                 suite.maybe_record(it)
             if callback is not None:
                 history.append(callback(it, state, metrics, batch))
+        if state.counter.is_cuda:
+            ops.check_device_errors(dev)
+        if mode == "scan":
+            return state, (log.metrics, log.log_rewards)
         return state, history

@@ -3,14 +3,18 @@
 ``sampler.build(env, env_params, policy, cfg)`` returns ``sample_fn(
 noise_seed, step) -> RolloutBatch``.  ``noise_seed`` takes the place of
 the JAX sampler's key: the loop passes ``train_seed(seed, step)``, so every
-iteration draws fresh noise.  The policy's parameters are read in place,
+iteration draws fresh noise.  Both are 0-dim int64 tensors on the
+policy's device, read there, so that a CUDA graph of the iteration can
+advance them.  The policy's parameters are read in place,
 so ``sample_fn`` takes none.  The JAX contract's sampler state (a replay
 buffer's) has no user until a replay sampler is ported.
 """
 from __future__ import annotations
 
+import torch
+
 from ..core.rollout import forward_rollout
-from ..core.trainer import GFNConfig, current_eps
+from ..core.trainer import GFNConfig, current_eps_tensor
 from ..core.types import StepNoiseSource, hash_step_noise
 
 
@@ -27,10 +31,10 @@ class OnPolicySampler:
         self.noise = noise
 
     def build(self, env, env_params, policy, cfg: GFNConfig):
-        def sample_fn(noise_seed: int, step: int):
-            return forward_rollout(noise_seed, env, env_params, policy,
-                                   cfg.num_envs,
-                                   noise=self.noise,
-                                   exploration_eps=current_eps(cfg, step))
+        def sample_fn(noise_seed: torch.Tensor, step: torch.Tensor):
+            return forward_rollout(
+                noise_seed, env, env_params, policy, cfg.num_envs,
+                noise=self.noise,
+                exploration_eps=current_eps_tensor(cfg, step))
 
         return sample_fn

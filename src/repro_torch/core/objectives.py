@@ -92,8 +92,8 @@ def tb_parts(ev: TrajEval, batch: RolloutBatch,
     """Trajectory Balance, Eq. (4), as an unreduced (sum, count) pair:
     ``loss == sum / max(count, 1)``."""
     delta = log_z + ev.log_pf.sum(0) - batch.log_reward - ev.log_pb.sum(0)
-    return delta.square().sum(), torch.tensor(
-        float(batch.log_reward.shape[0]), device=delta.device)
+    return delta.square().sum(), torch.full(
+        (), float(batch.log_reward.shape[0]), device=delta.device)
 
 
 def _flow_targets(ev: TrajEval, batch: RolloutBatch) -> torch.Tensor:
@@ -164,8 +164,8 @@ def subtb_parts(ev: TrajEval, batch: RolloutBatch, lam: float = 0.9
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`subtb_loss` as (per-trajectory sum, trajectory count)."""
     B = ev.log_pf.shape[1]
-    return subtb_loss(ev, batch, lam) * B, torch.tensor(
-        float(B), device=ev.log_pf.device)
+    return subtb_loss(ev, batch, lam) * B, torch.full(
+        (), float(B), device=ev.log_pf.device)
 
 
 PartsFn = Callable[[TrajEval, RolloutBatch, Dict, object],

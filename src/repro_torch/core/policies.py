@@ -173,6 +173,13 @@ class TransformerPolicy(nn.Module):
             self._kernel_weights_key = key
         return self._kernel_weights
 
+    def weights_replaced(self) -> None:
+        """Drop the fused step's weight copies.  A replayed CUDA graph
+        writes the parameters without moving their version counters, so
+        :meth:`kernel_weights` cannot see the write; the training loop
+        calls this after every replay."""
+        self._kernel_weights = None
+
     # -- heads -----------------------------------------------------------------
     def heads(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Readout of the decoder output y (B, D) into the heads dict:

@@ -76,20 +76,23 @@ def _cache_engaged(env: Environment, policy) -> bool:
 
 
 @torch.no_grad()
-def forward_rollout(seed: int, env: Environment, env_params, policy,
-                    num_envs: int, *,
+def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
+                    env_params, policy, num_envs: int, *,
                     noise: Union[NoiseSource, StepNoiseSource, None] = None,
                     logit_temp: Optional[float] = None,
-                    exploration_eps: Optional[float] = None,
+                    exploration_eps: Union[float, torch.Tensor, None] = None,
                     return_final_state: bool = False):
     """Sample ``num_envs`` trajectories of ``env.max_steps`` steps on the
     device of ``env_params``.  Row i's noise at step t is
     ``noise(seed, i, t, A)``: a :class:`StepNoise` when exploring
-    (``exploration_eps`` a number, default :func:`hash_step_noise`), a
-    (B, A) Gumbel tensor otherwise (default :func:`hash_gumbel`).  ``seed``
-    may use 64 bits.  ``logit_temp`` scales the forward logits (a tempered
-    policy, as the serving engine's per-lane temperature); only the fused
-    branch takes it, as only serving uses it.  Returns the batch, or
+    (``exploration_eps`` a number or a 0-dim float32 tensor, default
+    :func:`hash_step_noise`), a (B, A) Gumbel tensor otherwise (default
+    :func:`hash_gumbel`).  ``seed`` may use 64 bits; it is a number or a
+    0-dim int64 tensor on the env's device (a training iteration's, which
+    a CUDA graph advances without the host).  ``logit_temp`` scales the
+    forward logits (a tempered policy, as the serving engine's per-lane
+    temperature); only the fused branch takes it, as only serving uses
+    it.  Returns the batch, or
     ``(batch, final_state)`` with ``return_final_state``."""
     explore = exploration_eps is not None
     cached = _cache_engaged(env, policy)
@@ -103,7 +106,10 @@ def forward_rollout(seed: int, env: Environment, env_params, policy,
     dev = obs0.device
     A = env.action_dim
     ids = torch.arange(num_envs, dtype=torch.int64, device=dev)
-    seeds = torch.full((num_envs,), int(seed), dtype=torch.int64, device=dev)
+    seeds = (seed.to(device=dev, dtype=torch.int64).expand(num_envs)
+             if isinstance(seed, torch.Tensor)
+             else torch.full((num_envs,), int(seed), dtype=torch.int64,
+                             device=dev))
     cache = policy.cache_init(num_envs) if cached else None
     temp = None if logit_temp is None else torch.full(
         (num_envs,), float(logit_temp), dtype=torch.float32, device=dev)

@@ -35,8 +35,11 @@ def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
     updates times ``log_z_lr / lr``) and ``scale(-lr)``
     (``repro/core/trainer.py:40-53``); that is Adam (b1 0.9, b2 0.999,
     eps 1e-8, eps outside the square root) with a second parameter group
-    at ``log_z_lr``.  Gradient clipping and weight decay raise until a
-    ported recipe needs them."""
+    at ``log_z_lr``.  On CUDA it is built ``capturable`` (its step count
+    and bias corrections stay on the device), so that an eager step and a
+    step captured in a CUDA graph run the same update arithmetic.
+    Gradient clipping and weight decay raise until a ported recipe needs
+    them."""
     if cfg.max_grad_norm is not None:
         raise NotImplementedError("make_optimizer: max_grad_norm is not "
                                   "ported yet")
@@ -49,7 +52,8 @@ def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
     groups = [{"params": rest, "lr": cfg.lr}]
     if log_z:
         groups.append({"params": log_z, "lr": cfg.log_z_lr or cfg.lr})
-    return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=named[0][1].is_cuda)
 
 
 def current_eps(cfg: GFNConfig, step: int) -> float:
@@ -63,6 +67,22 @@ def current_eps(cfg: GFNConfig, step: int) -> float:
                        np.float32(0), np.float32(1))
         eps = eps * (np.float32(1) - frac)
     return float(eps)
+
+
+def current_eps_tensor(cfg: GFNConfig, step: torch.Tensor) -> torch.Tensor:
+    """:func:`current_eps` of a 0-dim integer ``step`` tensor, as a 0-dim
+    float32 tensor on its device (the JAX package's ``current_eps(cfg,
+    step: jax.Array)``): the same float32 operations in the same order,
+    so it is bitwise the host value at every step.  The anneal divides by
+    a tensor, not a Python number, which CUDA would turn into a product
+    with the number's reciprocal."""
+    f32 = dict(dtype=torch.float32, device=step.device)
+    eps = torch.full((), float(np.float32(cfg.exploration_eps)), **f32)
+    if cfg.exploration_anneal_steps > 0:
+        steps = torch.full((), float(cfg.exploration_anneal_steps), **f32)
+        frac = torch.clamp(step.to(torch.float32) / steps, 0.0, 1.0)
+        eps = eps * (1.0 - frac)
+    return eps
 
 
 def make_loss_parts_fn(env, policy, cfg: GFNConfig):

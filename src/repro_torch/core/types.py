@@ -52,9 +52,8 @@ def masked_logprobs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Log-softmax restricted to legal actions (mask True = legal).
     Illegal logits become ``finfo.min``, not ``-inf``, as in the JAX
     package."""
-    neg = torch.tensor(torch.finfo(logits.dtype).min, dtype=logits.dtype,
-                       device=logits.device)
-    return torch.log_softmax(torch.where(mask, logits, neg), dim=-1)
+    return torch.log_softmax(
+        torch.where(mask, logits, torch.finfo(logits.dtype).min), dim=-1)
 
 
 def sample_masked(logits: torch.Tensor, mask: torch.Tensor,
@@ -67,7 +66,9 @@ def sample_masked(logits: torch.Tensor, mask: torch.Tensor,
     exploration (port of ``repro.core.types.sample_masked``).
 
     ``eps=None`` is the statically-zero branch: ``argmax(logp + gumbel)``.
-    Otherwise a row whose ``explore_u < eps`` (compared in fp32) takes
+    Otherwise (a number, or a 0-dim float32 tensor on the rows' device,
+    which a captured training iteration reads without a host copy) a row
+    whose ``explore_u < eps`` (compared in fp32) takes
     ``argmax(where(mask, 0, -inf) + gumbel_u)``, a uniform legal action.
     Ties go to the lowest index, as in ``jnp.argmax``.  Returns
     ``(actions int64, log_prob_of_action)``: the log-prob is the policy's,
@@ -80,9 +81,7 @@ def sample_masked(logits: torch.Tensor, mask: torch.Tensor,
                              "explore_u")
         unif = torch.where(mask, 0.0, float("-inf"))
         uniform = torch.argmax(unif + gumbel_u, dim=-1)
-        eps_t = torch.as_tensor(eps, dtype=torch.float32,
-                                device=explore_u.device)
-        actions = torch.where(explore_u < eps_t, uniform, actions)
+        actions = torch.where(explore_u < eps, uniform, actions)
     return actions, torch.gather(logp, -1, actions[..., None])[..., 0]
 
 
@@ -113,15 +112,19 @@ def hash_gumbel(seed: torch.Tensor, index: torch.Tensor, t: torch.Tensor,
     a counter-based hash of ``(seed[b], index[b], t[b], a)``.
 
     The integer hash is plain int64 tensor arithmetic, so it gives the same
-    bits on every device; the top 24 bits become a uniform in (0, 1), and
+    bits on every device; the top 23 bits become a uniform in (0, 1), and
     ``-log(-log(u))`` the Gumbel variate.  Every step is elementwise, so a
     row's noise does not depend on the rows beside it."""
     return _gumbel_of_key(_row_key(seed, index, t), num_actions)
 
 
 def _uniform_of_bits(h: torch.Tensor) -> torch.Tensor:
-    """The top 24 of 32 hash bits as a float32 uniform in (0, 1)."""
-    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    """The top 23 of 32 hash bits as a float32 uniform strictly inside
+    (0, 1): ``(k + 0.5) / 2**23`` is exact in float32 for every k.  (From
+    24 bits, ``k + 0.5`` needs 25 significant bits: the top code rounded
+    to 1.0, a Gumbel of +inf that won the argmax whatever the action's
+    mask, once in 2**24 draws.)"""
+    return ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
 
 
 def _gumbel_of_key(key: torch.Tensor, num_actions: int) -> torch.Tensor:
@@ -200,9 +203,27 @@ class TrainState:
 
     Unlike JAX's it is mutable: the optimizer updates ``params`` (the
     policy's :class:`repro_torch.nn.core.ParamTree`) and its own state in
-    place, and ``step`` counts the iterations done.  Iteration ``step``
-    draws its noise from ``train_seed(seed, step)``."""
+    place, and ``counter``, a 0-dim int64 tensor on the parameters'
+    device, counts the iterations done.  Iteration i draws its noise from
+    ``train_seed(seed, i)``, which :meth:`noise_seed` computes on the
+    device: a captured iteration reads and advances both without the
+    host."""
     params: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    step: int
     seed: int
+    counter: torch.Tensor
+
+    def noise_seed(self) -> torch.Tensor:
+        """``train_seed(seed, counter)`` as a 0-dim int64 tensor on the
+        counter's device."""
+        return self.counter + (self.seed << 32)
+
+    @property
+    def step(self) -> int:
+        """The iterations done, read on the host (a device sync on CUDA);
+        assigning it sets the counter."""
+        return int(self.counter)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.counter.fill_(int(value))

@@ -4,12 +4,15 @@ A wrapper checks its operands and dispatches on their device: a CUDA
 tensor launches the hand-written kernel (or the call raises), a CPU tensor
 runs the kernel's plain version from :mod:`repro_torch.kernels.ref`.  There
 is no fallback from one to the other.  Each wrapper counts its kernel
-launches in a plain integer attribute, ``<wrapper>.launches``.
+launches in a plain integer attribute, ``<wrapper>.launches``, and the
+launches a CUDA graph being captured recorded instead in
+``<wrapper>.captured`` (:func:`captured_launches`): a replay runs them
+again without Python, so no count moves then.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import torch
 
@@ -50,6 +53,31 @@ def _refuse_grad(op: str, *tensors) -> None:
         raise RuntimeError(f"{op} has no gradient: call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad")
+
+
+def _launched(wrapper, route: Optional[str] = None) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``launches`` (and its
+    route's count) when it ran, in ``captured`` when the stream was being
+    captured into a CUDA graph, which recorded the launch."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+        if route is not None:
+            wrapper.route_launches[route] += 1
+
+
+def captured_launches() -> Dict[str, int]:
+    """Each wrapper's launches recorded into CUDA graphs so far, by kernel
+    name; the difference across a capture is what one replay launches."""
+    return {"decode_step": decode_step.captured,
+            "decode_attention": decode_attention.captured,
+            "traj_logprob_fwd": traj_logprob.captured,
+            "traj_logprob_bwd": traj_logprob_backward.captured,
+            "subtb_loss_fwd": subtb_loss.captured,
+            "subtb_loss_bwd": subtb_loss_backward.captured,
+            "flash_attention": flash_attention.captured,
+            "rwkv6_scan": rwkv6_scan.captured}
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
@@ -146,11 +174,11 @@ def decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_step kernel launch failed: CUDA error "
                            f"{err}")
-    decode_step.launches += 1
+    _launched(decode_step)
     return action, log_pf, y, cache
 
 
-decode_step.launches = 0
+decode_step.launches = decode_step.captured = 0
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,11 +228,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+    _launched(decode_attention)
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = decode_attention.captured = 0
 
 
 def _traj_operands(op: str, logits, actions, mask, valid) -> None:
@@ -250,11 +278,16 @@ def _traj_args(logits, actions, mask, valid, **ptrs):
 #: per-device int32 arrival counters of the forward kernel (zero between
 #: launches: the kernel returns each to 0); grown to the largest batch
 _TRAJ_ARRIVALS: Dict[torch.device, torch.Tensor] = {}
+#: the buffers a larger batch replaced: a CUDA graph captured with one
+#: launches on its pointer at every replay, so none is ever freed
+_TRAJ_ARRIVALS_REPLACED: List[torch.Tensor] = []
 
 
 def _traj_arrivals(dev: torch.device, batch: int) -> torch.Tensor:
     buf = _TRAJ_ARRIVALS.get(dev)
     if buf is None or buf.numel() < batch:
+        if buf is not None:
+            _TRAJ_ARRIVALS_REPLACED.append(buf)
         buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=dev)
         _TRAJ_ARRIVALS[dev] = buf
     return buf
@@ -278,7 +311,7 @@ def _traj_forward(logits, actions, mask, valid):
     if err != 0:
         raise RuntimeError(f"traj_logprob kernel launch failed: CUDA error "
                            f"{err}")
-    traj_logprob.launches += 1
+    _launched(traj_logprob)
     return total, per_step
 
 
@@ -313,11 +346,11 @@ def traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
-    traj_logprob_backward.launches += 1
+    _launched(traj_logprob_backward)
     return dlogits
 
 
-traj_logprob_backward.launches = 0
+traj_logprob_backward.launches = traj_logprob_backward.captured = 0
 
 
 class _TrajLogprob(torch.autograd.Function):
@@ -352,14 +385,48 @@ def traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
     return _TrajLogprob.apply(logits, actions, mask, valid)
 
 
-traj_logprob.launches = 0
+traj_logprob.launches = traj_logprob.captured = 0
+
+
+#: per-device count of SubTB calls whose lengths left [0, T], where the
+#: check could not read the host (:func:`check_device_errors` reads it)
+_SUBTB_LENGTH_ERRORS: Dict[torch.device, torch.Tensor] = {}
+
+
+def device_error_counts(dev: torch.device) -> torch.Tensor:
+    """The 0-dim int32 count of operand errors that wrappers found on
+    ``dev`` where they could not read the host (a CUDA graph's capture,
+    each of its replays, a capture's warm-up): such a check is a device op
+    that adds here.  Made before a capture (``TrainLoop`` does so), so that the
+    graph holds a buffer that outlives it."""
+    if dev not in _SUBTB_LENGTH_ERRORS:
+        _SUBTB_LENGTH_ERRORS[dev] = torch.zeros((), dtype=torch.int32,
+                                                device=dev)
+    return _SUBTB_LENGTH_ERRORS[dev]
+
+
+def check_device_errors(dev: torch.device) -> None:
+    """Raise if a SubTB call on ``dev`` that could not read its lengths on
+    the host (:func:`_subtb_operands`) had lengths out of range since the
+    last check (one host read), and clear the count."""
+    errors = device_error_counts(dev)
+    n = int(errors)
+    if n:
+        errors.zero_()
+        raise ValueError(f"subtb_loss: lengths must lie in [0, T]; {n} "
+                         "captured calls on the device had lengths outside")
 
 
 def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
                     lam: float) -> torch.Tensor:
     """Check phi (B, T+1) float32, length (B,) integer on phi's device with
     0 <= length <= T, and 0 < lam <= 1; return length as int32.  The range
-    check reads the lengths on the host."""
+    check reads the lengths on the host, except where a host read is
+    forbidden: while the stream is being captured into a CUDA graph, and
+    under ``torch.cuda.set_sync_debug_mode("error")`` (a capture's
+    warm-up).  There it counts the bad calls in
+    :func:`device_error_counts`, on the device (in a graph: at every
+    replay), for :func:`check_device_errors` to raise on."""
     dev = phi.device
     _require("phi", op, phi, torch.float32, dev, 2)
     if not isinstance(length, torch.Tensor) or length.device != dev:
@@ -373,7 +440,12 @@ def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
                          f"{tuple(length.shape)} do not agree")
     if not 0.0 < float(lam) <= 1.0:
         raise ValueError(f"{op}: lam must lie in (0, 1], got {lam}")
-    if B:
+    if B and dev.type == "cuda" and (
+            torch.cuda.is_current_stream_capturing()
+            or torch.cuda.get_sync_debug_mode() == 2):
+        bad = ((length < 0) | (length > T1 - 1)).any()
+        device_error_counts(dev).add_(bad.to(torch.int32))
+    elif B:
         lo, hi = (int(v) for v in torch.aminmax(length))
         if lo < 0 or hi > T1 - 1:
             raise ValueError(f"{op}: lengths must lie in [0, {T1 - 1}], got "
@@ -406,7 +478,7 @@ def _subtb_forward(phi: torch.Tensor, length: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"subtb_loss kernel launch failed: CUDA error "
                            f"{err}")
-    subtb_loss.launches += 1
+    _launched(subtb_loss)
     return loss
 
 
@@ -435,11 +507,11 @@ def subtb_loss_backward(phi: torch.Tensor, length: torch.Tensor,
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
-    subtb_loss_backward.launches += 1
+    _launched(subtb_loss_backward)
     return dphi
 
 
-subtb_loss_backward.launches = 0
+subtb_loss_backward.launches = subtb_loss_backward.captured = 0
 
 
 class _SubtbLoss(torch.autograd.Function):
@@ -469,7 +541,7 @@ def subtb_loss(phi: torch.Tensor, length: torch.Tensor,
     return _SubtbLoss.apply(phi, length, float(lam))
 
 
-subtb_loss.launches = 0
+subtb_loss.launches = subtb_loss.captured = 0
 
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
@@ -562,12 +634,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed ({route} route): "
                            f"CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    _launched(flash_attention, route)
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.captured = 0
 flash_attention.route_launches = {"wgmma": 0, "simt": 0}
 
 
@@ -686,10 +757,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed ({route} route): "
                            f"CUDA error {err}")
-    rwkv6_scan.launches += 1
-    rwkv6_scan.route_launches[route] += 1
+    _launched(rwkv6_scan, route)
     return out, state_out
 
 
-rwkv6_scan.launches = 0
+rwkv6_scan.launches = rwkv6_scan.captured = 0
 rwkv6_scan.route_launches = {"chunk": 0, "recurrence": 0}

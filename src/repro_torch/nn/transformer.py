@@ -137,9 +137,7 @@ def _single_query_attention(q: torch.Tensor, k: torch.Tensor,
     """q: (B, H, hd); k/v: (B, S, H, hd); valid: (B, S) bool."""
     hd = q.shape[-1]
     logits = torch.einsum("bhd,bshd->bhs", q, k) / math.sqrt(hd)
-    logits = torch.where(valid[:, None, :], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
+    logits = torch.where(valid[:, None, :], logits, -1e30)
     attn = torch.softmax(logits, dim=-1)
     return torch.einsum("bhs,bshd->bhd", attn, v)
 
@@ -164,8 +162,7 @@ def cache_append(p: Params, cache: Cache, x_new: torch.Tensor,
     ``slot`` is a scalar shared by the batch (lockstep rollouts) or a (B,)
     tensor of per-row slots (the serving engine's lanes)."""
     kn, vn = _kv_heads_stacked(p, x_new, num_heads)     # (Lyr, B, H, hd)
-    slot = torch.as_tensor(slot, device=x_new.device)
-    if slot.dim() == 1:
+    if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         rows = torch.arange(slot.shape[0], device=x_new.device)
         cache["k"][:, rows, slot] = kn
         cache["v"][:, rows, slot] = vn

@@ -10,7 +10,10 @@
         --device cpu --set max_len=10
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
-without a GPU otherwise.  Each iteration prints one row: loss, ``log_z``
+without a GPU otherwise.  On CUDA it trains as JAX's CLI does, on the
+compiled step: the first iteration runs eagerly and every later one
+replays a CUDA graph of it (``TrainLoop.run``'s python mode).  Each
+iteration prints one row: loss, ``log_z``
 and ``mean_log_reward``.  Every recipe runs its evals every
 ``--eval-every`` iterations (default: the recipe's; 0 turns them off;
 always at iteration 0), its sampling evals over ``--eval-batch`` samples
@@ -40,9 +43,11 @@ def run_recipe(name: str, *, seed: int = 0,
     keyed on ``(seed, i)``.  ``eval_every`` (default: the recipe's; 0 turns
     evals off) runs the recipe's evals, the sampling ones over
     ``eval_batch`` samples.  Returns ``{recipe, state, history, rows, device,
-    policy}``: each history row holds the iteration's metrics and
+    policy, loop}``: each history row holds the iteration's metrics and
     ``wall_s``, the seconds since the loop started; ``rows`` are the eval
-    rows, ``[{"step": it, metric: value, ...}]``."""
+    rows, ``[{"step": it, metric: value, ...}]``; ``loop.captured`` is the
+    run's captured iteration on CUDA (its launches per replay and its
+    replays)."""
     from . import recipes
     from .algo import TrainLoop
     from .evals import EvalSuite
@@ -82,7 +87,7 @@ def run_recipe(name: str, *, seed: int = 0,
         log(f"eval it {row['step']:6d} " + " ".join(
             f"{k} {v:9.4f}" for k, v in row.items() if k != "step"))
     return {"recipe": name, "state": state, "history": history,
-            "rows": rows, "device": dev, "policy": policy}
+            "rows": rows, "device": dev, "policy": policy, "loop": loop}
 
 
 def main(argv=None) -> int:

@@ -5,8 +5,9 @@ against their plain PyTorch versions, the serving engine on the card
 against ``forward_rollout``, two bitseq_tb training iterations, one
 full-size hypergrid_subtb iteration, one iteration of each sequence-design
 recipe (tfbind8_tb, qm9_tb, amp_tb) and Hymba's smoke config (scoring and
-decode) on the card against the CPU.  Imports no JAX, so it runs on a
-machine with a GPU and no JAX:
+decode) on the card against the CPU; a training iteration captured in a
+CUDA graph against eager ones, and the checks that capture keeps.
+Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
@@ -342,7 +343,13 @@ def test_training_on_cuda_launches_the_kernels(cuda):
     out = run_recipe("bitseq_tb", iterations=2, env={"n": 16, "k": 4},
                      device=cuda, eval_every=0, log=lambda s: None)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counts, before)] == [24, 4, 2]
+    # iteration 0 runs eagerly, iteration 1 replays its capture
+    captured = out["loop"].captured
+    assert captured.replays == 1
+    assert [captured.launches[k] for k in (
+        "decode_attention", "traj_logprob_fwd", "traj_logprob_bwd")] \
+        == [12, 2, 1]
+    assert [c.launches - b for c, b in zip(counts, before)] == [12, 2, 1]
     assert all(math.isfinite(r["loss"]) for r in out["history"])
 
 
@@ -383,6 +390,98 @@ def test_fused_step_follows_adam_on_cuda(cuda):
                                                step=0)
     assert torch.equal(a_f.long(), a_p)
     torch.testing.assert_close(lp_f, lp_p, atol=1e-4, rtol=1e-4)
+
+
+# -- captured training iterations ---------------------------------------------------
+
+def _hypergrid_loop(cuda, noise=None):
+    from repro_torch.algo import OnPolicySampler, TrainLoop
+    rec = recipes.get_train("hypergrid_subtb")
+    env = rec.make_env(dim=2, side=4)
+    policy = rec.make_policy(env, seed=3, device=cuda, requires_grad=True)
+    sampler = None if noise is None else OnPolicySampler(noise=noise)
+    return TrainLoop(env, env.init(cuda), policy,
+                     rec.make_config(env, 16, 100), sampler=sampler)
+
+
+def _three_iterations(cuda, captured):
+    """Losses of three iterations and the parameters after them, eager or
+    through a captured iteration (iteration 0 eager, then two replays)."""
+    loop = _hypergrid_loop(cuda)
+    state = loop.init(seed=4)
+    if captured:
+        graph = loop.capture(state)
+        outs = [graph.warmup[0]["loss"].clone()]
+        outs += [graph()[0]["loss"].clone() for _ in range(2)]
+    else:
+        outs = [loop.step(state)[1]["loss"] for _ in range(3)]
+        graph = None
+    torch.cuda.synchronize()
+    return (torch.stack(outs), {k: v.detach().clone() for k, v in
+                                loop.policy.params.flat().items()}, graph)
+
+
+def test_captured_iteration_matches_eager(cuda):
+    """A small hypergrid_subtb run (2x4 grid, MLP 2x256, 16 envs) through
+    a captured iteration against two eager runs from the same parameters
+    and seed: the replays' losses and the parameters after them agree as
+    closely as the two eager runs agree with each other (bitwise where
+    they are bitwise); one replay launches the SubTB pair once each."""
+    loss_a, par_a, _ = _three_iterations(cuda, captured=False)
+    loss_b, par_b, _ = _three_iterations(cuda, captured=False)
+    loss_c, par_c, graph = _three_iterations(cuda, captured=True)
+    tol = max([float((loss_a - loss_b).abs().max())]
+              + [float((par_a[k] - par_b[k]).abs().max()) for k in par_a])
+    assert float((loss_c - loss_a).abs().max()) <= tol
+    for k in par_a:
+        assert float((par_c[k] - par_a[k]).abs().max()) <= tol, k
+    assert graph.replays == 2
+    assert {k: v for k, v in graph.launches.items() if v} == {
+        "subtb_loss_fwd": 1, "subtb_loss_bwd": 1}
+
+
+def test_capture_refuses_a_host_read(cuda):
+    """A noise source that reads the seed on the host cannot be captured:
+    the warm-up raises (sync debug mode), and nothing runs eagerly in its
+    place."""
+    from repro_torch.core.types import hash_step_noise
+
+    def host_read(seed, index, t, num_actions):
+        int(seed[0])
+        return hash_step_noise(seed, index, t, num_actions)
+
+    loop = _hypergrid_loop(cuda, noise=host_read)
+    with pytest.raises(RuntimeError):
+        loop.run(0, 3)
+    assert loop.captured is None
+
+
+def test_subtb_length_check_fails_under_capture(cuda):
+    """Inside a capture the SubTB wrapper cannot read the lengths on the
+    host; it counts a bad call on the device at every replay, and
+    ``check_device_errors`` raises on it after the replay."""
+    g = torch.Generator().manual_seed(0)
+    phi = torch.randn(4, 8, generator=g).to(cuda)
+    length = torch.tensor([0, 7, 3, 5], device=cuda)
+    ops.subtb_loss(phi, length, 0.9)            # build and load the kernels
+    ops.check_device_errors(cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        loss = ops.subtb_loss(phi, length, 0.9)
+    want = ref_subtb(phi.cpu(), length.cpu(), 0.9)
+    graph.replay()
+    torch.cuda.synchronize()
+    ops.check_device_errors(cuda)               # good lengths: no error
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-4, atol=1e-4)
+    length.copy_(torch.tensor([0, 8, 3, -1]))
+    graph.replay()
+    with pytest.raises(ValueError, match="lengths must lie"):
+        ops.check_device_errors(cuda)
+    ops.check_device_errors(cuda)               # the count was cleared
+    with pytest.raises(ValueError, match="lengths must lie"):
+        ops.subtb_loss(phi, length, 0.9)        # eager: the host check
 
 
 # -- subtb_loss -------------------------------------------------------------------

@@ -136,6 +136,21 @@ def test_hash_noise_rows_are_independent_and_gumbel_distributed():
     assert abs(float(big.var()) - np.pi ** 2 / 6) < 0.03
 
 
+def test_hash_uniforms_stay_below_one():
+    """Every 32-bit hash value, the all-ones top bits included, gives a
+    uniform strictly inside (0, 1), so every Gumbel draw is finite (from
+    24 bits the top code rounded to 1.0 in float32: a Gumbel of +inf that
+    picked a masked action)."""
+    from repro_torch.core.types import _uniform_of_bits
+    h = torch.tensor([0, 511, 512, 2 ** 31, 2 ** 32 - 512, 2 ** 32 - 1],
+                     dtype=torch.int64)
+    u = _uniform_of_bits(h)
+    assert bool((u > 0).all()) and bool((u < 1).all())
+    assert float(u[-1]) == 1 - 2.0 ** -24 and float(u[0]) == 2.0 ** -24
+    assert u[1] == u[0] and u[2] > u[1] and u[-2] == u[-1]
+    assert torch.isfinite(-torch.log(-torch.log(u))).all()
+
+
 def test_scheduler_coalesces_and_validates():
     sched = Scheduler(num_lanes=3, device="cpu")
     base = dict(env="bitseq", overrides={"n": N, "k": K})
