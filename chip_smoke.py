@@ -14,17 +14,21 @@ printing one JSON line:
 
 1. device  - ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (one ``nvcc`` per source, in parallel), and times one
-             ``nvcc -shared`` call over all sources beside it; ptxas's
-             report with the function named on each line, and the
-             functions that spill;
+             (one ``nvcc`` per source, in parallel); ptxas's report with
+             the function named on each line, and the functions that
+             spill.  One ``nvcc -shared`` call over all sources is timed
+             on a host thread while the kernel checks run (one core of
+             the host's; the checks' times are the card's), and its
+             seconds print after them (``build_single_call``);
 3. kernel  - each kernel (decode_step, decode_attention, traj_logprob and
              subtb_loss forward and backward, flash_attention,
              rwkv6_scan) against its plain PyTorch version on the card,
              at the main paths' shapes (the sequence recipes' included:
              decode_attention at (16, 9 / 61, 8, 8) with ragged lengths,
              traj_logprob at (16, 8, 4), (16, 5, 22), (128, 61, 21), the
-             fused step at their eval rollouts') and at odd ones, with its
+             fused step at their eval rollouts'; the graph recipes'
+             traj_logprob at (32, 26, 1378), (32, 26, 53), (256, 11, 26))
+             and at odd ones, with its
              device time, the plain version's, the least time the card
              could take (``bound``) and, where one PyTorch call computes the
              same function, that call's (``library_us``); each flash row
@@ -95,20 +99,46 @@ printing one JSON line:
              amp_tb once at full width (and AMP's top-100 reward and
              diversity): metrics, seconds, launches; every metric finite,
              the correlations in [-1, 1];
+8. dag_train, phylo_train - ``dag_mdb`` (d = 5, BGe over 100 samples,
+             128 envs, MLP 2x128 with a learned P_B) and ``phylo_fldb``
+             (DS1: 27 species x 1,949 sites, 32 envs, the 6-layer slot
+             transformer) at full size for 50 iterations through
+             ``run_recipe`` (captured, as train), evals off; it/s,
+             samples/s and every iteration's launches held exactly
+             (dag: none, MDB's loss is the stop-action branch; phylo: 2
+             traj_logprob forwards and 2 backwards, P_F at A = 1,378 and
+             the learned P_B at 53);
+   dag_hold, phylo_hold - one iteration of each on the card and on the
+             CPU, as train_hold, at the recipe's own batch; a parameter
+             whose CPU gradient is at most 1e-5 everywhere (log Z, unused
+             by MDB and FLDB; phylo's bwd_head/b, whose gradient is
+             rounding) is held to 1e-5 absolute and listed in
+             ``grad_waived``;
+   dag_profile, phylo_profile - that iteration's idle share and tops;
+   dag_evals, phylo_evals - each evaluator once at full size, timed
+             alone: dag's reward correlation, log Z bounds (traj_logprob
+             at (256, 11, 26), 2 launches) and the JSD of 4,000 samples
+             against the exact posterior over the 29,281 DAGs; phylo's
+             correlation over 64 uniform trees;
    path_shapes - every shape at which the phases the kernels line counts
-             (serve, train, hypergrid_train, seqs_train, seqs_evals)
-             launched decode_step, decode_attention or traj_logprob has a
-             row of phase 3, held against the plain version;
-8. graph_train - each of the seven on-policy recipes (bitseq_tb,
-             tfbind8_tb, qm9_tb, amp_tb, hypergrid_tb / _db / _subtb) at
-             full width: 3 iterations through a captured iteration held
+             (serve, train, hypergrid_train, seqs_train, seqs_evals,
+             dag_train, phylo_train, dag_evals, phylo_evals) launched
+             decode_step, decode_attention or traj_logprob has a row of
+             phase 3, held against the plain version;
+   dag_converge - ``tests/test_training.py:46-75`` through the captured
+             run: MDB at d = 3 for 2,500 iterations, the JSD of 3,000
+             samples against the exact posterior under 0.02;
+9. graph_train - each of the nine on-policy recipes (bitseq_tb,
+             tfbind8_tb, qm9_tb, amp_tb, hypergrid_tb / _db / _subtb,
+             dag_mdb, phylo_fldb) at full width: 3 iterations through a
+             captured iteration held
              to eager ones (iteration 0's actions bitwise; losses and
              parameters within two eager runs' own difference, bitwise
              where those are), one replay's launches equal to one eager
              iteration's, then eager and captured it/s over the same
              iterations, the warm-up and capture seconds;
    graph_profile - one replay's device idle share, kernels and tops;
-9. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
+10. lm_decode - ``repro_torch.launch.lm_decode.serve`` with Hymba-1.5B at
              full width and depth (32 layers, d_model 1600, bf16, random
              weights from a seeded generator on the card): batch 8, 32
              prompt tokens, 32 generated; tokens/s, steps/s, exactly 32
@@ -136,6 +166,7 @@ repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -204,6 +235,32 @@ SEQ_POLICIES = {"tfbind8_tb": "decode arch, 2 layers, dim 64, 8 heads",
                 "qm9_tb": "pooled arch, 2 layers, dim 64, 8 heads",
                 "amp_tb": "decode arch, 3 layers, dim 64, 8 heads, "
                           "log Z from 150"}
+#: the graph environments at full size, with the iterations of their
+#: dag_train / phylo_train runs and each iteration's launches (read from
+#: the code: MDB's stop-action loss takes no kernel; FLDB's P_F over the
+#: 1,378 slot pairs and its learned P_B over the 53 slots one traj_logprob
+#: forward and one backward each)
+GRAPH_ENV_ITERS = {"dag_mdb": 50, "phylo_fldb": 50}
+GRAPH_ENV_LAUNCHES_PER_ITER = {
+    "dag_mdb": {},
+    "phylo_fldb": {"traj_logprob_fwd": 2, "traj_logprob_bwd": 2}}
+#: each graph recipe's phase prefix (dag_train, phylo_hold, ...)
+GRAPH_ENV_PHASES = {"dag_mdb": "dag", "phylo_fldb": "phylo"}
+GRAPH_ENV_RECIPES = {
+    "dag_mdb": "DAG d=5, BGe over 100 samples (A=26, A_b=26, T=11)",
+    "phylo_fldb": "phylo DS1, 27 species x 1,949 sites (A=1378, A_b=53, "
+                  "T=26)"}
+GRAPH_ENV_POLICIES = {
+    "dag_mdb": "MLP 2x128, A logits + learned P_B + flow head",
+    "phylo_fldb": "slot transformer, 6 layers, dim 32, 8 heads, F 128"}
+#: dag_evals: the log Z bounds' P_F and P_B, at (256, 11, 26); the JSD's
+#: 4,000 samples (the JAX recipe's make_eval)
+DAG_EVAL_LAUNCHES = {"LogZBoundsEval": {"traj_logprob_fwd": 2}}
+DAG_JSD_SAMPLES = 4000
+#: tests/test_training.py:46-75 on the card
+DAG_CONVERGE_ITERS = 2500
+DAG_CONVERGE_SAMPLES = 3000
+DAG_CONVERGE_JSD = 0.02
 #: graph_train: every on-policy recipe at full width, with the launches of
 #: one iteration (eager, and in one replay of its capture alike); the
 #: kernels left out launch 0 times
@@ -212,11 +269,12 @@ GRAPH_LAUNCHES_PER_ITER = {
                   "traj_logprob_bwd": 1},
     **SEQ_LAUNCHES_PER_ITER,
     "hypergrid_tb": {}, "hypergrid_db": {},
-    "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1}}
+    "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1},
+    **GRAPH_ENV_LAUNCHES_PER_ITER}
 #: graph_train: iterations of each eager and captured run held against each
 #: other, and the iterations each of the two is timed over after them
 GRAPH_HOLD_ITERS = 3
-GRAPH_RATE_ITERS = {"amp_tb": 10}
+GRAPH_RATE_ITERS = {"amp_tb": 10, "phylo_fldb": 10}
 GRAPH_RATE_ITERS_DEFAULT = 40
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
@@ -374,8 +432,13 @@ def check_path_shapes(rows, attn, traj) -> None:
                              f"check row: {unchecked}")
 
 
+#: the script's start, for each line's ``elapsed_s``
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1445,15 +1508,20 @@ def _to_cpu(batch):
                           for f in dataclasses.fields(batch)})
 
 
-def hold_iteration(phase: str, recipe_name: str, device, env=None):
-    """One iteration of a recipe on the card (kernels) and on the host's
-    CPU (plain versions) from the same parameters and noise.  Actions: the
+def hold_iteration(phase: str, recipe_name: str, device, env=None,
+                   grad_atol: float = 0.0):
+    """One iteration of a recipe, at its own batch, on the card (kernels)
+    and on the host's CPU (plain versions) from the same parameters and
+    noise.  Actions: the
     card's rollout against the CPU's, except a row whose first difference
     sits at a step where the top two scores lie within TIE_GAP (counted).
     Loss and gradients: both devices teacher-force the card's batch, so a
     tie cannot move them; loss to 1e-5 relative, each gradient to 1e-4 of
-    its own tensor's largest entry (no floor).  Returns the card's policy,
-    loop and state."""
+    its own tensor's largest entry.  A leaf whose CPU gradient is at most
+    ``grad_atol`` everywhere (0 unless given: the graph recipes take 1e-5,
+    the CPU tests' absolute bound, for a bias whose gradient is 0 up to
+    rounding) is held to ``grad_atol`` absolute instead, and named in
+    ``grad_waived``.  Returns the card's policy, loop and state."""
     from repro_torch import recipes
     from repro_torch.algo import TrainLoop
     from repro_torch.core.trainer import current_eps
@@ -1463,7 +1531,7 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None):
     recipe = recipes.get_train(recipe_name)
     cpu = torch.device("cpu")
     env = recipe.make_env(**(env or {}))
-    cfg = recipe.make_config(env, 16, recipe.iterations)
+    cfg = recipe.make_config(env, recipe.num_envs, recipe.iterations)
     pol_g = recipe.make_policy(env, seed=1, device=device,
                                requires_grad=True)
     pol_c = recipe.make_policy(env, seed=1, device=cpu, requires_grad=True)
@@ -1481,7 +1549,8 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None):
     if differ.any():
         with torch.no_grad():
             logits = pol_c.apply(batch_c.obs.reshape(
-                (T + 1) * B, -1))["logits"].reshape(T + 1, B, -1)
+                ((T + 1) * B,) + batch_c.obs.shape[2:]))["logits"].reshape(
+                T + 1, B, -1)
         for b in range(B):
             rows = differ[:, b].nonzero()
             if not len(rows):
@@ -1504,12 +1573,15 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None):
     loss_g = float(loop_g.loss_and_grads(batch_g))
     loss_c = float(loop_c.loss_and_grads(_to_cpu(batch_g)))
     grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
-    grad_err = {}
+    grad_err, waived = {}, []
     for k, p in pol_g.params.flat().items():
         scale = float(grads_c[k].abs().max())
         diff = float((p.grad.cpu() - grads_c[k]).abs().max())
-        grad_err[k] = diff / scale if scale else (0.0 if diff == 0
-                                                  else math.inf)
+        if scale <= grad_atol:
+            waived.append(k)
+            grad_err[k] = 0.0 if diff <= grad_atol else math.inf
+        else:
+            grad_err[k] = diff / scale
     worst = max(grad_err, key=grad_err.get)
     rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
     emit(phase, recipe=recipe_name, steps=T, envs=B,
@@ -1517,7 +1589,7 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None):
          rows_differing=int(differ.any(0).sum()), near_tie_rows=ties,
          mismatched_rows=mismatched, loss_cuda=loss_g, loss_cpu=loss_c,
          loss_rel_err=rel, grad_max_err_over_scale=grad_err[worst],
-         grad_worst_param=worst)
+         grad_worst_param=worst, grad_atol=grad_atol, grad_waived=waived)
     if mismatched or not rel <= 1e-5 or not grad_err[worst] <= 1e-4:
         raise AssertionError(
             f"{phase}: {mismatched} rows differ off a tie, loss rel "
@@ -1812,60 +1884,69 @@ def replayed_fused_step(loop, state, device) -> None:
 
 # -- phase 7: the sequence-design recipes -------------------------------------
 
+def counted_run(name: str, iters: int, per_iter: dict, device):
+    """``run_recipe(name)`` at full width for ``iters`` iterations, evals
+    off, captured as train: every iteration's launches read (the eager
+    warm-up's from the wrappers, a replay's from the capture) and held to
+    ``per_iter`` exactly (a kernel it leaves out: 0), every row finite.
+    Returns ``(fields of the phase's line, the run's launches)``."""
+    from repro_torch.run import run_recipe
+
+    reset_launches()
+    last = read_launches()
+    per_it = []
+
+    def log(line):
+        if line.startswith("it "):
+            now = read_launches()
+            per_it.append({k: now[k] - last[k] for k in now})
+            last.update(now)
+
+    t0 = time.perf_counter()
+    out = run_recipe(name, iterations=iters, seed=0, device=device,
+                     eval_every=0, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    captured = out["loop"].captured
+    launches = run_launches(read_launches(), captured)
+    per_it = [got if it == 0 else {k: v + captured.launches[k]
+                                   for k, v in got.items()}
+              for it, got in enumerate(per_it)]
+    want = _only(launches, **per_iter)
+    bad = [(it, got) for it, got in enumerate(per_it) if got != want]
+    if len(per_it) != iters or bad:
+        raise AssertionError(f"{name}: {len(per_it)} iterations; "
+                             f"iterations launching other than {want}:"
+                             f" {bad[:3]}")
+    hist = out["history"]
+    if not all(math.isfinite(r[k]) for r in hist
+               for k in ("loss", "log_z", "mean_log_reward")):
+        raise AssertionError(f"{name}: rows not finite: {hist[-2:]}")
+    steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+    B = out["loop"].cfg.num_envs
+    return dict(
+        num_envs=B, iterations=iters, wall_s=wall,
+        iterations_per_s=iters / wall, steady_iterations_per_s=steady,
+        samples_per_s=B * iters / wall, steady_samples_per_s=B * steady,
+        first={k: hist[0][k] for k in ("loss", "log_z", "mean_log_reward")},
+        last={k: hist[-1][k] for k in ("loss", "log_z", "mean_log_reward")},
+        launches=launches, launches_per_iteration=want,
+        graph_launches=captured.launches, replays=captured.replays,
+        capture_seconds=captured.capture_seconds), launches
+
+
 def seqs_train_phase(device) -> dict:
     """``tfbind8_tb``, ``qm9_tb`` and ``amp_tb`` at full width through
     ``run_recipe`` (evals off; seqs_evals times them), launches read at
-    every iteration and held to SEQ_LAUNCHES_PER_ITER exactly.  Returns
-    the launches of all three runs."""
-    from repro_torch.run import run_recipe
-
+    every iteration and held to SEQ_LAUNCHES_PER_ITER exactly
+    (:func:`counted_run`).  Returns the launches of all three runs."""
     smi = nvidia_smi()
     total = {k: 0 for k in wrappers()}
     for name, iters in SEQ_ITERS.items():
-        reset_launches()
-        last = read_launches()
-        per_it = []
-
-        def log(line):
-            if line.startswith("it "):
-                now = read_launches()
-                per_it.append({k: now[k] - last[k] for k in now})
-                last.update(now)
-
-        t0 = time.perf_counter()
-        out = run_recipe(name, iterations=iters, seed=0, device=device,
-                         eval_every=0, log=log)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        captured = out["loop"].captured
-        launches = run_launches(read_launches(), captured)
-        per_it = [got if it == 0 else {k: v + captured.launches[k]
-                                       for k, v in got.items()}
-                  for it, got in enumerate(per_it)]
-        want = _only(launches, **SEQ_LAUNCHES_PER_ITER[name])
-        bad = [(it, got) for it, got in enumerate(per_it) if got != want]
-        if len(per_it) != iters or bad:
-            raise AssertionError(f"{name}: {len(per_it)} iterations; "
-                                 f"iterations launching other than {want}:"
-                                 f" {bad[:3]}")
-        hist = out["history"]
-        if not all(math.isfinite(r[k]) for r in hist
-                   for k in ("loss", "log_z", "mean_log_reward")):
-            raise AssertionError(f"{name}: rows not finite: {hist[-2:]}")
-        steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+        fields, launches = counted_run(name, iters,
+                                       SEQ_LAUNCHES_PER_ITER[name], device)
         emit("seqs_train", nvidia_smi=smi, recipe=name,
-             env=SEQ_RECIPES[name], policy=SEQ_POLICIES[name], num_envs=16,
-             iterations=iters, wall_s=wall, iterations_per_s=iters / wall,
-             steady_iterations_per_s=steady,
-             samples_per_s=16 * iters / wall,
-             steady_samples_per_s=16 * steady,
-             first={k: hist[0][k] for k in ("loss", "log_z",
-                                            "mean_log_reward")},
-             last={k: hist[-1][k] for k in ("loss", "log_z",
-                                            "mean_log_reward")},
-             launches=launches, launches_per_iteration=want,
-             graph_launches=captured.launches, replays=captured.replays,
-             capture_seconds=captured.capture_seconds)
+             env=SEQ_RECIPES[name], policy=SEQ_POLICIES[name], **fields)
         for k, v in launches.items():
             total[k] += v
     return total
@@ -1973,7 +2054,142 @@ def amp_kv_valid(loop, state) -> None:
                              f"{ragged}")
 
 
-# -- phase 8: captured training iterations -------------------------------------
+# -- phase 8: the graph environments: dag_mdb and phylo_fldb -------------------
+
+def graph_env_train_phase(device) -> dict:
+    """``dag_mdb`` and ``phylo_fldb`` at full size through ``run_recipe``
+    (:func:`counted_run`: captured, evals off), phases dag_train and
+    phylo_train.  Returns the launches of both runs."""
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name, iters in GRAPH_ENV_ITERS.items():
+        fields, launches = counted_run(
+            name, iters, GRAPH_ENV_LAUNCHES_PER_ITER[name], device)
+        emit(f"{GRAPH_ENV_PHASES[name]}_train", nvidia_smi=smi, recipe=name,
+             env=GRAPH_ENV_RECIPES[name], policy=GRAPH_ENV_POLICIES[name],
+             **fields)
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def graph_env_profile(device) -> None:
+    """One iteration of each graph recipe at its own batch (128 / 32
+    envs), card against CPU (``hold_iteration``: dag_hold, phylo_hold),
+    then that iteration's idle share and tops on the card (dag_profile,
+    phylo_profile)."""
+    for name, phase in GRAPH_ENV_PHASES.items():
+        _, loop, state = hold_iteration(f"{phase}_hold", name, device,
+                                        grad_atol=1e-5)
+        profile_step(f"{phase}_profile", lambda: loop.step(state),
+                     recipe=name)
+
+
+def graph_evals_phase(device) -> dict:
+    """Each graph recipe's evaluators once at full size, each timed alone
+    after a warm-up call: dag_mdb's reward correlation (128 probe DAGs, 8
+    MC samples), log Z bounds (256 samples: traj_logprob at (256, 11, 26))
+    and the JSD of DAG_JSD_SAMPLES samples against the exact posterior over
+    the 29,281 DAGs on 5 nodes; phylo_fldb's correlation (64 probe trees,
+    8 MC samples under the learned P_B).  Policies from a seeded
+    generator.  Every metric finite, correlations in [-1, 1], the JSD in
+    [0, log 2]; launches per evaluator exactly (DAG_EVAL_LAUNCHES).
+    Returns the launches of both suites."""
+    from repro_torch import recipes
+    from repro_torch.core.types import eval_seed
+    from repro_torch.recipes.dag import PosteriorJSDEval
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name, phase in GRAPH_ENV_PHASES.items():
+        rec = recipes.get_train(name)
+        env = rec.make_env()
+        params = env.init(device)
+        policy = rec.make_policy(env, seed=0, device=device)
+        t0 = time.perf_counter()
+        evaluators = rec.make_evals(env, params, policy, seed=0,
+                                    eval_batch=2000)
+        if name == "dag_mdb":
+            evaluators.append(PosteriorJSDEval(env, params, policy,
+                                               num_samples=DAG_JSD_SAMPLES))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        metrics, seconds, launches = {}, {}, {}
+        for i, ev in enumerate(evaluators):
+            kind = type(ev).__name__
+            ev(eval_seed(0, 0, i))            # warm: cuBLAS, the allocator
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = ev(eval_seed(0, 1, i))
+            torch.cuda.synchronize()
+            seconds[kind] = time.perf_counter() - t0
+            launches[kind] = {k: v for k, v in read_launches().items() if v}
+            metrics.update({k: float(v) for k, v in out.items()})
+            for k, v in read_launches().items():
+                total[k] += v
+        emit(f"{phase}_evals", nvidia_smi=smi, recipe=name,
+             evaluators=list(seconds), metrics=metrics, seconds=seconds,
+             build_seconds=build_s, launches=launches)
+        corr = [metrics[k] for k in ("pearson", "spearman")]
+        want = {kind: (DAG_EVAL_LAUNCHES.get(kind, {})
+                       if name == "dag_mdb" else {}) for kind in launches}
+        if not all(math.isfinite(v) for v in metrics.values()) or not all(
+                -1 <= c <= 1 for c in corr) or launches != want or not (
+                0 <= metrics.get("jsd", 0) <= math.log(2)):
+            raise AssertionError(f"{name} evals: {metrics}, launches "
+                                 f"{launches} (expected {want})")
+    return total
+
+
+def dag_converge(device) -> None:
+    """``tests/test_training.py:46-75`` on the card, through the captured
+    run: MDB on d = 3 (BGe over 50 samples, data seed 1), the recipe's
+    MLP 2x128 with a learned P_B, 64 envs, lr 1e-3, epsilon 0.1 annealed
+    over 1,500 iterations, DAG_CONVERGE_ITERS iterations; the JSD of
+    DAG_CONVERGE_SAMPLES samples against the exact posterior over the 25
+    DAGs must be under DAG_CONVERGE_JSD.  No kernel launches (MDB's loss
+    is the stop-action branch)."""
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.trainer import GFNConfig
+    from repro_torch.recipes.dag import PosteriorJSDEval, dag_env, dag_policy
+
+    smi = nvidia_smi()
+    env = dag_env(d=3, num_samples=50, seed=1)
+    params = env.init(device)
+    policy = dag_policy(env, seed=0, device=device, requires_grad=True)
+    cfg = GFNConfig(objective="mdb", num_envs=64, lr=1e-3,
+                    stop_action=env.stop_action, exploration_eps=0.1,
+                    exploration_anneal_steps=1500)
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = TrainLoop(env, params, policy, cfg)
+    _, hist = loop.run(
+        0, DAG_CONVERGE_ITERS, callback=lambda it, st, m, b: float(
+            m["loss"]) if it % 500 == 0 or it == DAG_CONVERGE_ITERS - 1
+        else None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = run_launches(read_launches(), loop.captured)
+    t0 = time.perf_counter()
+    jsd = float(PosteriorJSDEval(env, params, policy,
+                                 num_samples=DAG_CONVERGE_SAMPLES)(9)["jsd"])
+    jsd_s = time.perf_counter() - t0
+    emit("dag_converge", nvidia_smi=smi, objective="mdb",
+         env="DAG d=3, BGe over 50 samples (25 DAGs)",
+         policy="MLP 2x128, learned P_B", num_envs=64,
+         iterations=DAG_CONVERGE_ITERS, train_seconds=train_s,
+         iterations_per_s=DAG_CONVERGE_ITERS / train_s,
+         losses=[h for h in hist if h is not None],
+         jsd=jsd, samples=DAG_CONVERGE_SAMPLES, bar=DAG_CONVERGE_JSD,
+         jsd_seconds=jsd_s, replays=loop.captured.replays,
+         launches={k: v for k, v in launches.items() if v})
+    if not jsd < DAG_CONVERGE_JSD or any(launches.values()):
+        raise AssertionError(f"dag_converge: JSD {jsd} (bar "
+                             f"{DAG_CONVERGE_JSD}), launches {launches}")
+
+
+# -- phase 9: captured training iterations -------------------------------------
 
 def _hold_run(loop, state, captured: bool):
     """GRAPH_HOLD_ITERS iterations of a fresh loop, eagerly or through a
@@ -2028,7 +2244,7 @@ def graph_train_phase(device) -> None:
         rec = recipes.get_train(name)
         env = rec.make_env()
         env_params = env.init(device)
-        cfg = rec.make_config(env, 16, rec.iterations)
+        cfg = rec.make_config(env, rec.num_envs, rec.iterations)
 
         def fresh():
             policy = rec.make_policy(env, seed=1, device=device,
@@ -2065,7 +2281,8 @@ def graph_train_phase(device) -> None:
             graph()
         torch.cuda.synchronize()
         graph_s = time.perf_counter() - t0
-        emit("graph_train", nvidia_smi=smi, recipe=name, num_envs=16,
+        emit("graph_train", nvidia_smi=smi, recipe=name,
+             num_envs=rec.num_envs,
              hold_iterations=GRAPH_HOLD_ITERS,
              eager_vs_eager_max_abs=tol, eager_runs_bitwise=eager_bitwise,
              captured_vs_eager_max_abs=err,
@@ -2097,7 +2314,7 @@ def graph_train_phase(device) -> None:
                      graph_launches=graph.launches)
 
 
-# -- phase 9: Hymba-1.5B serving: decode and prompt scoring -----------------------
+# -- phase 10: Hymba-1.5B serving: decode and prompt scoring -----------------------
 
 def hymba_config(**changes):
     import dataclasses
@@ -2399,6 +2616,18 @@ def lm_profile(cfg, params, device) -> None:
         raise AssertionError("lm_profile: decode logits not finite")
 
 
+def single_nvcc_call_seconds(build) -> float:
+    """The seconds of one ``nvcc -shared`` call over every kernel source
+    (what the parallel build saves on)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                        str(Path(tmp) / "single.so"),
+                        *map(str, build.SOURCES)],
+                       check=True, capture_output=True, timeout=600)
+        return time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2432,15 +2661,10 @@ def main() -> int:
     path, log = build.build()
     build.library()
     seconds = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-                        str(Path(tmp) / "single.so"),
-                        *map(str, build.SOURCES)],
-                       check=True, capture_output=True, timeout=600)
-        single_s = time.perf_counter() - t0
+    single = concurrent.futures.ThreadPoolExecutor(1).submit(
+        single_nvcc_call_seconds, build)
     ptxas = named_ptxas(log)
-    emit("build", seconds=seconds, single_nvcc_call_seconds=single_s,
+    emit("build", seconds=seconds,
          library=str(Path(path).relative_to(ROOT)), ptxas=ptxas,
          spilling=spilling(ptxas))
     parent = None
@@ -2513,6 +2737,13 @@ def main() -> int:
                  (16, 5, 2), (128, 15, 3840), (128, 15, 15), (256, 8, 4),
                  (256, 8, 1), (256, 5, 22), (256, 5, 2), (128, 61, 2),
                  (256, 29, 5)])]
+    # the graph recipes: phylo_fldb's loss, P_F over DS1's 1,378 slot pairs
+    # and its learned P_B over the 53 slots (32 trees of 26 merges), and
+    # dag_mdb's log Z bounds, P_F and P_B over 26 actions (256 x 11)
+    traj += [check_traj_logprob(B, T, A, seed=30 + i, device=device,
+                                floor_us=floor_us)
+             for i, (B, T, A) in enumerate([
+                 (32, 26, 1378), (32, 26, 53), (256, 11, 26)])]
     # (16, 30) is the main path's (4x8^4, a warp per trajectory); 78 the
     # paper grid's; 7000 a long trajectory (a block of 896 threads); then
     # potentials at the offset log Z gives them (1e3), where JAX's expanded
@@ -2584,6 +2815,9 @@ def main() -> int:
                              bf16=True, seed=6, device=device,
                              decay="strong")]
 
+    emit("build_single_call", single_nvcc_call_seconds=single.result(),
+         beside="the kernel checks")
+
     # the phases the kernels line counts record the shapes they launch at
     with recording_path_shapes():
         serve = serve_phase(device)
@@ -2603,7 +2837,12 @@ def main() -> int:
     seqs_profile(device)
     with recording_path_shapes():
         seqs_evals = seqs_evals_phase(device)
+        graph_env = graph_env_train_phase(device)
+    graph_env_profile(device)
+    with recording_path_shapes():
+        graph_evals = graph_evals_phase(device)
     check_path_shapes(rows, attn, traj)
+    dag_converge(device)
     graph_train_phase(device)
     hymba = hymba_config()
     params = hymba_params(hymba, device)
@@ -2628,9 +2867,11 @@ def main() -> int:
                 else main["library_us"] / 1e3}
 
     def main_launches(kernel):
-        """A kernel's launches on bitseq_tb's, the hypergrid's and the
-        sequence recipes' paths (training and evals)."""
-        return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals))
+        """A kernel's launches on bitseq_tb's, the hypergrid's, the
+        sequence recipes' and the graph recipes' paths (training and
+        evals)."""
+        return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
+                                       graph_env, graph_evals))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

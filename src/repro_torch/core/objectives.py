@@ -1,5 +1,5 @@
 """GFlowNet training objectives (port of the categorical path of
-``repro.core.objectives``): TB, DB and SubTB.
+``repro.core.objectives``): TB, DB, SubTB, FLDB and MDB.
 
 Every objective consumes a :class:`repro_torch.core.rollout.RolloutBatch`
 and re-evaluates the policy on the stored observations (teacher forcing).
@@ -7,10 +7,11 @@ Without a stop action, both directions' log-probabilities go through
 :func:`repro_torch.kernels.ops.traj_logprob`: mask + log-softmax + action
 gather in one kernel per direction on CUDA, with the closed-form gradient
 as a second kernel; the plain version on the CPU.  With a stop action
-(hypergrid) the full log-softmax tensor is built, as the JAX package does
-off the TPU, and no kernel runs.  SubTB's per-trajectory loss goes through
-:func:`repro_torch.kernels.ops.subtb_loss` (a kernel pair on CUDA).  FLDB
-and MDB raise by name.
+(hypergrid, AMP, the DAG env's MDB) the full log-softmax tensor is built,
+as the JAX package does off the TPU, and no kernel runs.  SubTB's
+per-trajectory loss goes through :func:`repro_torch.kernels.ops.subtb_loss`
+(a kernel pair on CUDA).  FLDB reads the batch's energies, MDB its
+per-state log-rewards and log P_F(stop).
 """
 from __future__ import annotations
 
@@ -168,6 +169,34 @@ def subtb_parts(ev: TrajEval, batch: RolloutBatch, lam: float = 0.9
         (), float(B), device=ev.log_pf.device)
 
 
+def fldb_parts(ev: TrajEval, batch: RolloutBatch
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-Looking DB, Eq. (7), as (residual sum, valid-transition
+    count).  The env's energies have E(s0) = 0 and E(x) = -log R(x), so
+    the forward-looking flow target at a terminal is
+    log F~(x) = log R(x) + E(x) = 0."""
+    flows = torch.where(batch.done, 0.0, ev.log_flow)
+    d_energy = batch.energy[1:] - batch.energy[:-1]
+    delta = flows[:-1] + ev.log_pf - flows[1:] - ev.log_pb + d_energy
+    delta = torch.where(batch.valid, delta, 0.0)
+    return delta.square().sum(), batch.valid.sum().to(torch.float32)
+
+
+def mdb_parts(ev: TrajEval, batch: RolloutBatch
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Modified DB (Deleu et al. 2022) for envs whose every state is
+    terminal, as (residual sum, count of non-stop transitions).  For a
+    transition s -> s' that is not the stop action:
+    R(s) P_F(s'|s) P_F(stop|s') = R(s') P_B(s|s') P_F(stop|s).  The stop
+    transition moves s to its stopped copy and is told by done[t+1]."""
+    lr = batch.log_r_state
+    delta = (lr[:-1] + ev.log_pf + ev.log_pf_stop[1:]
+             - lr[1:] - ev.log_pb - ev.log_pf_stop[:-1])
+    real = batch.valid & ~batch.done[1:]
+    delta = torch.where(real, delta, 0.0)
+    return delta.square().sum(), real.sum().to(torch.float32)
+
+
 PartsFn = Callable[[TrajEval, RolloutBatch, Dict, object],
                    Tuple[torch.Tensor, torch.Tensor]]
 
@@ -179,10 +208,12 @@ OBJECTIVE_PARTS: Dict[str, PartsFn] = {
     "db": lambda ev, batch, params, cfg: db_parts(ev, batch),
     "subtb": lambda ev, batch, params, cfg: subtb_parts(ev, batch,
                                                         cfg.subtb_lambda),
+    "fldb": lambda ev, batch, params, cfg: fldb_parts(ev, batch),
+    "mdb": lambda ev, batch, params, cfg: mdb_parts(ev, batch),
 }
 
 #: objectives of the JAX package that the port does not have yet
-NOT_PORTED = ("fldb", "mdb")
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 def objective_parts(name: str) -> PartsFn:

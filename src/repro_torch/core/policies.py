@@ -1,6 +1,8 @@
 """Policies of the port: the MLP policy (port of
-``repro.core.policies.make_mlp_policy``) and the transformer policy (port
-of ``make_transformer_policy``), in its two architectures.
+``repro.core.policies.make_mlp_policy``), the transformer policy (port
+of ``make_transformer_policy``), in its two architectures, and the
+phylogenetic environment's slot transformer (port of
+``make_phylo_policy``).
 
 ``arch="decode"``: per-layer K/V come from frozen token + position
 embeddings, and a learned latent query reads the state out (see
@@ -260,3 +262,56 @@ class TransformerPolicy(nn.Module):
             length.to(torch.int32), self._slot(step), gumbel,
             fwd_mask, kw["w_out"], kw["b_out"], logit_temp,
             num_heads=self.num_heads)
+
+
+class PhyloPolicy(nn.Module):
+    """Slot-permutation-equivariant transformer policy of the phylogenetic
+    environment (port of ``repro.core.policies.make_phylo_policy``; paper
+    Table 6): an input projection of the (B, K, 19) slot features, the
+    encoder over the K node slots with no positional embedding, then
+    merge-pair logits as symmetric bilinear scores of the slot embeddings
+    ``e_i . e_j / sqrt(dim)`` over the env's pairs, a per-slot backward
+    head (``logits_b`` (B, K)) and a mean-pooled flow head.  Width 32, 8
+    heads, MLP width 128 (4 * dim) and log Z 0, as the paper's recipe has
+    them; only the depth varies.  Its tree is the JAX package's: ``inp``,
+    ``encoder/layer_{i}/...``, ``pair_proj``, ``bwd_head``, ``flow_head``,
+    ``log_z``.  It has no KV-cache entry points."""
+
+    dim, num_heads = 32, 8
+
+    def __init__(self, env, num_layers: int = 6, *, seed: int = 0,
+                 device: DeviceLike = None, requires_grad: bool = False):
+        super().__init__()
+        dev = resolve_device(device)
+        dim = self.dim
+        kw = dict(generator=cpu_generator(seed), device=dev)
+        self.params = ParamTree({
+            "inp": dense_init(env.obs_feat_dim, dim, **kw),
+            "encoder": encoder_init(num_layers=num_layers, dim=dim,
+                                    num_heads=self.num_heads, **kw),
+            "pair_proj": dense_init(dim, dim, **kw),
+            "bwd_head": dense_init(dim, 1, **kw),
+            "flow_head": dense_init(dim, 1, **kw),
+            "log_z": torch.zeros((), device=dev),
+        }, requires_grad=requires_grad)
+        pairs = torch.as_tensor(env.pairs, dtype=torch.int64, device=dev)
+        self.register_buffer("pair_i", pairs[:, 0].clone(), persistent=False)
+        self.register_buffer("pair_j", pairs[:, 1].clone(), persistent=False)
+        # sqrt(float32(dim)) as the JAX package computes it; a tensor, as
+        # CUDA divides by a Python float through its reciprocal
+        self.register_buffer("scale", torch.sqrt(torch.tensor(
+            float(dim), dtype=torch.float32, device=dev)), persistent=False)
+
+    def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``/``-keyed parameters (every leaf, same shapes) in."""
+        load_flat(self.params, flat)
+
+    def apply(self, obs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        p = self.params
+        x = dense_apply(p["inp"], obs.to(torch.float32))
+        h = encoder_apply(p["encoder"], x, num_heads=self.num_heads)
+        e = dense_apply(p["pair_proj"], h)                   # (B, K, dim)
+        scores = torch.einsum("bid,bjd->bij", e, e) / self.scale
+        return {"logits": scores[:, self.pair_i, self.pair_j],
+                "logits_b": dense_apply(p["bwd_head"], h)[..., 0],
+                "log_flow": dense_apply(p["flow_head"], h)[..., 0].mean(-1)}

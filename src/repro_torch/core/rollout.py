@@ -67,6 +67,18 @@ class RolloutBatch:
         return self.actions.shape[0]
 
 
+def _state_scalars(env: Environment):
+    """``(log_r_state, energy)``: per-state functions ``(state, params) ->
+    (B,) float32`` where the env has them (JAX's ``_state_scalars``):
+    ``log_reward`` when every state is terminal (``all_states_terminal``,
+    the DAG env), ``energy`` when the env defines one (the phylogenetic
+    env's FLDB shaping); None where it has not, and the batch holds zeros.
+    Both are device ops on the state, with no host read."""
+    lrs = (lambda s, p: env.log_reward(s, p).to(torch.float32)) \
+        if getattr(env, "all_states_terminal", False) else None
+    return lrs, getattr(env, "energy", None)
+
+
 def _cache_engaged(env: Environment, policy) -> bool:
     """The cached branches need both sides: a policy with KV-cache entry
     points (``policy.supports_cache``) and an env that reports each step's
@@ -115,9 +127,10 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
         (num_envs,), float(logit_temp), dtype=torch.float32, device=dev)
     prev = torch.zeros(num_envs, dtype=torch.int64, device=dev)
     zeros = torch.zeros(num_envs, dtype=torch.float32, device=dev)
+    scalars = dict(zip(("log_r_state", "energy"), _state_scalars(env)))
     ys = {k: [] for k in ("obs", "fwd_mask", "bwd_mask", "actions",
                           "bwd_actions", "valid", "done", "log_r",
-                          "log_pf")}
+                          "log_pf", "log_r_state", "energy")}
     for t in range(T):
         obs = env.observe(state, env_params)
         fmask = env.forward_mask(state, env_params)
@@ -155,9 +168,18 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                      ("log_r", log_r),
                      ("log_pf", torch.where(was_done, 0.0, log_pf))):
             ys[k].append(v)
+        for k, fn in scalars.items():
+            if fn is not None:
+                ys[k].append(fn(state, env_params))
         state = new_state
         prev = actions
-    # no ported env has per-state rewards or energies: both are zeros
+
+    def per_state(k):
+        """(T+1, B) of state scalar ``k``, zeros where the env has none."""
+        if scalars[k] is None:
+            return zeros.expand(T + 1, num_envs).clone()
+        return torch.stack(ys[k] + [scalars[k](state, env_params)])
+
     batch = RolloutBatch(
         obs=torch.stack(ys["obs"] + [env.observe(state, env_params)]),
         fwd_mask=torch.stack(ys["fwd_mask"]
@@ -169,8 +191,8 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
         valid=torch.stack(ys["valid"]),
         done=torch.stack(ys["done"] + [env.is_terminal(state, env_params)]),
         log_reward=torch.stack(ys["log_r"]).sum(0),
-        log_r_state=zeros.expand(T + 1, num_envs).clone(),
-        energy=zeros.expand(T + 1, num_envs).clone(),
+        log_r_state=per_state("log_r_state"),
+        energy=per_state("energy"),
         log_pf_beh=torch.stack(ys["log_pf"]))
     return (batch, state) if return_final_state else batch
 

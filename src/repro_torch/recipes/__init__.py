@@ -10,7 +10,7 @@ from __future__ import annotations
 import ast
 from typing import Callable, Dict, Iterable, NamedTuple
 
-from . import hypergrid, seqs
+from . import dag, hypergrid, phylo, seqs
 
 
 class Recipe(NamedTuple):
@@ -64,6 +64,20 @@ _TRAIN_RECIPES = {
         "§B.2.2)",
         seqs.amp_env, seqs.amp_policy, seqs.amp_config,
         iterations=20000, num_envs=16, make_evals=seqs.amp_evals,
+        eval_every=500),
+    "dag_mdb": TrainRecipe(
+        "dag_mdb", "Modified DB on Bayesian-network structure learning "
+        "(d=5, BGe score), reward correlation and log Z bounds; JSD against "
+        "the exact posterior through recipes.dag.PosteriorJSDEval (paper "
+        "§B.4)",
+        dag.dag_env, dag.dag_policy, dag.dag_config, iterations=100000,
+        num_envs=128, make_evals=dag.dag_evals, eval_every=2000),
+    "phylo_fldb": TrainRecipe(
+        "phylo_fldb", "Forward-looking DB on phylogenetic tree generation "
+        "(dataset DS1 by default; --set reduced=True for a small synthetic "
+        "alignment) (paper §B.3)",
+        phylo.phylo_env, phylo.phylo_policy, phylo.phylo_config,
+        iterations=100000, num_envs=32, make_evals=phylo.phylo_evals,
         eval_every=500),
 }
 for _obj in ("tb", "db", "subtb"):

@@ -4,9 +4,11 @@ and backward, flash attention, the RWKV6 scan on both of its routes)
 against their plain PyTorch versions, the serving engine on the card
 against ``forward_rollout``, two bitseq_tb training iterations, one
 full-size hypergrid_subtb iteration, one iteration of each sequence-design
-recipe (tfbind8_tb, qm9_tb, amp_tb) and Hymba's smoke config (scoring and
-decode) on the card against the CPU; a training iteration captured in a
-CUDA graph against eager ones, and the checks that capture keeps.
+recipe (tfbind8_tb, qm9_tb, amp_tb) and of each graph recipe (dag_mdb,
+phylo_fldb, captured too) and Hymba's smoke config (scoring and decode)
+on the card against the CPU; a training iteration captured in a CUDA
+graph against eager ones, the checks that capture keeps, and the DAG
+posterior's JSD on the card against the CPU.
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -628,6 +630,111 @@ def test_sequence_recipe_iteration_on_cuda(cuda, recipe, env, per_iteration):
     for k, p in pol_g.params.flat().items():
         scale = float(grads_c[k].abs().max())
         assert float((p.grad.cpu() - grads_c[k]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("recipe,env,per_iteration", [
+    ("dag_mdb", {}, [0, 0, 0]),
+    ("phylo_fldb", {"reduced": True}, [0, 2, 2]),
+])
+def test_graph_recipe_iteration_on_cuda(cuda, recipe, env, per_iteration):
+    """One iteration of each graph recipe at its own batch on the card:
+    dag_mdb at d = 5 (MDB's stop-action loss launches no kernel),
+    phylo_fldb on the reduced alignment (P_F and the learned P_B each one
+    traj_logprob forward and backward); then the same iteration on the CPU
+    from the same parameters and noise: actions equal, loss to 1e-5
+    relative, each gradient to 1e-4 of its largest entry or 1e-5 (the
+    backward head's bias has a zero gradient up to rounding)."""
+    from repro_torch.algo import TrainLoop
+    counts = (ops.decode_attention, ops.traj_logprob,
+              ops.traj_logprob_backward)
+    rec = recipes.get_train(recipe)
+    environment = rec.make_env(**env)
+    cfg = rec.make_config(environment, rec.num_envs, rec.iterations)
+    pol_g = rec.make_policy(environment, seed=1, device=cuda,
+                            requires_grad=True)
+    pol_c = rec.make_policy(environment, seed=1, device="cpu",
+                            requires_grad=True)
+    loop_g = TrainLoop(environment, environment.init(cuda), pol_g, cfg)
+    loop_c = TrainLoop(environment, environment.init("cpu"), pol_c, cfg)
+    st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+    before = [c.launches for c in counts]
+    batch_g = loop_g.sample(st_g)
+    loss_g = float(loop_g.loss_and_grads(batch_g))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == per_iteration
+    batch_c = loop_c.sample(st_c)
+    assert torch.equal(batch_g.actions.cpu(), batch_c.actions)
+    torch.testing.assert_close(batch_g.log_r_state.cpu(),
+                               batch_c.log_r_state, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(batch_g.energy.cpu(), batch_c.energy,
+                               rtol=1e-6, atol=1e-6)
+    cpu_batch = type(batch_g)(**{f.name: getattr(batch_g, f.name).cpu()
+                                 for f in dataclasses.fields(batch_g)})
+    loss_c = float(loop_c.loss_and_grads(cpu_batch))
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
+    for k, p in pol_g.params.flat().items():
+        scale = float(grads_c[k].abs().max())
+        err = float((p.grad.cpu() - grads_c[k]).abs().max())
+        assert err <= max(1e-4 * scale, 1e-5), (k, err, scale)
+
+
+@pytest.mark.parametrize("recipe,env", [("dag_mdb", {}),
+                                        ("phylo_fldb", {"reduced": True})])
+def test_graph_recipe_capture_matches_eager(cuda, recipe, env):
+    """Three iterations of each graph recipe through a captured iteration
+    (its warm-up under sync debug mode "error": a host read in the DAG or
+    phylo env's steps, the per-state log R or energy, or the phylo policy
+    raises) against two eager runs: losses and parameters as close as the
+    eager runs are to each other, bitwise where they are bitwise."""
+    from repro_torch.algo import TrainLoop
+    rec = recipes.get_train(recipe)
+    environment = rec.make_env(**env)
+    params = environment.init(cuda)
+    cfg = rec.make_config(environment, rec.num_envs, 100)
+
+    def three(captured):
+        policy = rec.make_policy(environment, seed=2, device=cuda,
+                                 requires_grad=True)
+        loop = TrainLoop(environment, params, policy, cfg)
+        state = loop.init(seed=3)
+        if captured:
+            graph = loop.capture(state)
+            outs = [graph.warmup[0]["loss"].clone()]
+            outs += [graph()[0]["loss"].clone() for _ in range(2)]
+        else:
+            outs = [loop.step(state)[1]["loss"] for _ in range(3)]
+        torch.cuda.synchronize()
+        return torch.stack(outs), {k: v.detach().clone() for k, v in
+                                   policy.params.flat().items()}
+
+    (la, pa), (lb, pb), (lc, pc) = three(False), three(False), three(True)
+    tol = max([float((la - lb).abs().max())]
+              + [float((pa[k] - pb[k]).abs().max()) for k in pa])
+    assert float((lc - la).abs().max()) <= tol
+    for k in pa:
+        assert float((pc[k] - pa[k]).abs().max()) <= tol, k
+    assert torch.isfinite(lc).all()
+
+
+def test_posterior_jsd_on_cuda_matches_cpu(cuda):
+    """The device JSD of the same 4,000 DAGs (d = 5, 29,281 DAGs) on the
+    card and on the CPU; and a full eval call (a rollout of 4,000) on the
+    card in [0, log 2]."""
+    from repro_torch.recipes.dag import PosteriorJSDEval, dag_env
+    from repro_torch.rewards.bayesnet import enumerate_dags
+    env = dag_env()
+    ev_g = PosteriorJSDEval(env, env.init(cuda), policy=None)
+    ev_c = PosteriorJSDEval(env, env.init("cpu"), policy=None)
+    dags = torch.as_tensor(enumerate_dags(5))
+    g = torch.Generator().manual_seed(0)
+    adj = dags[torch.randint(0, dags.shape[0], (4000,), generator=g)]
+    assert torch.equal(ev_g.indices(adj.to(cuda)).cpu(), ev_c.indices(adj))
+    torch.testing.assert_close(ev_g.jsd(adj.to(cuda)).cpu(), ev_c.jsd(adj),
+                               rtol=1e-5, atol=1e-7)
+    ev_g.policy = recipes.get_train("dag_mdb").make_policy(env, device=cuda)
+    jsd = float(ev_g(0)["jsd"])
+    assert 0 <= jsd <= math.log(2)
 
 
 # -- flash_attention and rwkv6_scan ------------------------------------------------

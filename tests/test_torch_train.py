@@ -201,8 +201,11 @@ def test_evaluate_trajectory_and_tb_parts_match_jax(pair):
     tnum, tden = tb_parts(tev, tb, tpol.params["log_z"] + 0.25)
     np.testing.assert_allclose(float(tnum.detach()), float(jnum), rtol=1e-5)
     assert float(tden) == float(jden) == B
-    with pytest.raises(NotImplementedError, match="fldb"):
-        objective_parts("fldb")
+    # every objective of the JAX package is ported; a name outside it raises
+    assert callable(objective_parts("fldb")) and callable(
+        objective_parts("mdb"))
+    with pytest.raises(KeyError, match="ebgfn"):
+        objective_parts("ebgfn")
 
 
 def test_optimizer_groups_and_eps_schedule():
