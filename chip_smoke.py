@@ -27,7 +27,9 @@ printing one JSON line:
              decode_attention at (16, 9 / 61, 8, 8) with ragged lengths,
              traj_logprob at (16, 8, 4), (16, 5, 22), (128, 61, 21), the
              fused step at their eval rollouts'; the graph recipes'
-             traj_logprob at (32, 26, 1378), (32, 26, 53), (256, 11, 26))
+             traj_logprob at (32, 26, 1378), (32, 26, 53), (256, 11, 26);
+             ising_ebgfn's at (256, 81, 162), (256, 81, 81) and
+             ising_converge's at (64, 16, 32), (64, 16, 16))
              and at odd ones, with its
              device time, the plain version's, the least time the card
              could take (``bound``) and, where one PyTorch call computes the
@@ -120,18 +122,41 @@ printing one JSON line:
              at (256, 11, 26), 2 launches) and the JSD of 4,000 samples
              against the exact posterior over the 29,281 DAGs; phylo's
              correlation over 64 uniform trees;
+   ising_train - ``ising_ebgfn`` (EB-GFN: the energy model's J and the
+             GFlowNet trained jointly) at full size (n = 9, sigma -0.1,
+             2,000 heat-bath PT samples, 256 envs, MLP 4x256 with a learned
+             P_B) through ``run_recipe`` for 30 iterations, captured, evals
+             off: the dataset's seconds (its heat-bath chains run in a
+             spawned process from the script's start, beside the kernel
+             checks; the run takes that array), the warm-up's and one replay's
+             launches held to 2 traj_logprob forwards and 2 backwards,
+             captured it/s over 25 replays and eager it/s over 3
+             iterations, a replay's kernels, busy time and idle share, the
+             warm-up and capture seconds;
+   ising_hold - one ising_ebgfn iteration on the card and on the CPU from
+             the same policy, J, data rows and noise: the mix coin and the
+             four rollouts' actions (near ties counted apart), the TB loss
+             and gradients on the card's batch, log A and the MH test,
+             J's gradient and J after the update;
+   ising_converge - the JAX package's table8_ising_ebgfn(quick=True)
+             configuration (n = 4, sigma 0.2, 500 Wolff samples, MLP
+             2x256, 64 envs, 800 iterations) captured: -log RMSE of J
+             after 200, 400, 600 and 800 iterations within 0.25 of the JAX
+             package's mean over three seeds (``scripts/ising_reference.py``),
+             its seconds and MH acceptance;
    path_shapes - every shape at which the phases the kernels line counts
              (serve, train, hypergrid_train, seqs_train, seqs_evals,
-             dag_train, phylo_train, dag_evals, phylo_evals) launched
-             decode_step, decode_attention or traj_logprob has a row of
-             phase 3, held against the plain version;
+             dag_train, phylo_train, dag_evals, phylo_evals, ising_train,
+             ising_converge) launched decode_step, decode_attention or
+             traj_logprob has a row of phase 3, held against the plain
+             version;
    dag_converge - ``tests/test_training.py:46-75`` through the captured
              run: MDB at d = 3 for 2,500 iterations, the JSD of 3,000
              samples against the exact posterior under 0.02;
 9. graph_train - each of the nine on-policy recipes (bitseq_tb,
              tfbind8_tb, qm9_tb, amp_tb, hypergrid_tb / _db / _subtb,
-             dag_mdb, phylo_fldb) at full width: 3 iterations through a
-             captured iteration held
+             dag_mdb, phylo_fldb) and ising_ebgfn at full width: 3
+             iterations through a captured iteration held
              to eager ones (iteration 0's actions bitwise; losses and
              parameters within two eager runs' own difference, bitwise
              where those are), one replay's launches equal to one eager
@@ -171,6 +196,7 @@ import contextlib
 import ctypes
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -261,20 +287,52 @@ DAG_JSD_SAMPLES = 4000
 DAG_CONVERGE_ITERS = 2500
 DAG_CONVERGE_SAMPLES = 3000
 DAG_CONVERGE_JSD = 0.02
-#: graph_train: every on-policy recipe at full width, with the launches of
-#: one iteration (eager, and in one replay of its capture alike); the
-#: kernels left out launch 0 times
+#: ising_ebgfn at full size (n = 9, sigma = -0.1, 2,000 data rows, 256
+#: envs, MLP 4x256 with a learned P_B): iterations of ising_train's run,
+#: the replays and eager iterations timed after it, and each iteration's
+#: launches (read from the code: TB on the mixed batch takes P_F at
+#: (256, 81, 162) and the learned P_B at (256, 81, 81) through one
+#: traj_logprob forward and one backward each; the four rollouts sample
+#: with the plain masked log-softmax, as JAX's do)
+ISING_ITERS = 30
+#: the recipe's dataset at that size: seed, n, sigma, samples
+ISING_DATASET = (0, 9, -0.1, 2000)
+ISING_RATE_REPLAYS = 25
+ISING_EAGER_ITERS = 3
+ISING_LAUNCHES_PER_ITER = {"traj_logprob_fwd": 2, "traj_logprob_bwd": 2}
+ISING_ENV = ("Ising 9x9 torus, sigma -0.1, 2,000 heat-bath PT samples "
+             "(A=162, A_b=81, T=81)")
+ISING_POLICY = "MLP 4x256, A logits + learned P_B + flow head"
+#: ising_converge: the JAX package's table8_ising_ebgfn(quick=True)
+#: configuration (n = 4, sigma = 0.2, 500 Wolff samples from seed 0, MLP
+#: 2x256, 64 envs, 800 iterations) and the mean -log RMSE of the JAX
+#: package after each checkpoint's iterations over seeds 0, 1 and 2
+#: (``scripts/ising_reference.py`` on a CPU); the port's run must lie
+#: within ISING_CONVERGE_BAND of each
+ISING_CONVERGE_ITERS = 800
+ISING_CONVERGE_MEANS = {200: 1.850285013516744, 400: 1.254481037457784,
+                        600: 1.0984818538029988, 800: 0.943963905175527}
+ISING_CONVERGE_BAND = 0.25
+#: ising_hold: the seeded coupling J its iteration starts from, as a scale
+#: of a symmetric N(0, 1) draw: energies of hundreds, the size of the
+#: untrained policy's log P_T terms, so that the MH test rejects some rows
+#: (0.92 accepted in a CPU rehearsal)
+ISING_HOLD_J_SCALE = 1.0
+#: graph_train: every on-policy recipe and EB-GFN at full width, with the
+#: launches of one iteration (eager, and in one replay of its capture
+#: alike); the kernels left out launch 0 times
 GRAPH_LAUNCHES_PER_ITER = {
     "bitseq_tb": {"decode_attention": 45, "traj_logprob_fwd": 2,
                   "traj_logprob_bwd": 1},
     **SEQ_LAUNCHES_PER_ITER,
     "hypergrid_tb": {}, "hypergrid_db": {},
     "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1},
-    **GRAPH_ENV_LAUNCHES_PER_ITER}
+    **GRAPH_ENV_LAUNCHES_PER_ITER,
+    "ising_ebgfn": ISING_LAUNCHES_PER_ITER}
 #: graph_train: iterations of each eager and captured run held against each
 #: other, and the iterations each of the two is timed over after them
 GRAPH_HOLD_ITERS = 3
-GRAPH_RATE_ITERS = {"amp_tb": 10, "phylo_fldb": 10}
+GRAPH_RATE_ITERS = {"amp_tb": 10, "phylo_fldb": 10, "ising_ebgfn": 10}
 GRAPH_RATE_ITERS_DEFAULT = 40
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
@@ -936,7 +994,9 @@ def bwd_excess(d_k, d_p, actions, valid, g_total, g_step):
 
 def check_traj_logprob(B, T, A, seed, device, floor_us, parent=None):
     """Forward and backward kernels against their plain versions; returns
-    the two rows.  The forward's library yardstick is one
+    the two rows.  The forward's per-step log-probs are held to TOL, its
+    totals to TOL plus the fp32 summation bound of T terms,
+    T * 2^-24 * sum |step| per row.  The forward's library yardstick is one
     ``F.cross_entropy(reduction="none")`` over logits masked beforehand
     (timed alone); the backward has none.  With ``parent`` the parent's
     backward kernel is timed on the same inputs (``parent_kernel_us``)."""
@@ -962,6 +1022,13 @@ def check_traj_logprob(B, T, A, seed, device, floor_us, parent=None):
     again = fwd_kernel()
     torch.cuda.synchronize()
     err = max(float((t_k - t_p).abs().max()), float((s_k - s_p).abs().max()))
+    step_err = float((s_k - s_p).abs().max())
+    # a total sums T fp32 terms, in another order on each side: each side
+    # is off the exact sum by at most T * 2^-24 * sum |step| (the
+    # worst-case summation bound), which at T = 81 and totals of ~450 is
+    # above 1e-4 (3 ulps there)
+    total_allowed = TOL + T * 2.0 ** -24 * s_p.abs().sum(-1)
+    total_excess = float(((t_k - t_p).abs() / total_allowed).max())
     bitwise = bool(torch.equal(again[0], t_k) and torch.equal(again[1], s_k))
     premasked = torch.where(mask, logits, torch.finfo(torch.float32).min
                             ).reshape(nbt, A)
@@ -971,7 +1038,10 @@ def check_traj_logprob(B, T, A, seed, device, floor_us, parent=None):
         return F.cross_entropy(premasked, flat_actions, reduction="none")
 
     library_err = float((-library().reshape(B, T) - s_p)[valid].abs().max())
-    fwd = {**shape, "max_abs_err": err, "repeat_bitwise_equal": bitwise,
+    fwd = {**shape, "max_abs_err": err, "step_max_abs_err": step_err,
+           "total_max_err_over_allowed": total_excess,
+           "allowed": f"steps {TOL}; totals {TOL} + T * 2^-24 * sum |step|",
+           "repeat_bitwise_equal": bitwise,
            **timings(fwd_kernel, fwd_plain, library,
                      match="traj_logprob_fwd"),
            "library_call": "F.cross_entropy(reduction='none') on logits "
@@ -1009,9 +1079,11 @@ def check_traj_logprob(B, T, A, seed, device, floor_us, parent=None):
            **bound(4 * nbta + nbta + 8 * nbt + nbt + 4 * (B + nbt)
                    + 4 * nbta, 9 * nbta)}
     emit("kernel", name="traj_logprob_bwd", **bwd)
-    if not (err <= TOL and berr <= TOL and b_excess <= 1 and bitwise):
+    if not (step_err <= TOL and total_excess <= 1 and berr <= TOL
+            and b_excess <= 1 and bitwise):
         raise AssertionError(f"traj_logprob disagrees with its plain "
-                             f"version at {(B, T, A)}: forward {err}, "
+                             f"version at {(B, T, A)}: forward {err} "
+                             f"({total_excess} of the totals' allowance), "
                              f"backward {berr} ({b_excess} of the "
                              f"element-wise allowance), repeat bitwise "
                              f"{bitwise}")
@@ -1508,6 +1580,40 @@ def _to_cpu(batch):
                           for f in dataclasses.fields(batch)})
 
 
+def _rows_off_a_tie(differ, order, score) -> tuple:
+    """``(near ties, mismatches)`` among the rows where ``differ`` (T, B)
+    holds: each such row's first difference in sampling ``order`` (time
+    indices) is a near tie when the CPU's top two scores there,
+    ``score(t, b)``, lie within TIE_GAP."""
+    ties = mismatched = 0
+    for b in differ.any(0).nonzero()[:, 0].tolist():
+        t = next(t for t in order if differ[t, b])
+        top2 = torch.topk(score(t, b), 2).values
+        if float(top2[0] - top2[1]) < TIE_GAP:
+            ties += 1
+        else:
+            mismatched += 1
+    return ties, mismatched
+
+
+def grad_errors(grads_g: dict, grads_c: dict, grad_atol: float) -> tuple:
+    """``(errors, waived)``: each leaf's largest difference between the
+    card's and the CPU's gradient over the CPU gradient's largest entry; a
+    leaf whose CPU gradient is at most ``grad_atol`` everywhere is held to
+    ``grad_atol`` absolute instead (error 0 or inf) and named in
+    ``waived``."""
+    errors, waived = {}, []
+    for k, gc in grads_c.items():
+        scale = float(gc.abs().max())
+        diff = float((grads_g[k].cpu() - gc).abs().max())
+        if scale <= grad_atol:
+            waived.append(k)
+            errors[k] = 0.0 if diff <= grad_atol else math.inf
+        else:
+            errors[k] = diff / scale
+    return errors, waived
+
+
 def hold_iteration(phase: str, recipe_name: str, device, env=None,
                    grad_atol: float = 0.0):
     """One iteration of a recipe, at its own batch, on the card (kernels)
@@ -1545,43 +1651,28 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None,
     a_g, a_c = batch_g.actions.cpu(), batch_c.actions
     T, B = a_c.shape
     differ = (a_g != a_c)
-    ties, mismatched = 0, 0
     if differ.any():
         with torch.no_grad():
             logits = pol_c.apply(batch_c.obs.reshape(
                 ((T + 1) * B,) + batch_c.obs.shape[2:]))["logits"].reshape(
                 T + 1, B, -1)
-        for b in range(B):
-            rows = differ[:, b].nonzero()
-            if not len(rows):
-                continue
-            t = int(rows[0])
-            noise = hash_step_noise(
-                torch.tensor([train_seed(5, 0)]), torch.tensor([b]),
-                torch.tensor([t]), env.action_dim)
-            mask = batch_c.fwd_mask[t, b] | batch_c.done[t, b]
-            if float(noise.explore_u[0]) < current_eps(cfg, 0):
-                score = torch.where(mask, 0.0, float("-inf")) \
-                    + noise.gumbel_u[0]
-            else:
-                score = masked_logprobs(logits[t, b], mask) + noise.gumbel[0]
-            top2 = torch.topk(score, 2).values
-            if float(top2[0] - top2[1]) < TIE_GAP:
-                ties += 1
-            else:
-                mismatched += 1
+
+    def score(t, b):
+        noise = hash_step_noise(
+            torch.tensor([train_seed(5, 0)]), torch.tensor([b]),
+            torch.tensor([t]), env.action_dim)
+        mask = batch_c.fwd_mask[t, b] | batch_c.done[t, b]
+        if float(noise.explore_u[0]) < current_eps(cfg, 0):
+            return torch.where(mask, 0.0, float("-inf")) + noise.gumbel_u[0]
+        return masked_logprobs(logits[t, b], mask) + noise.gumbel[0]
+
+    ties, mismatched = _rows_off_a_tie(differ, range(T), score)
     loss_g = float(loop_g.loss_and_grads(batch_g))
     loss_c = float(loop_c.loss_and_grads(_to_cpu(batch_g)))
     grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
-    grad_err, waived = {}, []
-    for k, p in pol_g.params.flat().items():
-        scale = float(grads_c[k].abs().max())
-        diff = float((p.grad.cpu() - grads_c[k]).abs().max())
-        if scale <= grad_atol:
-            waived.append(k)
-            grad_err[k] = 0.0 if diff <= grad_atol else math.inf
-        else:
-            grad_err[k] = diff / scale
+    grad_err, waived = grad_errors(
+        {k: p.grad for k, p in pol_g.params.flat().items()}, grads_c,
+        grad_atol)
     worst = max(grad_err, key=grad_err.get)
     rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
     emit(phase, recipe=recipe_name, steps=T, envs=B,
@@ -1614,6 +1705,12 @@ def train_profile(loop, state, phase: str = "train_profile") -> None:
 
 
 def profile_step(phase: str, step, **fields) -> None:
+    """Emit :func:`profiled_step`'s fields of one call of ``step`` as the
+    line of ``phase``."""
+    emit(phase, **fields, **profiled_step(step))
+
+
+def profiled_step(step) -> dict:
     """Where one call of ``step`` (a training iteration, a decode step)
     spends its time: timed plain, then under ``torch.profiler`` (device
     time by kernel; the device's idle share of the plain call's wall time),
@@ -1641,14 +1738,14 @@ def profile_step(phase: str, step, **fields) -> None:
     stats = pstats.Stats(host).stats
     total = sum(v[2] for v in stats.values())
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
-    emit(phase, **fields, iterations=1, wall_us=wall_us,
-         device_busy_us=busy, device_idle_share=1 - busy / wall_us,
-         device_kernels=sum(r[2] for r in rows),
-         device_top=[{"name": k[:70], "device_us": t, "calls": c}
-                     for k, t, c in rows[:10]],
-         host_top=[{"function": f"{Path(f).name}:{ln}:{fn}",
-                    "own_share": v[2] / total, "calls": v[1]}
-                   for (f, ln, fn), v in top])
+    return dict(iterations=1, wall_us=wall_us, device_busy_us=busy,
+                device_idle_share=1 - busy / wall_us,
+                device_kernels=sum(r[2] for r in rows),
+                device_top=[{"name": k[:70], "device_us": t, "calls": c}
+                            for k, t, c in rows[:10]],
+                host_top=[{"function": f"{Path(f).name}:{ln}:{fn}",
+                           "own_share": v[2] / total, "calls": v[1]}
+                          for (f, ln, fn), v in top])
 
 
 # -- phase 6: hypergrid training -----------------------------------------------
@@ -2189,12 +2286,353 @@ def dag_converge(device) -> None:
                              f"{DAG_CONVERGE_JSD}), launches {launches}")
 
 
+# -- phase 8b: EB-GFN on the Ising model -------------------------------------
+
+def timed_ising_dataset(args) -> tuple:
+    """``(generate_ising_dataset(*args), its seconds)``.  The heat-bath
+    chains are Python on one host core (~25 s at ISING_DATASET), so
+    ``main`` runs this in a spawned process beside the kernel checks."""
+    from repro_torch.envs.ising import generate_ising_dataset
+    t0 = time.perf_counter()
+    data = generate_ising_dataset(*args)
+    return data, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def dataset_made_by(future):
+    """For the block, the recipe's dataset at ISING_DATASET's arguments is
+    the array ``future`` (:func:`timed_ising_dataset`'s) returns: the same
+    function on the same arguments, run in another process; any other
+    arguments generate as usual."""
+    from repro_torch.recipes import ising
+    real = ising.generate_ising_dataset
+
+    def made(seed, n, sigma, num_samples):
+        if (seed, n, sigma, num_samples) == ISING_DATASET:
+            return future.result()[0]
+        return real(seed, n, sigma, num_samples)
+
+    ising.generate_ising_dataset = made
+    try:
+        yield
+    finally:
+        ising.generate_ising_dataset = real
+
+
+def ising_train_phase(device, dataset) -> dict:
+    """``ising_ebgfn`` at full size through ``run_recipe`` for ISING_ITERS
+    iterations (iteration 0 eager, the rest replays of its capture), evals
+    off: the warm-up's launches and one replay's, each held to
+    ISING_LAUNCHES_PER_ITER exactly; then ISING_RATE_REPLAYS replays and
+    ISING_EAGER_ITERS eager iterations timed (the data table wraps past
+    the run's rows), one replay profiled (kernels, busy time, idle share,
+    tops), and -log RMSE and the metrics after them, finite.  ``dataset``
+    is the future of the recipe's dataset (:func:`timed_ising_dataset`),
+    which the run takes (:func:`dataset_made_by`); its host seconds are
+    reported.  Returns the run's launches."""
+    from repro_torch.core.ebgfn import neg_log_rmse
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    reset_launches()
+    want = _only(read_launches(), **ISING_LAUNCHES_PER_ITER)
+    t0 = time.perf_counter()
+    with dataset_made_by(dataset):
+        out = run_recipe("ising_ebgfn", iterations=ISING_ITERS,
+                         seed=ISING_DATASET[0], device=device, eval_every=0,
+                         log=lambda line: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop, state = out["loop"], out["state"]
+    captured = loop.captured
+    warm = read_launches()
+    launches = run_launches(warm, captured)
+    if warm != want or captured.launches != want:
+        raise AssertionError(f"ising_train: the warm-up launched {warm}, "
+                             f"one replay {captured.launches}; each "
+                             f"iteration should {want}")
+    t0 = time.perf_counter()
+    for _ in range(ISING_RATE_REPLAYS):
+        metrics, _ = captured()
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(ISING_EAGER_ITERS):
+        loop.step(state)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    profile = profiled_step(captured)
+    metrics, _ = captured()
+    J_true = loop.env.init(device).reward_params["J"]
+    last = {"gfn_loss": float(metrics["gfn_loss"]),
+            "mh_accept": float(metrics["mh_accept"]),
+            "neg_log_rmse": float(neg_log_rmse(state.J.detach(), J_true))}
+    emit("ising_train", nvidia_smi=smi, recipe="ising_ebgfn", env=ISING_ENV,
+         policy=ISING_POLICY, num_envs=loop.num_envs, iterations=ISING_ITERS,
+         dataset_seconds=dataset.result()[1],
+         dataset_made="in a spawned process beside the kernel checks",
+         dataset_wait_s=out["dataset_seconds"], run_wall_s=wall,
+         warmup_seconds=captured.warmup_seconds,
+         capture_seconds=captured.capture_seconds,
+         launches_per_iteration=want, warmup_launches=warm,
+         graph_launches=captured.launches, replays=captured.replays,
+         launches=launches, timed_replays=ISING_RATE_REPLAYS,
+         captured_iterations_per_s=ISING_RATE_REPLAYS / graph_s,
+         eager_iterations=ISING_EAGER_ITERS,
+         eager_iterations_per_s=ISING_EAGER_ITERS / eager_s,
+         speedup=(eager_s / ISING_EAGER_ITERS) / (graph_s
+                                                  / ISING_RATE_REPLAYS),
+         replay_profile=profile, last=last, iterations_done=state.step)
+    if not all(math.isfinite(v) for v in last.values()) \
+            or not 0 <= last["mh_accept"] <= 1:
+        raise AssertionError(f"ising_train: metrics {last}")
+    return launches
+
+
+def ising_hold(device) -> None:
+    """One ``ising_ebgfn`` iteration at full size on the card (kernels)
+    against the host's CPU (plain versions), from the same policy (drawn
+    from seed 1), J (ISING_HOLD_J_SCALE of a seeded symmetric draw), data
+    rows and noise (loop seed 5).
+
+    - The GFN update, the CPU's iteration from the same parameters: the
+      mix coin bitwise; the forward and the collecting backward rollout's
+      actions, card against CPU, a row whose first difference in its
+      sampling order sits at a near tie counted apart (as
+      ``hold_iteration`` does), any other difference a failure.  The CPU
+      teacher-forces the card's mixed batch: the TB loss to 1e-4
+      relative, each policy gradient to 1e-4 of its tensor's largest entry
+      (a leaf whose CPU gradient is at most 1e-5, to 1e-5 absolute).
+    - The MH test (``EBGFNLoop.mh_test``), rerun collecting on each device
+      from the card's updated policy (Adam's first step sends a gradient
+      entry near its epsilon anywhere in [-lr, lr], so the two devices'
+      own updates part there): the card's rerun bitwise its iteration's;
+      the negatives' and the MH rollout's actions as above; on the rows
+      where both agree, log A to 1e-4 of its terms' magnitude (both
+      energies, the MH rollout's log P_F and log P_B, the negatives'
+      log P_F steps), the outcome equal where |log u - log A| > 1e-3.
+    - The energy update: the CPU's ``cd_step`` from the same J and a fresh
+      Adam on the card's data rows, negatives and outcome; J's gradient
+      and J after to 1e-4 of their largest entries."""
+    from repro_torch.algo.loop import loss_and_grads
+    from repro_torch.core.objectives import evaluate_trajectory, tb_parts
+    from repro_torch.core.types import masked_logprobs, train_seed
+    from repro_torch.recipes.ising import ising_env, ising_loop, ising_policy
+
+    cpu = torch.device("cpu")
+    env = ising_env()
+    T, A, Ab = env.max_steps, env.action_dim, env.backward_action_dim
+    pol_g = ising_policy(env, seed=1, device=device, requires_grad=True)
+    init = {k: v.detach().cpu().clone() for k, v in
+            pol_g.params.flat().items()}
+    pol_c, pol_init = (ising_policy(env, device=cpu, requires_grad=True)
+                       for _ in range(2))
+    pol_c.load_params(init)
+    pol_init.load_params(init)
+    loop_g = ising_loop(env, pol_g, seed=0, iterations=ISING_ITERS)
+    loop_c = ising_loop(env, pol_c, seed=0, iterations=ISING_ITERS)
+    B = loop_c.num_envs
+    g = torch.Generator().manual_seed(7)
+    J0 = torch.randn(env.D, env.D, generator=g)
+    J0 = ISING_HOLD_J_SCALE * (J0 + J0.T)
+
+    def state(loop):
+        st = loop.init(seed=5)
+        with torch.no_grad():
+            st.J.copy_(J0)
+        return st
+
+    st_g, st_c, st_cd = state(loop_g), state(loop_c), state(loop_c)
+    m_g, batch_g, tr_g = loop_g.iteration_trace(st_g)
+    grads_g = {k: p.grad.cpu() for k, p in pol_g.params.flat().items()}
+    batch_gc = _to_cpu(batch_g)
+    # the CPU from the same parameters: TB on the card's batch, then its
+    # own iteration
+    loss_tf = float(loss_and_grads(pol_c.params, *tb_parts(
+        evaluate_trajectory(pol_c, batch_gc), batch_gc,
+        pol_c.params["log_z"])))
+    grads_c = {k: p.grad.clone() for k, p in pol_c.params.flat().items()}
+    m_c, _, tr_c = loop_c.iteration_trace(st_c)
+    # the MH test from the card's updated policy, on both devices
+    pol_c.load_params({k: v.detach().cpu() for k, v in
+                       pol_g.params.flat().items()})
+    seed = train_seed(5, 0)
+    test_g = loop_g.mh_test(torch.tensor(seed, device=device), tr_g.reward,
+                            tr_g.data, collect=True)
+    test_c = loop_c.mh_test(torch.tensor(seed), tr_c.reward, tr_c.data,
+                            collect=True)
+    rerun_bitwise = all(torch.equal(getattr(test_g, f), getattr(tr_g.test, f))
+                        for f in ("log_a", "accept")) \
+        and torch.equal(test_g.neg.actions, tr_g.test.neg.actions)
+    take_equal = torch.equal(tr_g.take_fwd.cpu(), tr_c.take_fwd)
+    # the actions of the four rollouts, card against CPU
+    seeds = torch.tensor([seed])
+    noise = loop_c.noise
+
+    def row_noise(src, b, t, n):
+        return src(seeds, torch.tensor([b]), torch.tensor([t]), n)[0]
+
+    def heads(pol, batch):
+        with torch.no_grad():
+            out = pol.apply(batch.obs.reshape((T + 1) * B, -1))
+        return {k: out[k].reshape(T + 1, B, -1) for k in ("logits",
+                                                          "logits_b")}
+
+    def forward_score(pol, batch, src):
+        logits = heads(pol, batch)["logits"]
+        return lambda t, b: masked_logprobs(
+            logits[t, b], batch.fwd_mask[t, b] | batch.done[t, b]) \
+            + row_noise(src, b, t, A)
+
+    def backward_score(pol, batch, src):
+        # forward index t was drawn at backward step T - 1 - t, from the
+        # state at forward time t + 1
+        logits = heads(pol, batch)["logits_b"]
+        return lambda t, b: masked_logprobs(
+            logits[t + 1, b], batch.bwd_mask[t + 1, b]) \
+            + row_noise(src, b, T - 1 - t, Ab)
+
+    backward = range(T - 1, -1, -1)
+    checks = {
+        "fwd": (tr_g.fwd.actions, tr_c.fwd.actions, range(T),
+                forward_score(pol_init, tr_c.fwd, noise.fwd)),
+        "bwd": (tr_g.bwd.bwd_actions, tr_c.bwd.bwd_actions, backward,
+                backward_score(pol_init, tr_c.bwd, noise.bwd)),
+        "neg": (test_g.neg.actions, test_c.neg.actions, range(T),
+                forward_score(pol_c, test_c.neg, noise.neg)),
+        "mh": (test_g.mh.batch.bwd_actions, test_c.mh.batch.bwd_actions,
+               backward, backward_score(pol_c, test_c.mh.batch,
+                                        noise.mh_bwd))}
+    rows = {}
+    for name, (a_g, a_c, order, score) in checks.items():
+        differ = a_g.cpu() != a_c
+        ties, bad = _rows_off_a_tie(differ, order, score)
+        rows[name] = {"differing": int(differ.any(0).sum()),
+                      "near_ties": ties, "mismatched": bad,
+                      "equal": ~differ.any(0)}
+    bwd_fwd_equal = torch.equal(tr_g.bwd.actions.cpu()[:, rows["bwd"][
+        "equal"]], tr_c.bwd.actions[:, rows["bwd"]["equal"]])
+    # the TB loss and gradients on the card's batch
+    loss_g = float(m_g["gfn_loss"])
+    loss_rel = abs(loss_g - loss_tf) / max(abs(loss_tf), 1e-30)
+    grad_err, waived = grad_errors(grads_g, grads_c, 1e-5)
+    worst = max(grad_err, key=grad_err.get)
+    # the MH test on rows whose negatives and MH trajectories agree
+    same = rows["neg"]["equal"] & rows["mh"]["equal"]
+    J = tr_c.reward.reward_params["J"]
+    x, x_neg = tr_c.data.float(), test_c.neg.obs[-1]
+    terms = (((x @ J) * x).sum(-1).abs() + ((x_neg @ J) * x_neg).sum(-1).abs()
+             + test_c.mh.log_pf.abs() + test_c.mh.log_pb.abs()
+             + test_c.neg.log_pf_beh.abs().sum(0))
+    log_a_excess = float(((test_g.log_a.cpu() - test_c.log_a).abs()
+                          / (1e-4 * terms))[same].max())
+    clear = same & ((test_c.log_u - test_c.log_a).abs() > 1e-3)
+    accept_equal = torch.equal(test_g.accept.cpu()[clear],
+                               test_c.accept[clear])
+    # the energy update from the card's MH outcome
+    loop_c.cd_step(st_cd, tr_g.data.cpu().float(),
+                   tr_g.test.neg.obs[-1].cpu(), tr_g.test.accept.cpu())
+    J_err = {}
+    for k, got, want in (("J_grad", st_g.J.grad, st_cd.J.grad),
+                         ("J", st_g.J.detach(), st_cd.J.detach())):
+        J_err[k] = float((got.cpu() - want).abs().max()) \
+            / float(want.abs().max())
+    mismatched = sum(r["mismatched"] for r in rows.values())
+    emit("ising_hold", recipe="ising_ebgfn", steps=T, envs=B,
+         j_scale=ISING_HOLD_J_SCALE,
+         forward_rows=int(tr_c.take_fwd.sum()), take_fwd_equal=take_equal,
+         rollouts={k: {f: v for f, v in r.items() if f != "equal"}
+                   for k, r in rows.items()},
+         bwd_forward_actions_equal=bwd_fwd_equal,
+         mh_rerun_bitwise=rerun_bitwise,
+         gfn_loss_cuda=loss_g, gfn_loss_cpu_on_card_batch=loss_tf,
+         gfn_loss_cpu_iteration=float(m_c["gfn_loss"]),
+         loss_rel_err=loss_rel, grad_max_err_over_scale=grad_err[worst],
+         grad_worst_param=worst, grad_waived=waived,
+         mh_rows_compared=int(same.sum()),
+         log_a_max_err_over_allowed=log_a_excess,
+         accept_rows_compared=int(clear.sum()), accept_equal=accept_equal,
+         mh_accept_cuda=float(test_g.accept.float().mean()),
+         mh_accept_cpu=float(test_c.accept.float().mean()),
+         J_grad_max_err_over_scale=J_err["J_grad"],
+         J_max_err_over_scale=J_err["J"])
+    if not (take_equal and rerun_bitwise and not mismatched and bwd_fwd_equal
+            and loss_rel <= 1e-4 and grad_err[worst] <= 1e-4
+            and log_a_excess <= 1 and accept_equal
+            and max(J_err.values()) <= 1e-4):
+        raise AssertionError(
+            f"ising_hold: mix coin equal {take_equal}, MH rerun bitwise "
+            f"{rerun_bitwise}, {mismatched} rows differ off a tie, loss rel "
+            f"error {loss_rel}, gradient error {grad_err[worst]} ({worst}), "
+            f"log A {log_a_excess} of its allowance, accept equal "
+            f"{accept_equal}, J {J_err}")
+
+
+def ising_converge(device) -> dict:
+    """The JAX package's ``table8_ising_ebgfn(quick=True)`` configuration
+    on the card, captured: n = 4, sigma = 0.2, 500 Wolff samples from
+    seed 0, MLP 2x256 with a learned P_B (drawn from seed 0), 64 envs,
+    loop seed 0, ISING_CONVERGE_ITERS iterations; -log RMSE of J after
+    each checkpoint's iterations within ISING_CONVERGE_BAND of the JAX
+    package's mean there (ISING_CONVERGE_MEANS), the MH acceptance read at
+    each, and every iteration's launches held to ISING_LAUNCHES_PER_ITER.
+    Returns the run's launches."""
+    from repro_torch.core.ebgfn import EBGFNLoop, neg_log_rmse
+    from repro_torch.core.policies import MLPPolicy
+    from repro_torch.recipes.ising import ising_dataset, ising_env
+
+    smi = nvidia_smi()
+    env = ising_env(n=4, sigma=0.2)
+    data = torch.as_tensor(ising_dataset(0, 4, 0.2, 500), device=device)
+    policy = MLPPolicy(env.D, env.action_dim, env.backward_action_dim,
+                       hidden=(256, 256), learn_backward=True, seed=0,
+                       device=device, requires_grad=True)
+    loop = EBGFNLoop(env, policy, data, iterations=ISING_CONVERGE_ITERS,
+                     num_envs=64)
+    J_true = env.init(device).reward_params["J"]
+
+    def checkpoint(it, state, metrics, batch):
+        if it + 1 in ISING_CONVERGE_MEANS:
+            return (it + 1, float(neg_log_rmse(state.J.detach(), J_true)),
+                    float(metrics["mh_accept"]))
+        return None
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = loop.run(0, ISING_CONVERGE_ITERS, callback=checkpoint)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = run_launches(read_launches(), loop.captured)
+    want = {k: v * ISING_CONVERGE_ITERS for k, v in _only(
+        launches, **ISING_LAUNCHES_PER_ITER).items()}
+    score = {c: v for c, v, _ in filter(None, hist)}
+    off = {c: score[c] - m for c, m in ISING_CONVERGE_MEANS.items()}
+    emit("ising_converge", nvidia_smi=smi,
+         env="Ising 4x4 torus, sigma 0.2, 500 Wolff samples (A=32, A_b=16, "
+             "T=16)", policy="MLP 2x256, learned P_B", num_envs=64,
+         iterations=ISING_CONVERGE_ITERS, seconds=seconds,
+         iterations_per_s=ISING_CONVERGE_ITERS / seconds,
+         neg_log_rmse=score, jax_mean=ISING_CONVERGE_MEANS,
+         off_jax_mean=off, band=ISING_CONVERGE_BAND,
+         mh_accept={c: a for c, _, a in filter(None, hist)},
+         replays=loop.captured.replays,
+         launches={k: v for k, v in launches.items() if v})
+    if launches != want or any(abs(d) > ISING_CONVERGE_BAND
+                               for d in off.values()):
+        raise AssertionError(f"ising_converge: -log RMSE {score} off JAX's "
+                             f"means by {off} (band {ISING_CONVERGE_BAND});"
+                             f" launches {launches}, want {want}")
+    return launches
+
+
 # -- phase 9: captured training iterations -------------------------------------
 
 def _hold_run(loop, state, captured: bool):
     """GRAPH_HOLD_ITERS iterations of a fresh loop, eagerly or through a
     captured iteration (iteration 0 eager, then replays): every
-    iteration's actions and loss, and the parameters after them."""
+    iteration's actions and loss (the loop's first metric), and the
+    tensors it trains after them (``loop.trained``: the policy's
+    parameters, and EB-GFN's J)."""
     actions, losses, graph = [], [], None
     for it in range(GRAPH_HOLD_ITERS):
         if not captured:
@@ -2205,11 +2643,11 @@ def _hold_run(loop, state, captured: bool):
         else:
             metrics, batch = graph()
         actions.append(batch.actions.clone())
-        losses.append(metrics["loss"].clone())
+        losses.append(metrics[loop.METRICS[0]].clone())
     torch.cuda.synchronize()
     return {"actions": actions, "loss": torch.stack(losses),
             "params": {k: v.detach().clone()
-                       for k, v in loop.policy.params.flat().items()},
+                       for k, v in loop.trained(state).items()},
             "graph": graph}
 
 
@@ -2225,8 +2663,9 @@ def _bitwise(a: dict, b: dict) -> bool:
 
 
 def graph_train_phase(device) -> None:
-    """Each on-policy recipe at full width (GRAPH_LAUNCHES_PER_ITER), from
-    one fresh state (the recipe's policy drawn from seed 1, loop seed 5):
+    """Each on-policy recipe and EB-GFN's ``ising_ebgfn`` at full width
+    (GRAPH_LAUNCHES_PER_ITER), from one fresh state (the recipe's policy
+    drawn from seed 1, loop seed 5):
     two eager runs of GRAPH_HOLD_ITERS iterations (``loop.step``) measure
     how closely the card repeats itself, and a captured run (iteration 0
     eager, then replays) is held to that: iteration 0's actions bitwise,
@@ -2238,18 +2677,24 @@ def graph_train_phase(device) -> None:
     an iteration)."""
     from repro_torch import recipes
     from repro_torch.algo import TrainLoop
+    from repro_torch.recipes.ising import ising_loop
 
     smi = nvidia_smi()
     for name, per_iter in GRAPH_LAUNCHES_PER_ITER.items():
         rec = recipes.get_train(name)
         env = rec.make_env()
         env_params = env.init(device)
-        cfg = rec.make_config(env, rec.num_envs, rec.iterations)
+        iters = GRAPH_RATE_ITERS.get(name, GRAPH_RATE_ITERS_DEFAULT)
 
         def fresh():
             policy = rec.make_policy(env, seed=1, device=device,
                                      requires_grad=True)
-            loop = TrainLoop(env, env_params, policy, cfg)
+            if rec.run_override is None:
+                loop = TrainLoop(env, env_params, policy, rec.make_config(
+                    env, rec.num_envs, rec.iterations))
+            else:               # EB-GFN, the recipe that runs its own loop
+                loop = ising_loop(env, policy, seed=0,
+                                  iterations=GRAPH_HOLD_ITERS + iters)
             return loop, loop.init(seed=5)
 
         loop_a, state_a = fresh()
@@ -2270,7 +2715,6 @@ def graph_train_phase(device) -> None:
         actions_all = all(torch.equal(x, y) for x, y in
                           zip(c["actions"], a["actions"]))
 
-        iters = GRAPH_RATE_ITERS.get(name, GRAPH_RATE_ITERS_DEFAULT)
         t0 = time.perf_counter()
         for _ in range(iters):
             loop_a.step(state_a)
@@ -2646,6 +3090,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    spawned = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    dataset = spawned.submit(timed_ising_dataset, ISING_DATASET)
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2744,6 +3191,13 @@ def main() -> int:
                                 floor_us=floor_us)
              for i, (B, T, A) in enumerate([
                  (32, 26, 1378), (32, 26, 53), (256, 11, 26)])]
+    # ising_ebgfn's loss, P_F over the 162 site-spin pairs and its learned
+    # P_B over the 81 sites (256 trajectories of 81 steps), and the same at
+    # ising_converge's 4x4 lattice (64 x 16, A = 32 and 16)
+    traj += [check_traj_logprob(B, T, A, seed=40 + i, device=device,
+                                floor_us=floor_us)
+             for i, (B, T, A) in enumerate([
+                 (256, 81, 162), (256, 81, 81), (64, 16, 32), (64, 16, 16)])]
     # (16, 30) is the main path's (4x8^4, a warp per trajectory); 78 the
     # paper grid's; 7000 a long trajectory (a block of 896 threads); then
     # potentials at the offset log Z gives them (1e3), where JAX's expanded
@@ -2841,6 +3295,11 @@ def main() -> int:
     graph_env_profile(device)
     with recording_path_shapes():
         graph_evals = graph_evals_phase(device)
+        ising = ising_train_phase(device, dataset)
+    spawned.shutdown()
+    ising_hold(device)
+    with recording_path_shapes():
+        ising_conv = ising_converge(device)
     check_path_shapes(rows, attn, traj)
     dag_converge(device)
     graph_train_phase(device)
@@ -2868,10 +3327,11 @@ def main() -> int:
 
     def main_launches(kernel):
         """A kernel's launches on bitseq_tb's, the hypergrid's, the
-        sequence recipes' and the graph recipes' paths (training and
-        evals)."""
+        sequence recipes', the graph recipes' (training and evals) and
+        EB-GFN's paths."""
         return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
-                                       graph_env, graph_evals))
+                                       graph_env, graph_evals, ising,
+                                       ising_conv))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

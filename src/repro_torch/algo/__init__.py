@@ -1,5 +1,5 @@
 """Training loop and samplers of the port (port of ``repro.algo``)."""
-from .loop import TrainLoop
+from .loop import CapturableLoop, TrainLoop
 from .samplers import OnPolicySampler
 
-__all__ = ["OnPolicySampler", "TrainLoop"]
+__all__ = ["CapturableLoop", "OnPolicySampler", "TrainLoop"]

@@ -1,14 +1,18 @@
-"""The on-policy training loop (port of ``repro.algo.loop.TrainLoop``,
-single-device plan).
+"""What every training loop shares, and the on-policy loop (port of
+``repro.algo.loop.TrainLoop``, single-device plan).
 
-One iteration is the JAX step's ``core`` (``repro/algo/loop.py:128-151``):
-sample a batch, compute the objective's additive ``(num, den)`` parts,
-differentiate ``num``, divide the gradients by ``max(den, 1)``, take the
-Adam step.  Parameters and optimizer state update in place; the loop's
-carry is a :class:`repro_torch.core.types.TrainState`, whose iteration
-counter (and the noise seed and epsilon read from it) lives on the device.
+A loop is an object with the :class:`CapturableLoop` contract: ``init(seed)``
+makes a fresh carry (a :class:`repro_torch.core.types.TrainState`, whose
+iteration counter, and the noise seed read from it, lives on the device)
+and ``iteration(state, log)`` runs one iteration on the carry's tensors,
+in place, with no host read.  :class:`TrainLoop` is the on-policy loop;
+EB-GFN's joint loop (:class:`repro_torch.core.ebgfn.EBGFNLoop`) is the
+other.  One on-policy iteration is the JAX step's ``core``
+(``repro/algo/loop.py:128-151``): sample a batch, compute the objective's
+additive ``(num, den)`` parts, differentiate ``num``, divide the
+gradients by ``max(den, 1)``, take the Adam step.
 
-How the loop is driven, as JAX's ``mode``:
+How a loop is driven, as JAX's ``mode`` (:meth:`CapturableLoop.run`):
 
 - ``mode="python"``: one iteration at a time, with the eval suite and a
   callback between iterations (JAX jits the step and calls host code
@@ -21,8 +25,8 @@ On CUDA both modes run the run's first iteration eagerly, capture the
 next in a CUDA graph (:class:`CapturedIteration`, the counterpart of
 JAX's jitted step) and replay it for every iteration after: the
 iteration's thousands of kernel launches go out without the Python host.
-On the CPU both run :meth:`TrainLoop.step`'s body in a loop; it is the
-same Python function the graph captures.
+On the CPU both run the loop's ``iteration`` in a loop; it is the same
+Python function the graph captures.
 """
 from __future__ import annotations
 
@@ -37,10 +41,6 @@ from ..core.types import TrainState, train_seed
 from ..kernels import ops
 from .samplers import OnPolicySampler
 
-#: the metrics of an iteration, in the order of JAX's metrics dict
-METRICS = ("loss", "log_z", "mean_log_reward")
-
-
 class ScanLog(NamedTuple):
     """``mode="scan"``'s per-iteration outputs on the device: ``metrics``
     name -> (num_iterations,) and ``log_rewards`` (num_iterations, B); the
@@ -50,8 +50,8 @@ class ScanLog(NamedTuple):
 
 
 class CapturedIteration:
-    """One training iteration captured in a CUDA graph (the port's
-    counterpart of JAX's jitted step).
+    """One training iteration of a loop (:class:`CapturableLoop`) captured
+    in a CUDA graph (the port's counterpart of JAX's jitted step).
 
     Building it runs the iteration the state is at eagerly, on a side
     stream (the warm-up that capture needs: cuBLAS workspaces, the
@@ -61,7 +61,7 @@ class CapturedIteration:
     :attr:`warmup`.  Then it captures the next iteration on the same
     stream; the capture runs nothing.  Each call replays the graph: one
     iteration, on the static input and output buffers the capture made
-    (the state's counter, parameters, gradients and optimizer state are
+    (the state's counter, parameters, gradients and optimizer states are
     updated in place), and returns the static ``(metrics, batch)``, which
     the next replay overwrites.  A failure to capture or replay raises;
     nothing falls back to the eager loop.
@@ -70,7 +70,7 @@ class CapturedIteration:
     :attr:`replays` the replays so far, :attr:`warmup_seconds` and
     :attr:`capture_seconds` the one-off costs."""
 
-    def __init__(self, loop: "TrainLoop", state: TrainState,
+    def __init__(self, loop: "CapturableLoop", state: TrainState,
                  log: Optional[ScanLog] = None):
         dev = state.counter.device
         ops.device_error_counts(dev)          # outlives the graph
@@ -107,84 +107,62 @@ class CapturedIteration:
         return self.outputs
 
 
-class TrainLoop:
-    """Environment x policy x objective x sampler, on the policy's device.
-
-    ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy` or
-    :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
-    grad; ``sampler`` defaults to
-    :class:`OnPolicySampler`.  Iteration ``i`` of a run seeded ``seed``
-    draws its rollout noise from ``train_seed(seed, i)``.  After
-    :meth:`run` on CUDA, :attr:`captured` is the run's
-    :class:`CapturedIteration` (None before, and on the CPU)."""
-
-    def __init__(self, env, env_params, policy, cfg: GFNConfig,
-                 sampler: Optional[OnPolicySampler] = None):
-        if not all(p.requires_grad for p in policy.params.parameters()):
-            raise ValueError("TrainLoop needs a policy whose parameters "
-                             "require grad (requires_grad=True)")
-        self.env, self.env_params = env, env_params
-        self.policy, self.cfg = policy, cfg
-        self.sampler = sampler or OnPolicySampler()
-        self._sample = self.sampler.build(env, env_params, policy, cfg)
-        self.parts_fn = make_loss_parts_fn(env, policy, cfg)
-        self.captured: Optional[CapturedIteration] = None
-
-    def init(self, seed: int) -> TrainState:
-        train_seed(seed, 0)                   # the seed's range check
-        params = self.policy.params
-        dev = next(params.parameters()).device
-        return TrainState(params=params,
-                          optimizer=make_optimizer(self.cfg, params),
-                          seed=int(seed),
-                          counter=torch.zeros((), dtype=torch.int64,
-                                              device=dev))
-
-    def sample(self, state: TrainState) -> RolloutBatch:
-        """The batch of the iteration ``state`` is at."""
-        return self._sample(state.noise_seed(), state.counter)
-
-    def loss_and_grads(self, batch: RolloutBatch) -> torch.Tensor:
-        """Set every parameter's ``.grad`` to the gradient of the loss on
-        ``batch`` and return the loss, ``num / max(den, 1)``.  A parameter
-        the loss does not reach gets a zero gradient, so Adam moves it on
-        its momentum, as the JAX optimizer does.  The gradients are made
-        anew at each call; under capture that makes them the graph's
-        static buffers, which every replay rewrites."""
-        params = list(self.policy.params.parameters())
+def loss_and_grads(params: torch.nn.Module, num: torch.Tensor,
+                   den: torch.Tensor) -> torch.Tensor:
+    """Set every parameter's ``.grad`` to the gradient of the loss given
+    as additive parts ``(num, den)`` and return the loss,
+    ``num / max(den, 1)``: ``num`` differentiated, the gradients divided,
+    as JAX's loop does.  A parameter the loss does not reach gets a zero
+    gradient, so Adam moves it on its momentum, as the JAX optimizer
+    does.  The gradients are made anew at each call; under capture that
+    makes them the graph's static buffers, which every replay rewrites."""
+    params = list(params.parameters())
+    for p in params:
+        p.grad = None
+    num.backward()
+    den = torch.clamp(den, min=1.0)
+    with torch.no_grad():
         for p in params:
-            p.grad = None
-        num, den = self.parts_fn(batch)
-        num.backward()
-        den = torch.clamp(den, min=1.0)
-        with torch.no_grad():
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                p.grad.div_(den)
-        return num.detach() / den
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.div_(den)
+    return num.detach() / den
 
-    def iteration(self, state: TrainState, log: Optional[ScanLog] = None
-                  ) -> Tuple[Dict[str, torch.Tensor], RolloutBatch]:
-        """One iteration on the state's tensors, with no host read: the
-        body that :meth:`step` runs and that :class:`CapturedIteration`
-        captures.  Writes its metrics into ``log``'s row ``counter``, then
-        advances the counter.  Returns ``(metrics, batch)``; metrics are
-        0-dim tensors on the device (``loss``, ``log_z`` after the update,
-        ``mean_log_reward``)."""
-        batch = self.sample(state)
-        loss = self.loss_and_grads(batch)
-        state.optimizer.step()
-        metrics = {"loss": loss,
-                   "log_z": self.policy.params["log_z"].detach().clone(),
-                   "mean_log_reward": batch.log_reward.mean()}
-        if log is not None:
-            row = state.counter.view(1)
-            for k, buf in log.metrics.items():
-                buf.index_copy_(0, row, metrics[k].view(1))
-            log.log_rewards.index_copy_(0, row, batch.log_reward[None])
-        state.counter.add_(1)
-        return metrics, batch
+
+class CapturableLoop:
+    """What a training loop gives to be stepped, captured and run: a
+    subclass defines ``init(seed)`` (a fresh carry), ``iteration(state,
+    log)`` (the body, with no host read; it writes its metrics with
+    :meth:`log_row` and advances the counter), :attr:`METRICS` (the names
+    of its metrics, in order, the first the loss), :attr:`num_envs` (the
+    batch's rows) and ``policy``.  After :meth:`run` on CUDA,
+    :attr:`captured` is the run's :class:`CapturedIteration` (None before,
+    and on the CPU)."""
+
+    METRICS: Tuple[str, ...] = ()
+    captured: Optional[CapturedIteration] = None
+
+    @property
+    def num_envs(self) -> int:
+        raise NotImplementedError
+
+    def trained(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """Every tensor the iteration trains, by name: the policy's
+        parameters (``/``-keyed leaves)."""
+        return self.policy.params.flat()
+
+    @staticmethod
+    def log_row(state: TrainState, log: Optional[ScanLog],
+                metrics: Dict[str, torch.Tensor],
+                batch: RolloutBatch) -> None:
+        """Write an iteration's metrics and its batch's log-rewards into
+        ``log``'s row ``counter`` (nothing without a log)."""
+        if log is None:
+            return
+        row = state.counter.view(1)
+        for k, buf in log.metrics.items():
+            buf.index_copy_(0, row, metrics[k].view(1))
+        log.log_rewards.index_copy_(0, row, batch.log_reward[None])
 
     def step(self, state: TrainState
              ) -> Tuple[TrainState, Dict[str, torch.Tensor], RolloutBatch]:
@@ -198,8 +176,8 @@ class TrainLoop:
         """Run the iteration ``state`` is at eagerly and capture the next
         in a CUDA graph (:class:`CapturedIteration`); CUDA only."""
         if not state.counter.is_cuda:
-            raise ValueError("TrainLoop.capture needs a CUDA device; the "
-                             "CPU runs step()")
+            raise ValueError(f"{type(self).__name__}.capture needs a CUDA "
+                             "device; the CPU runs step()")
         return CapturedIteration(self, state, log)
 
     def run(self, seed: int, num_iterations: int, *, mode: str = "python",
@@ -236,9 +214,8 @@ class TrainLoop:
         if mode == "scan":
             f32 = dict(dtype=torch.float32, device=dev)
             log = ScanLog({k: torch.zeros(num_iterations, **f32)
-                           for k in METRICS},
-                          torch.zeros(num_iterations, self.cfg.num_envs,
-                                      **f32))
+                           for k in self.METRICS},
+                          torch.zeros(num_iterations, self.num_envs, **f32))
         self.captured = None
         history = []
         for it in range(num_iterations):
@@ -258,3 +235,67 @@ class TrainLoop:
         if mode == "scan":
             return state, (log.metrics, log.log_rewards)
         return state, history
+
+
+class TrainLoop(CapturableLoop):
+    """Environment x policy x objective x sampler, on the policy's device.
+
+    ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy` or
+    :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
+    grad; ``sampler`` defaults to
+    :class:`OnPolicySampler`.  Iteration ``i`` of a run seeded ``seed``
+    draws its rollout noise from ``train_seed(seed, i)``."""
+
+    #: the metrics of an iteration, in the order of JAX's metrics dict
+    METRICS = ("loss", "log_z", "mean_log_reward")
+
+    def __init__(self, env, env_params, policy, cfg: GFNConfig,
+                 sampler: Optional[OnPolicySampler] = None):
+        if not all(p.requires_grad for p in policy.params.parameters()):
+            raise ValueError("TrainLoop needs a policy whose parameters "
+                             "require grad (requires_grad=True)")
+        self.env, self.env_params = env, env_params
+        self.policy, self.cfg = policy, cfg
+        self.sampler = sampler or OnPolicySampler()
+        self._sample = self.sampler.build(env, env_params, policy, cfg)
+        self.parts_fn = make_loss_parts_fn(env, policy, cfg)
+
+    @property
+    def num_envs(self) -> int:
+        return self.cfg.num_envs
+
+    def init(self, seed: int) -> TrainState:
+        train_seed(seed, 0)                   # the seed's range check
+        params = self.policy.params
+        dev = next(params.parameters()).device
+        return TrainState(params=params,
+                          optimizer=make_optimizer(self.cfg, params),
+                          seed=int(seed),
+                          counter=torch.zeros((), dtype=torch.int64,
+                                              device=dev))
+
+    def sample(self, state: TrainState) -> RolloutBatch:
+        """The batch of the iteration ``state`` is at."""
+        return self._sample(state.noise_seed(), state.counter)
+
+    def loss_and_grads(self, batch: RolloutBatch) -> torch.Tensor:
+        """:func:`loss_and_grads` of the loop's objective on ``batch``."""
+        return loss_and_grads(self.policy.params, *self.parts_fn(batch))
+
+    def iteration(self, state: TrainState, log: Optional[ScanLog] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], RolloutBatch]:
+        """One iteration on the state's tensors, with no host read: the
+        body that :meth:`step` runs and that :class:`CapturedIteration`
+        captures.  Writes its metrics into ``log``'s row ``counter``, then
+        advances the counter.  Returns ``(metrics, batch)``; metrics are
+        0-dim tensors on the device (``loss``, ``log_z`` after the update,
+        ``mean_log_reward``)."""
+        batch = self.sample(state)
+        loss = self.loss_and_grads(batch)
+        state.optimizer.step()
+        metrics = {"loss": loss,
+                   "log_z": self.policy.params["log_z"].detach().clone(),
+                   "mean_log_reward": batch.log_reward.mean()}
+        self.log_row(state, log, metrics, batch)
+        state.counter.add_(1)
+        return metrics, batch

@@ -6,8 +6,10 @@ leaf names the JAX checkpoint manager writes
 (``checkpoint/manager.py:45-52``): ``decoder/layer_0/q/w``, ``readout/b``,
 ``log_z``, or an LM's stacked ``layers/attn/wq``.
 :meth:`repro_torch.core.policies.TransformerPolicy.load_params` and
-:func:`repro_torch.models.lm.load_params` take that dict.  Leaves keep their
-dtype, bfloat16 included.  Nothing here imports JAX.
+:func:`repro_torch.models.lm.load_params` take that dict; a JAX EB-GFN
+state's ``ebm_params`` gives ``{"J": ...}``, the coupling matrix of
+:class:`repro_torch.core.ebgfn.EBGFNState`.  Leaves keep their dtype,
+bfloat16 included.  Nothing here imports JAX.
 """
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ Forward rollouts take one of three branches, as in the JAX package:
 
 :func:`backward_rollout` samples trajectories back from given terminal
 states under the uniform or the learned P_B and returns their total log
-P_F and log P_B (the EUBO eval's estimator).
+P_F and log P_B (the EUBO eval's estimator, EB-GFN's MH test) and, with
+``collect=True``, the trajectories themselves as a forward-ordered
+:class:`RolloutBatch` (EB-GFN's trajectories from data).
 """
 from __future__ import annotations
 
@@ -209,6 +211,8 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                      noise: Optional[NoiseSource] = None,
                      backward_policy: str = "learned",
                      collect: bool = False,
+                     with_log_pf: bool = True,
+                     known_log_reward: Optional[torch.Tensor] = None,
                      index: Optional[torch.Tensor] = None
                      ) -> BackwardRollout:
     """Sample tau ~ P_B(. | x) back from ``terminal_state`` for
@@ -217,17 +221,21 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
 
     ``backward_policy="learned"`` uses the policy's ``logits_b`` head when
     it has one and the uniform P_B otherwise; ``"uniform"`` forces the
-    uniform P_B.  log P_F re-evaluates the policy at each previous state.
-    Row i's draw at step t is
+    uniform P_B.  log P_F re-evaluates the policy at each previous state;
+    ``with_log_pf=False`` skips that, and ``log_pf`` (and the batch's
+    ``log_pf_beh``) are zeros.  Row i's draw at step t is
     ``noise(seed, index[i], t, Ab)``, a (B, Ab) Gumbel tensor (default
     :func:`hash_backward_gumbel`, a stream no forward rollout uses);
-    ``seed`` is one number or a (B,) int64 tensor of per-row seeds, and
-    ``index`` defaults to the row number.
-    ``collect=True`` (the forward-ordered batch the replay samplers need)
-    is not ported yet and raises."""
-    if collect:
-        raise NotImplementedError("backward_rollout(collect=True) waits for "
-                                  "the replay samplers (ROADMAP.md)")
+    ``seed`` is one number, a 0-dim or a (B,) int64 tensor, and ``index``
+    defaults to the row number.
+
+    ``collect=True`` also returns the trajectories as a forward-ordered
+    :class:`RolloutBatch` (``.batch``), as JAX builds it: a trajectory
+    shorter than ``env.max_steps`` is padded at its start with no-op
+    transitions at the initial state (``valid`` False there).  Its fields
+    have the dtypes :func:`forward_rollout` gives them.
+    ``known_log_reward`` (B,) is the batch's ``log_reward``, in place of
+    the terminals' reward."""
     if backward_policy not in ("learned", "uniform"):
         raise ValueError(f"unknown backward_policy {backward_policy!r}")
     if noise is None:
@@ -236,11 +244,15 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     B = terminal_state.steps.shape[0]
     ids = (torch.arange(B, dtype=torch.int64, device=dev) if index is None
            else index.to(device=dev, dtype=torch.int64))
-    seeds = (seed.to(device=dev, dtype=torch.int64)
+    seeds = (seed.to(device=dev, dtype=torch.int64).expand(B)
              if isinstance(seed, torch.Tensor)
              else torch.full((B,), int(seed), dtype=torch.int64, device=dev))
-    acc_pf = torch.zeros(B, dtype=torch.float32, device=dev)
-    acc_pb = torch.zeros(B, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(B, dtype=torch.float32, device=dev)
+    acc_pf, acc_pb = zeros, zeros
+    scalars = dict(zip(("log_r_state", "energy"), _state_scalars(env)))
+    ys = {k: [] for k in ("obs", "fwd_mask", "bwd_mask", "done", "actions",
+                          "bwd_actions", "valid", "log_pf", "log_r_state",
+                          "energy")}
     state = terminal_state
     for t in range(env.max_steps):
         at_init = env.is_initial(state, env_params)
@@ -258,11 +270,77 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
         _, prev, _, _ = env.backward_step(state, bwd_a, env_params)
         live = ~at_init
         fwd_a = env.get_forward_action(state, bwd_a, prev, env_params)
-        logp = masked_logprobs(
-            policy.apply(env.observe(prev, env_params))["logits"],
-            env.forward_mask(prev, env_params))
-        log_pf = torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0]
-        acc_pf = acc_pf + torch.where(live, log_pf, 0.0)
+        prev_obs = env.observe(prev, env_params)
+        fmask_prev = env.forward_mask(prev, env_params)
+        if with_log_pf:
+            logp = masked_logprobs(policy.apply(prev_obs)["logits"],
+                                   fmask_prev)
+            log_pf = torch.where(
+                live, torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0],
+                0.0)
+            acc_pf = acc_pf + log_pf
+        else:
+            log_pf = zeros
         acc_pb = acc_pb + torch.where(live, log_pb, 0.0)
+        if collect:
+            # step t visits forward time T - t: the previous state's
+            # observation and forward mask, the current state's backward
+            # mask, done flag and state scalars
+            for k, v in (("obs", prev_obs), ("fwd_mask", fmask_prev),
+                         ("bwd_mask", bmask),
+                         ("done", env.is_terminal(state, env_params)),
+                         ("actions", fwd_a), ("bwd_actions", bwd_a),
+                         ("valid", live), ("log_pf", log_pf)):
+                ys[k].append(v)
+            for k, fn in scalars.items():
+                if fn is not None:
+                    ys[k].append(fn(state, env_params))
         state = prev
-    return BackwardRollout(log_pf=acc_pf, log_pb=acc_pb, batch=None)
+    batch = None
+    if collect:
+        batch = _collected_batch(env, env_params, terminal_state, state, ys,
+                                 scalars, known_log_reward)
+    return BackwardRollout(log_pf=acc_pf, log_pb=acc_pb, batch=batch)
+
+
+def _collected_batch(env: Environment, env_params, terminal_state, state0,
+                     ys, scalars, known_log_reward) -> RolloutBatch:
+    """The forward-ordered batch of a collecting backward rollout (JAX's
+    ``collect`` branch).  Reversed, the steps' records give forward times
+    0..T-1 of the previous states' fields (``obs``, ``fwd_mask``), to which
+    the terminal state adds time T, and times 1..T of the current states'
+    (``bwd_mask``, ``done``, the state scalars), to which the initial
+    state ``state0`` adds time 0."""
+    def rev(k):
+        return torch.stack(ys[k][::-1])
+
+    def first(v, k):
+        return torch.cat([v[None], rev(k)])
+
+    def last(k, v):
+        return torch.cat([rev(k), v[None]])
+
+    def per_state(k):
+        """(T+1, B) of state scalar ``k``, zeros where the env has none."""
+        if scalars[k] is None:
+            return torch.zeros(len(ys["valid"]) + 1,
+                               terminal_state.steps.shape[0],
+                               dtype=torch.float32,
+                               device=terminal_state.steps.device)
+        return first(scalars[k](state0, env_params), k)
+
+    log_r = (env.log_reward(terminal_state, env_params)
+             if known_log_reward is None else known_log_reward)
+    return RolloutBatch(
+        obs=last("obs", env.observe(terminal_state, env_params)),
+        fwd_mask=last("fwd_mask", env.forward_mask(terminal_state,
+                                                   env_params)),
+        bwd_mask=first(env.backward_mask(state0, env_params), "bwd_mask"),
+        actions=rev("actions"),
+        bwd_actions=rev("bwd_actions"),
+        valid=rev("valid"),
+        done=first(env.is_terminal(state0, env_params), "done"),
+        log_reward=log_r.to(torch.float32),
+        log_r_state=per_state("log_r_state"),
+        energy=per_state("energy"),
+        log_pf_beh=rev("log_pf"))

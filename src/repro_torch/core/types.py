@@ -156,6 +156,29 @@ def hash_backward_gumbel(seed: torch.Tensor, index: torch.Tensor,
                           num_actions)
 
 
+def hash_stream_gumbel(stream: int) -> NoiseSource:
+    """A noise source of Gumbel noise from the counter hash of ``(seed[b],
+    index[b], t[b])`` on the stream named by the 32-bit constant
+    ``stream``: a rollout whose draws no rollout on another stream
+    shares, at the same seed (EB-GFN's second forward and backward
+    rollouts of an iteration)."""
+    def noise(seed: torch.Tensor, index: torch.Tensor, t: torch.Tensor,
+              num_actions: int) -> torch.Tensor:
+        return _gumbel_of_key(_mix32(_row_key(seed, index, t) ^ stream),
+                              num_actions)
+    return noise
+
+
+def hash_uniform(seed: torch.Tensor, index: torch.Tensor,
+                 stream: int) -> torch.Tensor:
+    """(B,) uniforms strictly inside (0, 1), one per row, from the counter
+    hash of ``(seed[b], index[b])`` on the stream named by the 32-bit
+    constant ``stream``: a per-row coin (EB-GFN's trajectory mix and its
+    MH test)."""
+    return _uniform_of_bits(_mix32(
+        _row_key(seed, index, torch.zeros_like(index)) ^ stream))
+
+
 def train_seed(seed: int, iteration: int) -> int:
     """The 64-bit noise seed of training iteration ``iteration`` of a run
     seeded ``seed``: ``seed * 2**32 + iteration``, one-to-one for

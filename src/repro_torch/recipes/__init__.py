@@ -4,13 +4,15 @@ Servable recipes: an env factory and a policy factory per environment name
 (port of the serving half of ``repro.recipes`` and the
 ``repro.envs.registry`` entries the scheduler reads).  Training recipes:
 env, policy and config factories per recipe name (port of the training
-half of ``repro.recipes``), run by :mod:`repro_torch.run`."""
+half of ``repro.recipes``), run by :mod:`repro_torch.run`; a recipe that
+is not a sample -> loss -> update loop (EB-GFN's ``ising_ebgfn``) has a
+``run_override`` that drives its own loop, as in the JAX package."""
 from __future__ import annotations
 
 import ast
-from typing import Callable, Dict, Iterable, NamedTuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
-from . import dag, hypergrid, phylo, seqs
+from . import dag, hypergrid, ising, phylo, seqs
 
 
 class Recipe(NamedTuple):
@@ -37,6 +39,10 @@ class TrainRecipe(NamedTuple):
     #: (env, env_params, policy, *, seed, eval_batch) -> evaluators
     make_evals: Callable
     eval_every: int
+    #: (*, seed, iterations, num_envs, env, device, eval_every, log) ->
+    #: run_recipe's dict: a run function of the recipe's own (JAX's
+    #: ``run_override``); then make_config and make_evals are None
+    run_override: Optional[Callable] = None
 
 
 _TRAIN_RECIPES = {
@@ -79,6 +85,13 @@ _TRAIN_RECIPES = {
         phylo.phylo_env, phylo.phylo_policy, phylo.phylo_config,
         iterations=100000, num_envs=32, make_evals=phylo.phylo_evals,
         eval_every=500),
+    "ising_ebgfn": TrainRecipe(
+        "ising_ebgfn", "EB-GFN joint EBM+GFN training on the 9x9 Ising "
+        "model, -log RMSE of learned couplings (paper §B.5); --set "
+        "n=.../sigma=.../num_data=...",
+        ising.ising_env, ising.ising_policy, None, iterations=20000,
+        num_envs=256, make_evals=None, eval_every=500,
+        run_override=ising.run),
 }
 for _obj in ("tb", "db", "subtb"):
     _TRAIN_RECIPES[f"hypergrid_{_obj}"] = TrainRecipe(

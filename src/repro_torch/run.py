@@ -8,6 +8,8 @@
         --device cpu --set n=16 --set k=4 --eval-every 1
     python -m repro_torch.run --recipe amp_tb --iterations 3 \\
         --device cpu --set max_len=10
+    python -m repro_torch.run --recipe ising_ebgfn --iterations 3 \\
+        --device cpu --set n=3 --set num_data=50
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  On CUDA it trains as JAX's CLI does, on the
@@ -18,7 +20,10 @@ and ``mean_log_reward``.  Every recipe runs its evals every
 ``--eval-every`` iterations (default: the recipe's; 0 turns them off;
 always at iteration 0), its sampling evals over ``--eval-batch`` samples
 (default 2,000), and prints one ``eval`` row per evaluation at the end, as
-``python -m repro.run`` does.
+``python -m repro.run`` does.  ``ising_ebgfn`` runs its own loop (EB-GFN,
+the recipe's ``run_override``): it prints JAX's rows (``gfn_loss``,
+``-logRMSE``, ``mh_accept``) at every ``--eval-every``-th iteration and
+the last.
 """
 from __future__ import annotations
 
@@ -54,6 +59,12 @@ def run_recipe(name: str, *, seed: int = 0,
 
     recipe = recipes.get_train(name)
     dev = resolve_device(device)
+    n = recipe.iterations if iterations is None else int(iterations)
+    every = recipe.eval_every if eval_every is None else int(eval_every)
+    if recipe.run_override is not None:
+        return recipe.run_override(
+            seed=seed, iterations=n, num_envs=num_envs or recipe.num_envs,
+            env=dict(env or {}), device=dev, eval_every=every, log=log)
     env_kwargs = dict(env or {})
     if "seed" in inspect.signature(recipe.make_env).parameters:
         env_kwargs.setdefault("seed", seed)
@@ -61,10 +72,8 @@ def run_recipe(name: str, *, seed: int = 0,
     env_params = environment.init(dev)
     policy = recipe.make_policy(environment, seed=seed, device=dev,
                                 requires_grad=True)
-    n = recipe.iterations if iterations is None else int(iterations)
     cfg = recipe.make_config(environment, num_envs or recipe.num_envs, n)
     loop = TrainLoop(environment, env_params, policy, cfg)
-    every = recipe.eval_every if eval_every is None else int(eval_every)
     suite = None
     if every > 0:
         suite = EvalSuite(recipe.make_evals(environment, env_params, policy,
@@ -123,7 +132,7 @@ def main(argv=None) -> int:
                      env=recipes.parse_overrides(args.overrides, ap.error),
                      device=args.device, eval_every=args.eval_every,
                      eval_batch=args.eval_batch)
-    print(f"trained {args.recipe} for {len(out['history'])} iterations on "
+    print(f"trained {args.recipe} for {out['state'].step} iterations on "
           f"{out['device']}")
     return 0
 

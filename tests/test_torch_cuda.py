@@ -737,6 +737,159 @@ def test_posterior_jsd_on_cuda_matches_cpu(cuda):
     assert 0 <= jsd <= math.log(2)
 
 
+# -- EB-GFN on the Ising model -----------------------------------------------------
+
+def _ising_loop(device, policy_seed=1, noise=None, iterations=8):
+    """ising_ebgfn at n = 6 (sigma -0.1, 64 data rows, 64 envs) with the
+    recipe's MLP 4x256 and a learned P_B."""
+    from repro_torch.core.ebgfn import EBGFN_NOISE
+    from repro_torch.recipes.ising import ising_env, ising_loop, ising_policy
+    env = ising_env(n=6)
+    policy = ising_policy(env, seed=policy_seed, device=device,
+                          requires_grad=True)
+    loop = ising_loop(env, policy, seed=0, iterations=iterations,
+                      num_envs=64, num_data=64)
+    loop.noise = noise or EBGFN_NOISE
+    return loop
+
+
+def test_ising_iteration_on_cuda_matches_cpu(cuda):
+    """One EB-GFN iteration on the card against the CPU from the same
+    policy, J (a seeded symmetric draw, its energies the size of the
+    log P_T terms, so the MH test rejects some rows), data rows and noise.
+    The GFN update: the mix coin and both rollouts' actions equal, and the
+    CPU's TB loss and gradients on the card's batch to 1e-5 relative and
+    1e-4 of each tensor's largest entry (or 1e-5).  The MH test, rerun
+    collecting on each device from the card's updated policy (the card's
+    rerun bitwise its iteration's): the negatives' and the MH rollout's
+    actions equal, log A to 1e-4 of its terms' magnitude, the outcome
+    equal where |log u - log A| > 1e-3.  The CPU's ``cd_step`` on the
+    card's rows, negatives and outcome: J's gradient and J to 1e-4.  Two
+    traj_logprob forwards and two backwards on the card."""
+    from repro_torch.algo.loop import loss_and_grads
+    from repro_torch.core.objectives import evaluate_trajectory, tb_parts
+    from repro_torch.core.types import train_seed
+    cpu = torch.device("cpu")
+    counts = (ops.traj_logprob, ops.traj_logprob_backward)
+    loop_g, loop_c = _ising_loop(cuda), _ising_loop(cpu)
+    loop_c.policy.load_params({k: v.detach().cpu() for k, v in
+                               loop_g.policy.params.flat().items()})
+    J0 = torch.randn(36, 36, generator=torch.Generator().manual_seed(0))
+
+    def state(loop):
+        st = loop.init(seed=5)
+        with torch.no_grad():
+            st.J.copy_(J0 + J0.T)
+        return st
+
+    st_g, st_c, st_cd = state(loop_g), state(loop_c), state(loop_c)
+    before = [c.launches for c in counts]
+    m_g, batch_g, tr_g = loop_g.iteration_trace(st_g)
+    assert [c.launches - b for c, b in zip(counts, before)] == [2, 2]
+    cpu_batch = type(batch_g)(**{f.name: getattr(batch_g, f.name).cpu()
+                                 for f in dataclasses.fields(batch_g)})
+    pol = loop_c.policy
+    loss_c = float(loss_and_grads(pol.params, *tb_parts(
+        evaluate_trajectory(pol, cpu_batch), cpu_batch, pol.params["log_z"])))
+    grads_c = {k: p.grad.clone() for k, p in pol.params.flat().items()}
+    _, _, tr_c = loop_c.iteration_trace(st_c)
+    assert torch.equal(tr_g.take_fwd.cpu(), tr_c.take_fwd)
+    for name in ("fwd", "bwd"):
+        for f in ("actions", "bwd_actions"):
+            assert torch.equal(getattr(getattr(tr_g, name), f).cpu(),
+                               getattr(getattr(tr_c, name), f)), (name, f)
+    loss_g = float(m_g["gfn_loss"])
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, p in loop_g.policy.params.flat().items():
+        scale = float(grads_c[k].abs().max())
+        err = float((p.grad.cpu() - grads_c[k]).abs().max())
+        assert err <= max(1e-4 * scale, 1e-5), (k, err, scale)
+    # the MH test from the card's updated policy on both devices
+    pol.load_params({k: v.detach().cpu() for k, v in
+                     loop_g.policy.params.flat().items()})
+    seed = train_seed(5, 0)
+    t_g = loop_g.mh_test(torch.tensor(seed, device=cuda), tr_g.reward,
+                         tr_g.data, collect=True)
+    t_c = loop_c.mh_test(torch.tensor(seed), tr_c.reward, tr_c.data,
+                         collect=True)
+    for f in ("log_a", "accept"):
+        assert torch.equal(getattr(t_g, f), getattr(tr_g.test, f)), f
+    assert torch.equal(t_g.neg.actions.cpu(), t_c.neg.actions)
+    assert torch.equal(t_g.mh.batch.bwd_actions.cpu(),
+                       t_c.mh.batch.bwd_actions)
+    x, J = tr_c.data.float(), tr_c.reward.reward_params["J"]
+    x_neg = t_c.neg.obs[-1]
+    terms = ((x @ J) * x).sum(-1).abs() + ((x_neg @ J) * x_neg).sum(-1).abs() \
+        + t_c.mh.log_pf.abs() + t_c.mh.log_pb.abs() \
+        + t_c.neg.log_pf_beh.abs().sum(0)
+    assert bool(((t_g.log_a.cpu() - t_c.log_a).abs() <= 1e-4 * terms).all())
+    torch.testing.assert_close(t_g.log_u.cpu(), t_c.log_u, rtol=1e-6, atol=0)
+    clear = (t_c.log_u - t_c.log_a).abs() > 1e-3
+    assert torch.equal(t_g.accept.cpu()[clear], t_c.accept[clear])
+    assert t_c.accept.any() and not t_c.accept.all()
+    # the energy update on the card's outcome
+    loop_c.cd_step(st_cd, tr_g.data.cpu().float(),
+                   tr_g.test.neg.obs[-1].cpu(), tr_g.test.accept.cpu())
+    for got, want in ((st_g.J.grad, st_cd.J.grad), (st_g.J, st_cd.J)):
+        got, want = got.detach().cpu(), want.detach()
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_ising_capture_matches_eager(cuda):
+    """Three EB-GFN iterations through a captured iteration (its warm-up
+    under sync debug mode "error") against two eager runs: the losses, the
+    MH acceptance and every trained tensor (the policy and J) as close as
+    the eager runs are to each other, bitwise where they are bitwise; one
+    replay launches two traj_logprob forwards and two backwards."""
+    def three(captured):
+        loop = _ising_loop(cuda, policy_seed=2)
+        state = loop.init(seed=3)
+
+        def row(metrics):       # a copy: a replay's outputs are the graph's
+            return torch.stack([metrics["gfn_loss"], metrics["mh_accept"]])
+
+        if captured:
+            graph = loop.capture(state)
+            outs = [row(graph.warmup[0])] + [row(graph()[0])
+                                             for _ in range(2)]
+        else:
+            graph = None
+            outs = [row(loop.step(state)[1]) for _ in range(3)]
+        outs = torch.stack(outs)
+        torch.cuda.synchronize()
+        return outs, {k: v.detach().clone() for k, v in
+                      loop.trained(state).items()}, graph
+
+    (la, pa, _), (lb, pb, _) = three(False), three(False)
+    lc, pc, graph = three(True)
+    tol = max([float((la - lb).abs().max())]
+              + [float((pa[k] - pb[k]).abs().max()) for k in pa])
+    assert "J" in pa
+    assert float((lc - la).abs().max()) <= tol
+    for k in pa:
+        assert float((pc[k] - pa[k]).abs().max()) <= tol, k
+    assert torch.isfinite(lc).all() and graph.replays == 2
+    assert {k: v for k, v in graph.launches.items() if v} == {
+        "traj_logprob_fwd": 2, "traj_logprob_bwd": 2}
+
+
+def test_ising_capture_refuses_a_host_read(cuda):
+    """A mix coin that reads the seed on the host cannot be captured: the
+    warm-up raises, and nothing runs eagerly in its place."""
+    from repro_torch.core.ebgfn import EBGFN_NOISE
+
+    def host_read(seed, index):
+        int(seed[0])
+        return EBGFN_NOISE.take(seed, index)
+
+    loop = _ising_loop(cuda, noise=EBGFN_NOISE._replace(take=host_read))
+    with pytest.raises(RuntimeError):
+        loop.run(0, 3)
+    assert loop.captured is None
+
+
 # -- flash_attention and rwkv6_scan ------------------------------------------------
 
 def _close(got, want, tol):

@@ -167,7 +167,9 @@ def _probe(tenv, jenv, n, seed):
     ("learned", False), ("uniform", False), ("learned", True),
     ("uniform", True)])
 def test_backward_rollout_matches_jax(backward_policy, head):
-    """With and without a learned backward head (``logits_b``)."""
+    """With and without a learned backward head (``logits_b``); the
+    collecting rollout's batch (``collect=True``) on the same draws,
+    field by field, and its totals bitwise the non-collecting ones."""
     (jenv, jp, jpol, jparams), (tenv, tp, tpol) = _setup(
         2, 5, learn_backward=head)
     js, ts = _probe(tenv, jenv, 12, seed=2)
@@ -180,8 +182,21 @@ def test_backward_rollout_matches_jax(backward_policy, head):
     np.testing.assert_allclose(tb.log_pb.numpy(), _np(jb.log_pb), **REL)
     np.testing.assert_allclose(tb.log_pf.numpy(), _np(jb.log_pf), **REL)
     assert tb.batch is None and (tb.log_pb.numpy() <= 0).all()
-    with pytest.raises(NotImplementedError, match="collect"):
-        backward_rollout(0, tenv, tp, tpol, ts, collect=True)
+    jc = jax_backward(key, jenv, jp, jpol.apply, jparams, js, collect=True,
+                      backward_policy=backward_policy).batch
+    tc = backward_rollout(0, tenv, tp, tpol, ts, collect=True,
+                          noise=replay_gumbel(key, tenv.max_steps),
+                          backward_policy=backward_policy)
+    assert torch.equal(tc.log_pf, tb.log_pf)
+    assert torch.equal(tc.log_pb, tb.log_pb)
+    for name in ("obs", "fwd_mask", "bwd_mask", "actions", "bwd_actions",
+                 "valid", "done"):
+        np.testing.assert_array_equal(getattr(tc.batch, name).numpy(),
+                                      _np(getattr(jc, name)), err_msg=name)
+    for name in ("log_reward", "log_r_state", "energy", "log_pf_beh"):
+        np.testing.assert_allclose(getattr(tc.batch, name).numpy(),
+                                   _np(getattr(jc, name)), err_msg=name,
+                                   **REL)
 
 
 def test_log_z_bounds_match_jax():
