@@ -144,18 +144,32 @@ printing one JSON line:
              after 200, 400, 600 and 800 iterations within 0.25 of the JAX
              package's mean over three seeds (``scripts/ising_reference.py``),
              its seconds and MH acceptance;
+   box_converge - ``box_tb`` as registered (the continuous Box, 64 envs,
+             the squashed-mixture flow policy, epsilon 0.1) for 3,000
+             iterations, captured: quad_tv of the recipe's eval (8,192
+             rollouts, 16 x 16 grid) after 750, 1,500, 2,250 and 3,000
+             iterations within a band of the JAX package's mean over
+             three seeds (``scripts/box_reference.py``; the band is the
+             larger of 0.05 and three times the seeds' spread), no kernel
+             launched, it/s and eval seconds;
    path_shapes - every shape at which the phases the kernels line counts
              (serve, train, hypergrid_train, seqs_train, seqs_evals,
              dag_train, phylo_train, dag_evals, phylo_evals, ising_train,
-             ising_converge) launched decode_step, decode_attention or
-             traj_logprob has a row of phase 3, held against the plain
-             version;
+             ising_converge, box_converge) launched decode_step,
+             decode_attention or traj_logprob has a row of phase 3, held
+             against the plain version;
+   box_hold - one iteration of box_tb and of box_db on the card and on
+             the CPU from the same parameters and hash noise: done and
+             exit flags equal (near ties counted apart), observations to
+             1e-5, the card's log P_F of its draws against the CPU's
+             density, loss and gradients on the card's batch;
    dag_converge - ``tests/test_training.py:46-75`` through the captured
              run: MDB at d = 3 for 2,500 iterations, the JSD of 3,000
              samples against the exact posterior under 0.02;
-9. graph_train - each of the nine on-policy recipes (bitseq_tb,
+9. graph_train - each of the eleven on-policy recipes (bitseq_tb,
              tfbind8_tb, qm9_tb, amp_tb, hypergrid_tb / _db / _subtb,
-             dag_mdb, phylo_fldb) and ising_ebgfn at full width: 3
+             dag_mdb, phylo_fldb, box_tb, box_db) and ising_ebgfn at full
+             width: 3
              iterations through a captured iteration held
              to eager ones (iteration 0's actions bitwise; losses and
              parameters within two eager runs' own difference, bitwise
@@ -318,6 +332,23 @@ ISING_CONVERGE_BAND = 0.25
 #: untrained policy's log P_T terms, so that the MH test rejects some rows
 #: (0.92 accepted in a CPU rehearsal)
 ISING_HOLD_J_SCALE = 1.0
+#: box_converge: ``box_tb`` as registered (64 envs, MLP 4 -> 128 -> 128 ->
+#: 50, K = 4, epsilon 0.1) for BOX_CONVERGE_ITERS iterations, captured, and
+#: the JAX package's quad_tv after each checkpoint's iterations: the mean
+#: over seeds 0, 1 and 2 and its spread (largest minus smallest),
+#: ``scripts/box_reference.py`` on a CPU (8,192 rollouts, 16 x 16 grid).
+#: The port's quad_tv must lie within max(BOX_CONVERGE_MIN_BAND, 3 x the
+#: spread) of the mean at each checkpoint: one more seed's run, drawn from
+#: the hash noise and a torch-seeded policy, at the eval's own noise.
+BOX_CONVERGE_ITERS = 3000
+BOX_CONVERGE_MEANS = {750: 0.4197889765103658, 1500: 0.3918781081835429,
+                      2250: 0.35762255390485126, 3000: 0.32507452368736267}
+BOX_CONVERGE_SPREAD = {750: 0.0162314772605896, 1500: 0.013489902019500732,
+                       2250: 0.015194505453109741, 3000: 0.05962756276130676}
+BOX_CONVERGE_MIN_BAND = 0.05
+BOX_RECIPES = ("box_tb", "box_db")
+BOX_ENV = "Box 2-D, delta (0.1, 0.25), T=11, 3-mode mixture reward"
+BOX_POLICY = "MLP 4 -> 128 -> 128 -> 50, K=4 squashed mixtures + exit + flow"
 #: graph_train: every on-policy recipe and EB-GFN at full width, with the
 #: launches of one iteration (eager, and in one replay of its capture
 #: alike); the kernels left out launch 0 times
@@ -328,7 +359,8 @@ GRAPH_LAUNCHES_PER_ITER = {
     "hypergrid_tb": {}, "hypergrid_db": {},
     "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1},
     **GRAPH_ENV_LAUNCHES_PER_ITER,
-    "ising_ebgfn": ISING_LAUNCHES_PER_ITER}
+    "ising_ebgfn": ISING_LAUNCHES_PER_ITER,
+    **{name: {} for name in BOX_RECIPES}}
 #: graph_train: iterations of each eager and captured run held against each
 #: other, and the iterations each of the two is timed over after them
 GRAPH_HOLD_ITERS = 3
@@ -2625,6 +2657,158 @@ def ising_converge(device) -> dict:
     return launches
 
 
+def box_hold(device) -> None:
+    """One iteration of ``box_tb`` and of ``box_db`` at full width on the
+    card and on the CPU from the same parameters (the recipe's policy
+    drawn from seed 1) and the same hash noise (loop seed 5).  The
+    rollouts: done flags and exit flags equal, except a row whose first
+    difference sits at a near tie (the exit coin within TIE_GAP of the
+    exit probability, or a coordinate within TIE_GAP of the room test's
+    1 - delta_min + 1e-6), counted; on the other rows the observations
+    within 1e-5 (sums of increments that ``exp`` and ``sigmoid`` may round
+    an ulp apart on the two devices).  Loss and gradients: both devices
+    teacher-force the card's batch, loss to 1e-5 relative, each gradient
+    to 1e-4 of its largest entry; the card's log P_F of its own draws to
+    1e-5 of the CPU's density at them, relative to max(1, |log P_F|)."""
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.types import hash_flow_noise, train_seed
+    from repro_torch.nn.flows import _exit_logprobs
+
+    cpu = torch.device("cpu")
+    smi = nvidia_smi()
+    for name in BOX_RECIPES:
+        rec = recipes.get_train(name)
+        env = rec.make_env()
+        cfg = rec.make_config(env, rec.num_envs, rec.iterations)
+        pol_g = rec.make_policy(env, seed=1, device=device,
+                                requires_grad=True)
+        pol_c = rec.make_policy(env, seed=1, device=cpu, requires_grad=True)
+        pol_c.load_params({k: v.detach().cpu()
+                           for k, v in pol_g.params.flat().items()})
+        loop_g = TrainLoop(env, env.init(device), pol_g, cfg)
+        loop_c = TrainLoop(env, env.init(cpu), pol_c, cfg)
+        st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+        batch_g = loop_g.sample(st_g)
+        batch_c = loop_c.sample(st_c)
+        gb = _to_cpu(batch_g)
+        T, B = batch_c.valid.shape
+        differ = ((gb.done[1:] != batch_c.done[1:])
+                  | (gb.actions[..., 2] != batch_c.actions[..., 2])
+                  | (gb.fwd_mask[:-1] != batch_c.fwd_mask[:-1]).any(-1))
+        seed = torch.full((1,), train_seed(5, 0), dtype=torch.int64)
+
+        def gap(t, b):
+            obs = batch_c.obs[t, b][None]
+            pos, steps, term = env.obs_fields(obs)
+            can_inc, can_exit = env.forward_arms(pos, steps, term)
+            with torch.no_grad():
+                logit = pol_c._heads(pol_c.torso(obs))[2]
+            log_pe, _ = _exit_logprobs(logit, can_inc, can_exit)
+            u = hash_flow_noise(seed, torch.tensor([b]), torch.tensor([t]),
+                                pol_c.noise_dims).exit_u
+            return min(float((u - torch.exp(log_pe)).abs()),
+                       float((pos - env._room).abs().min()))
+
+        ties = mismatched = 0
+        for b in differ.any(0).nonzero()[:, 0].tolist():
+            t = next(t for t in range(T) if differ[t, b])
+            if gap(t, b) < TIE_GAP:
+                ties += 1
+            else:
+                mismatched += 1
+        off = ~differ.any(0)
+        pos_err = float((gb.obs - batch_c.obs).abs()[:, off].max())
+        with torch.no_grad():
+            lp_c = pol_c.log_prob(gb.obs[:-1], gb.actions)
+        lp_err = float(((gb.log_pf_beh - torch.where(gb.valid, lp_c, 0.0))
+                        .abs() / torch.clamp(lp_c.abs(), min=1.0)).max())
+        loss_g = float(loop_g.loss_and_grads(batch_g))
+        loss_c = float(loop_c.loss_and_grads(gb))
+        grad_err, waived = grad_errors(
+            {k: p.grad for k, p in pol_g.params.flat().items()},
+            {k: p.grad for k, p in pol_c.params.flat().items()}, 0.0)
+        worst = max(grad_err, key=grad_err.get)
+        rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
+        emit("box_hold", nvidia_smi=smi, recipe=name, env=BOX_ENV,
+             policy=BOX_POLICY, steps=T, envs=B,
+             rows_differing=int(differ.any(0).sum()), near_tie_rows=ties,
+             mismatched_rows=mismatched, obs_max_abs_err=pos_err,
+             log_pf_max_err_over_scale=lp_err,
+             exits=int((gb.actions[..., 2] * gb.valid).sum()),
+             mean_length=float(gb.valid.sum(0).float().mean()),
+             loss_cuda=loss_g, loss_cpu=loss_c, loss_rel_err=rel,
+             grad_max_err_over_scale=grad_err[worst],
+             grad_worst_param=worst)
+        if (mismatched or not pos_err <= 1e-5 or not lp_err <= 1e-5
+                or not rel <= 1e-5 or not grad_err[worst] <= 1e-4):
+            raise AssertionError(
+                f"box_hold {name}: {mismatched} rows differ off a tie, obs "
+                f"error {pos_err}, log P_F error {lp_err}, loss rel error "
+                f"{rel}, gradient error {grad_err[worst]} ({worst})")
+
+
+def box_converge(device) -> dict:
+    """``box_tb`` as registered on the card, captured, for
+    BOX_CONVERGE_ITERS iterations (policy drawn from seed 0, loop seed
+    0): the recipe's quadrature eval (8,192 non-exploring rollouts on the
+    16 x 16 grid) after each checkpoint's iterations, its quad_tv within
+    the band of the JAX package's mean there (BOX_CONVERGE_MEANS); no
+    kernel launched (the density path takes none).  Returns the run's
+    launches."""
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+    from repro_torch.core.types import eval_seed
+
+    smi = nvidia_smi()
+    rec = recipes.get_train("box_tb")
+    env = rec.make_env()
+    params = env.init(device)
+    policy = rec.make_policy(env, seed=0, device=device, requires_grad=True)
+    loop = TrainLoop(env, params, policy,
+                     rec.make_config(env, rec.num_envs, rec.iterations))
+    ev, = rec.make_evals(env, params, policy, seed=0)
+    eval_s = []
+
+    def checkpoint(it, state, metrics, batch):
+        if it + 1 not in BOX_CONVERGE_MEANS:
+            return None
+        torch.cuda.synchronize()        # the replays queued before it
+        t0 = time.perf_counter()
+        out = ev(eval_seed(0, it + 1, 0))
+        row = (it + 1, float(out["quad_tv"]), float(out["quad_jsd"]),
+               float(metrics["loss"]))
+        eval_s.append(time.perf_counter() - t0)
+        return row
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = loop.run(0, BOX_CONVERGE_ITERS, callback=checkpoint)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = run_launches(read_launches(), loop.captured)
+    rows = [r for r in hist if r is not None]
+    tv = {c: v for c, v, _, _ in rows}
+    band = {c: max(BOX_CONVERGE_MIN_BAND, 3 * s)
+            for c, s in BOX_CONVERGE_SPREAD.items()}
+    off = {c: tv[c] - m for c, m in BOX_CONVERGE_MEANS.items()}
+    train_s = seconds - sum(eval_s)
+    emit("box_converge", nvidia_smi=smi, recipe="box_tb", env=BOX_ENV,
+         policy=BOX_POLICY, num_envs=rec.num_envs,
+         iterations=BOX_CONVERGE_ITERS, seconds=seconds,
+         eval_seconds=eval_s, training_seconds=train_s,
+         iterations_per_s=BOX_CONVERGE_ITERS / train_s,
+         quad_tv=tv, quad_jsd={c: j for c, _, j, _ in rows},
+         loss={c: lo for c, _, _, lo in rows},
+         jax_mean=BOX_CONVERGE_MEANS, off_jax_mean=off, band=band,
+         replays=loop.captured.replays, graph_launches=loop.captured.launches,
+         launches={k: v for k, v in launches.items() if v})
+    if any(launches.values()) or any(abs(off[c]) > band[c] for c in off):
+        raise AssertionError(f"box_converge: quad_tv {tv} off JAX's means "
+                             f"by {off} (bands {band}); launches {launches}")
+    return launches
+
+
 # -- phase 9: captured training iterations -------------------------------------
 
 def _hold_run(loop, state, captured: bool):
@@ -3300,7 +3484,9 @@ def main() -> int:
     ising_hold(device)
     with recording_path_shapes():
         ising_conv = ising_converge(device)
+        box_conv = box_converge(device)
     check_path_shapes(rows, attn, traj)
+    box_hold(device)
     dag_converge(device)
     graph_train_phase(device)
     hymba = hymba_config()
@@ -3327,11 +3513,11 @@ def main() -> int:
 
     def main_launches(kernel):
         """A kernel's launches on bitseq_tb's, the hypergrid's, the
-        sequence recipes', the graph recipes' (training and evals) and
-        EB-GFN's paths."""
+        sequence recipes', the graph recipes' (training and evals),
+        EB-GFN's and box_tb's paths (the last launches none)."""
         return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
                                        graph_env, graph_evals, ising,
-                                       ising_conv))
+                                       ising_conv, box_conv))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

@@ -11,23 +11,30 @@ buffer's) has no user until a replay sampler is ported.
 """
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from ..core.rollout import forward_rollout
 from ..core.trainer import GFNConfig, current_eps_tensor
-from ..core.types import StepNoiseSource, hash_step_noise
+from ..core.types import FlowNoiseSource, StepNoiseSource
 
 
 class OnPolicySampler:
     """Fresh forward rollouts from the current policy under the config's
-    epsilon-exploration schedule.  The rollout always takes the exploring
-    branch (``apply_cached`` + ``sample_masked``), as the JAX trainer's
-    traced epsilon does, even when epsilon is 0.  ``noise`` is the
-    step-noise source (default
-    :func:`repro_torch.core.types.hash_step_noise`)."""
+    epsilon-exploration schedule.  The rollout is always given the
+    schedule's epsilon as a 0-dim tensor, as the JAX trainer traces it,
+    even when it is 0: a categorical env then takes the exploring branch
+    (``apply_cached`` + ``sample_masked``), a continuous env the flow
+    policy's ``sample`` with its epsilon branch.  ``noise`` is the
+    rollout's noise source: by default the rollout's own, a step-noise
+    source (:func:`repro_torch.core.types.hash_step_noise`), or on a
+    continuous env a flow-noise source
+    (:func:`repro_torch.core.types.hash_flow_noise`)."""
     name = "on_policy"
 
-    def __init__(self, noise: StepNoiseSource = hash_step_noise):
+    def __init__(self, noise: Union[StepNoiseSource, FlowNoiseSource,
+                                    None] = None):
         self.noise = noise
 
     def build(self, env, env_params, policy, cfg: GFNConfig):

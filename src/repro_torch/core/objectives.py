@@ -12,6 +12,12 @@ as the JAX package does off the TPU, and no kernel runs.  SubTB's
 per-trajectory loss goes through :func:`repro_torch.kernels.ops.subtb_loss`
 (a kernel pair on CUDA).  FLDB reads the batch's energies, MDB its
 per-state log-rewards and log P_F(stop).
+
+A policy with density heads (the flow policy of a continuous env,
+:mod:`repro_torch.nn.flows`; :func:`has_density_heads`) is teacher-forced
+through ``log_prob`` / ``log_prob_b`` instead, on its stored float actions; that choice is made before any
+:func:`traj_logprob` call, so float actions never reach a kernel.  TB and
+DB consume the log-densities unchanged.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 
 from ..kernels.ops import subtb_loss as subtb_kernel
 from ..kernels.ops import traj_logprob
-from .rollout import RolloutBatch
+from .rollout import RolloutBatch, has_density_heads
 from .types import masked_logprobs
 
 
@@ -44,6 +50,24 @@ def _gather(logp: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
     return torch.gather(logp, -1, actions.long()[..., None])[..., 0]
 
 
+def _evaluate_trajectory_continuous(policy, batch: RolloutBatch
+                                    ) -> TrajEval:
+    """The density path (JAX's ``_evaluate_trajectory_continuous``): the
+    policy's ``log_prob`` / ``log_prob_b`` / ``log_state_flow`` on the
+    stored observations and float actions.  The torso runs once over the
+    (T+1)·B observations; P_F reads its rows 0..T-1, P_B rows 1..T."""
+    out = policy.torso(batch.obs)
+    log_pf = policy.log_prob(batch.obs[:-1], batch.actions, out[:-1])
+    log_pb = policy.log_prob_b(batch.obs[1:], batch.bwd_actions, out[1:])
+    v = batch.valid
+    return TrajEval(log_pf=torch.where(v, log_pf, 0.0),
+                    log_pb=torch.where(v, log_pb, 0.0),
+                    log_flow=policy.log_state_flow(batch.obs, out),
+                    log_pf_stop=torch.zeros(batch.done.shape,
+                                            dtype=torch.float32,
+                                            device=batch.done.device))
+
+
 def evaluate_trajectory(policy, batch: RolloutBatch,
                         stop_action: Optional[int] = None) -> TrajEval:
     """Teacher-force ``policy.apply`` over the batch's (T+1)·B observations.
@@ -54,7 +78,10 @@ def evaluate_trajectory(policy, batch: RolloutBatch,
     log P_F, log P_B and ``log_pf_stop = logp_f[..., stop_action]``; a
     terminal row is all illegal and its log-softmax is uniform, not NaN.
     A policy without a ``logits_b`` head gives the uniform backward policy
-    through constant zero logits, which build no gradient."""
+    through constant zero logits, which build no gradient.  A policy with
+    density heads takes :func:`_evaluate_trajectory_continuous`."""
+    if has_density_heads(policy):
+        return _evaluate_trajectory_continuous(policy, batch)
     Tp1, B = batch.obs.shape[:2]
     out = policy.apply(batch.obs.reshape((Tp1 * B,) + batch.obs.shape[2:]))
 

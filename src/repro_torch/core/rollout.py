@@ -1,6 +1,6 @@
 """Forward and backward rollouts (port of ``repro.core.rollout``).
 
-Forward rollouts take one of three branches, as in the JAX package:
+Forward rollouts take one of four branches, as in the JAX package:
 
 - **cached, fused** (``exploration_eps=None``, a policy with KV-cache entry
   points and an env with ``supports_incremental_obs``; serving): each step
@@ -16,12 +16,18 @@ Forward rollouts take one of three branches, as in the JAX package:
   an env without ``observe_last``; JAX's ``_cache_engaged`` is False):
   ``policy.apply(obs)`` then ``sample_masked``, over a :class:`StepNoise`
   when exploring and a Gumbel tensor otherwise.
+- **continuous** (an env with ``continuous_actions``, the Box): the flow
+  policy's ``sample`` draws float actions from its density heads over a
+  :class:`FlowNoise` (default :func:`hash_flow_noise`), with the same
+  masks, per-row keys and stored fields as the categorical branches.
 
 :func:`backward_rollout` samples trajectories back from given terminal
 states under the uniform or the learned P_B and returns their total log
 P_F and log P_B (the EUBO eval's estimator, EB-GFN's MH test) and, with
 ``collect=True``, the trajectories themselves as a forward-ordered
-:class:`RolloutBatch` (EB-GFN's trajectories from data).
+:class:`RolloutBatch` (EB-GFN's trajectories from data).  On a continuous
+env it samples through the flow policy's ``sample_b`` and scores log P_F
+through its ``log_prob``.
 """
 from __future__ import annotations
 
@@ -31,9 +37,10 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from ..envs.base import Environment
-from .types import (NoiseSource, StepNoiseSource, hash_backward_gumbel,
-                    hash_gumbel, hash_step_noise, masked_logprobs,
-                    sample_masked)
+from .types import (FlowNoiseSource, NoiseSource, StepNoiseSource,
+                    hash_backward_gumbel, hash_flow_backward_noise,
+                    hash_flow_noise, hash_gumbel, hash_step_noise,
+                    masked_logprobs, sample_masked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +88,26 @@ def _state_scalars(env: Environment):
     return lrs, getattr(env, "energy", None)
 
 
+def has_density_heads(policy) -> bool:
+    """True for a flow policy (:mod:`repro_torch.nn.flows`), which marks
+    itself ``density_heads``: it samples through ``sample`` / ``sample_b``
+    and is teacher-forced through ``log_prob`` / ``log_prob_b``."""
+    return getattr(policy, "density_heads", False)
+
+
+def _continuous(env: Environment, policy) -> bool:
+    """True on an env with continuous actions, whose policy must then have
+    density heads (JAX raises alike)."""
+    if not getattr(env, "continuous_actions", False):
+        return False
+    if not has_density_heads(policy):
+        raise ValueError(
+            f"{type(env).__name__} has continuous actions; pass a policy "
+            "with density entry points (sample / log_prob, see "
+            "repro_torch.nn.flows)")
+    return True
+
+
 def _cache_engaged(env: Environment, policy) -> bool:
     """The cached branches need both sides: a policy with KV-cache entry
     points (``policy.supports_cache``) and an env that reports each step's
@@ -92,7 +119,8 @@ def _cache_engaged(env: Environment, policy) -> bool:
 @torch.no_grad()
 def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                     env_params, policy, num_envs: int, *,
-                    noise: Union[NoiseSource, StepNoiseSource, None] = None,
+                    noise: Union[NoiseSource, StepNoiseSource,
+                                 FlowNoiseSource, None] = None,
                     logit_temp: Optional[float] = None,
                     exploration_eps: Union[float, torch.Tensor, None] = None,
                     return_final_state: bool = False):
@@ -101,24 +129,29 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     ``noise(seed, i, t, A)``: a :class:`StepNoise` when exploring
     (``exploration_eps`` a number or a 0-dim float32 tensor, default
     :func:`hash_step_noise`), a (B, A) Gumbel tensor otherwise (default
-    :func:`hash_gumbel`).  ``seed`` may use 64 bits; it is a number or a
-    0-dim int64 tensor on the env's device (a training iteration's, which
-    a CUDA graph advances without the host).  ``logit_temp`` scales the
+    :func:`hash_gumbel`); on a continuous env, a :class:`FlowNoise` from
+    ``noise(seed, i, t, policy.noise_dims)`` (default
+    :func:`hash_flow_noise`) whether exploring or not.  ``seed`` may use
+    64 bits; it is a number or a 0-dim int64 tensor on the env's device
+    (a training iteration's, which a CUDA graph advances without the
+    host).  ``logit_temp`` scales the
     forward logits (a tempered policy, as the serving engine's per-lane
     temperature); only the fused branch takes it, as only serving uses
     it.  Returns the batch, or
     ``(batch, final_state)`` with ``return_final_state``."""
     explore = exploration_eps is not None
-    cached = _cache_engaged(env, policy)
+    continuous = _continuous(env, policy)
+    cached = not continuous and _cache_engaged(env, policy)
     if logit_temp is not None and (explore or not cached):
         raise ValueError("forward_rollout: logit_temp is for the fused "
                          "(cached, exploration_eps=None) branch only")
     if noise is None:
-        noise = hash_step_noise if explore else hash_gumbel
+        noise = (hash_flow_noise if continuous else
+                 hash_step_noise if explore else hash_gumbel)
     T = env.max_steps
     obs0, state = env.reset(num_envs, env_params)
     dev = obs0.device
-    A = env.action_dim
+    A = policy.noise_dims if continuous else env.action_dim
     ids = torch.arange(num_envs, dtype=torch.int64, device=dev)
     seeds = (seed.to(device=dev, dtype=torch.int64).expand(num_envs)
              if isinstance(seed, torch.Tensor)
@@ -144,7 +177,10 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
         n = noise(seeds, ids, step_t, A)
         if cached:
             token, pos, length = env.observe_last(state, env_params, prev)
-        if cached and not explore:
+        if continuous:
+            actions, log_pf = policy.sample(obs, safe_mask, n,
+                                            eps=exploration_eps)
+        elif cached and not explore:
             actions, log_pf, _, cache = policy.sample_cached(
                 cache, token, pos, length, n, safe_mask, step=t,
                 logit_temp=temp)
@@ -208,7 +244,8 @@ class BackwardRollout(NamedTuple):
 @torch.no_grad()
 def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                      env_params, policy, terminal_state, *,
-                     noise: Optional[NoiseSource] = None,
+                     noise: Union[NoiseSource, FlowNoiseSource,
+                                  None] = None,
                      backward_policy: str = "learned",
                      collect: bool = False,
                      with_log_pf: bool = True,
@@ -235,11 +272,24 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     transitions at the initial state (``valid`` False there).  Its fields
     have the dtypes :func:`forward_rollout` gives them.
     ``known_log_reward`` (B,) is the batch's ``log_reward``, in place of
-    the terminals' reward."""
+    the terminals' reward.
+
+    On a continuous env the flow policy's ``sample_b`` draws over a
+    :class:`FlowNoise`, ``noise(seed, index[i], t, policy.noise_dims)``
+    (default :func:`hash_flow_backward_noise`), and its ``log_prob`` gives
+    log P_F; ``backward_policy="uniform"`` raises there, as in JAX: a
+    uniform density over continuous increments is not defined."""
     if backward_policy not in ("learned", "uniform"):
         raise ValueError(f"unknown backward_policy {backward_policy!r}")
+    continuous = _continuous(env, policy)
+    if continuous and backward_policy == "uniform":
+        raise ValueError(
+            "backward_policy='uniform' is undefined over continuous "
+            "increments; the flow policy's backward density head is the "
+            "only P_B here")
     if noise is None:
-        noise = hash_backward_gumbel
+        noise = (hash_flow_backward_noise if continuous
+                 else hash_backward_gumbel)
     dev = terminal_state.steps.device
     B = terminal_state.steps.shape[0]
     ids = (torch.arange(B, dtype=torch.int64, device=dev) if index is None
@@ -257,27 +307,35 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     for t in range(env.max_steps):
         at_init = env.is_initial(state, env_params)
         bmask = env.backward_mask(state, env_params)
-        logits_b = None
-        if backward_policy == "learned":
-            logits_b = policy.apply(env.observe(state, env_params)).get(
-                "logits_b")
-        if logits_b is None:
-            logits_b = torch.zeros(bmask.shape, dtype=torch.float32,
-                                   device=dev)
-        bwd_a, log_pb = sample_masked(
-            logits_b, bmask | at_init[:, None],
-            noise(seeds, ids, torch.full_like(ids, t), bmask.shape[-1]))
+        step_t = torch.full_like(ids, t)
+        if continuous:
+            bwd_a, log_pb = policy.sample_b(
+                env.observe(state, env_params), bmask | at_init[:, None],
+                noise(seeds, ids, step_t, policy.noise_dims))
+        else:
+            logits_b = None
+            if backward_policy == "learned":
+                logits_b = policy.apply(env.observe(state, env_params)).get(
+                    "logits_b")
+            if logits_b is None:
+                logits_b = torch.zeros(bmask.shape, dtype=torch.float32,
+                                       device=dev)
+            bwd_a, log_pb = sample_masked(
+                logits_b, bmask | at_init[:, None],
+                noise(seeds, ids, step_t, bmask.shape[-1]))
         _, prev, _, _ = env.backward_step(state, bwd_a, env_params)
         live = ~at_init
         fwd_a = env.get_forward_action(state, bwd_a, prev, env_params)
         prev_obs = env.observe(prev, env_params)
         fmask_prev = env.forward_mask(prev, env_params)
         if with_log_pf:
-            logp = masked_logprobs(policy.apply(prev_obs)["logits"],
-                                   fmask_prev)
-            log_pf = torch.where(
-                live, torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0],
-                0.0)
+            if continuous:
+                log_pf = policy.log_prob(prev_obs, fwd_a)
+            else:
+                logp = masked_logprobs(policy.apply(prev_obs)["logits"],
+                                       fmask_prev)
+                log_pf = torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0]
+            log_pf = torch.where(live, log_pf, 0.0)
             acc_pf = acc_pf + log_pf
         else:
             log_pf = zeros

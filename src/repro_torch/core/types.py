@@ -20,6 +20,12 @@ row and step, as ``repro.core.types.sample_masked`` splits its key into
 source* of the same signature.  :func:`hash_step_noise` is the default;
 the trainer keys it on ``train_seed(seed, iteration)``, so no two
 iterations share noise.
+
+A continuous environment's flow policy draws a :class:`FlowNoise` per row
+and step instead (exit coin, component Gumbels, normals, exploration
+uniforms) from a *flow-noise source* ``noise(seed, index, t, (D, K))``;
+:func:`hash_flow_noise` and :func:`hash_flow_backward_noise` are the
+defaults.
 """
 from __future__ import annotations
 
@@ -44,6 +50,29 @@ class StepNoise(NamedTuple):
 
 StepNoiseSource = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                            StepNoise]
+
+
+class FlowNoise(NamedTuple):
+    """The noise operands of one continuous (flow-policy) sampling step,
+    per row, as JAX's ``repro.nn.flows`` splits an env's key: forward,
+    ``split(key, 4)`` gives ``k_exit`` (``exit_u`` (B,), the exit coin),
+    ``k_mix``, ``k_eps`` (``explore_u`` (B, 2): the explore coin and the
+    fair exit coin of an exploring row) and ``k_unif`` (``unif`` (B, D),
+    the uniform increment); ``k_mix`` splits into ``kc`` (``gumbel``
+    (B, D, K): the categorical over the K components of each coordinate)
+    and ``kn`` (``normal`` (B, D)).  A backward step splits its env key into
+    ``kc`` and ``kn`` alone: ``exit_u``, ``explore_u`` and ``unif`` are
+    None."""
+    gumbel: torch.Tensor
+    normal: torch.Tensor
+    exit_u: Optional[torch.Tensor] = None
+    explore_u: Optional[torch.Tensor] = None
+    unif: Optional[torch.Tensor] = None
+
+
+#: ``noise(seed, index, t, (D, K)) -> FlowNoise``
+FlowNoiseSource = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
+                            Tuple[int, int]], FlowNoise]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -127,11 +156,16 @@ def _uniform_of_bits(h: torch.Tensor) -> torch.Tensor:
     return ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
 
 
+def _uniforms_of_key(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) uniforms strictly inside (0, 1) from (B,) 32-bit row keys,
+    one hash of the row key per column."""
+    a = torch.arange(n, dtype=torch.int64, device=key.device)
+    return _uniform_of_bits(_mix32(key[:, None] ^ _mix32(a ^ 0x5BD1E995)))
+
+
 def _gumbel_of_key(key: torch.Tensor, num_actions: int) -> torch.Tensor:
     """(B, A) standard Gumbel noise from (B,) 32-bit row keys."""
-    a = torch.arange(num_actions, dtype=torch.int64, device=key.device)
-    u = _uniform_of_bits(_mix32(key[:, None] ^ _mix32(a ^ 0x5BD1E995)))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(_uniforms_of_key(key, num_actions)))
 
 
 def hash_step_noise(seed: torch.Tensor, index: torch.Tensor,
@@ -177,6 +211,42 @@ def hash_uniform(seed: torch.Tensor, index: torch.Tensor,
     MH test)."""
     return _uniform_of_bits(_mix32(
         _row_key(seed, index, torch.zeros_like(index)) ^ stream))
+
+
+def _flow_noise(key: torch.Tensor, dims: Tuple[int, int],
+                forward: bool) -> FlowNoise:
+    """A :class:`FlowNoise` from (B,) 32-bit row keys.  The row's
+    uniforms are hashed as one (B, n) tensor and cut into the fields:
+    ``-log(-log(u))`` gives the Gumbel draws, ``ndtri(u)`` the normals
+    (finite, as u lies strictly inside (0, 1))."""
+    D, K = dims
+    u = _uniforms_of_key(key, D * K + D + (3 + D if forward else 0))
+    gumbel = -torch.log(-torch.log(u[:, :D * K])).view(-1, D, K)
+    normal = torch.special.ndtri(u[:, D * K:D * K + D])
+    if not forward:
+        return FlowNoise(gumbel, normal)
+    o = D * K + D
+    return FlowNoise(gumbel, normal, exit_u=u[:, o],
+                     explore_u=u[:, o + 1:o + 3], unif=u[:, o + 3:o + 3 + D])
+
+
+def hash_flow_noise(seed: torch.Tensor, index: torch.Tensor,
+                    t: torch.Tensor, dims: Tuple[int, int]) -> FlowNoise:
+    """Default noise source of continuous forward rollouts: every field of
+    a forward :class:`FlowNoise` from the counter hash of ``(seed[b],
+    index[b], t[b])`` on a stream no other source uses."""
+    return _flow_noise(_mix32(_row_key(seed, index, t) ^ 0x9B05688C), dims,
+                       forward=True)
+
+
+def hash_flow_backward_noise(seed: torch.Tensor, index: torch.Tensor,
+                             t: torch.Tensor,
+                             dims: Tuple[int, int]) -> FlowNoise:
+    """Default noise source of continuous backward rollouts: the Gumbel
+    and normal draws of a backward :class:`FlowNoise` on a stream of its
+    own."""
+    return _flow_noise(_mix32(_row_key(seed, index, t) ^ 0x1F83D9AB), dims,
+                       forward=False)
 
 
 def train_seed(seed: int, iteration: int) -> int:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import ast
 from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
-from . import dag, hypergrid, ising, phylo, seqs
+from . import box, dag, hypergrid, ising, phylo, seqs
 
 
 class Recipe(NamedTuple):
@@ -93,6 +93,14 @@ _TRAIN_RECIPES = {
         num_envs=256, make_evals=None, eval_every=500,
         run_override=ising.run),
 }
+for _obj in ("tb", "db"):
+    _TRAIN_RECIPES[f"box_{_obj}"] = TrainRecipe(
+        f"box_{_obj}",
+        f"{_obj.upper()} on the continuous 2-D Box with a squashed-mixture "
+        "flow policy; quadrature-grid TV/JSD against the normalised mixture "
+        "reward",
+        box.box_env, box.box_policy, box.box_config(_obj), iterations=30000,
+        num_envs=64, make_evals=box.box_evals, eval_every=1500)
 for _obj in ("tb", "db", "subtb"):
     _TRAIN_RECIPES[f"hypergrid_{_obj}"] = TrainRecipe(
         f"hypergrid_{_obj}",

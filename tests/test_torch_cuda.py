@@ -8,7 +8,9 @@ recipe (tfbind8_tb, qm9_tb, amp_tb) and of each graph recipe (dag_mdb,
 phylo_fldb, captured too) and Hymba's smoke config (scoring and decode)
 on the card against the CPU; a training iteration captured in a CUDA
 graph against eager ones, the checks that capture keeps, and the DAG
-posterior's JSD on the card against the CPU.
+posterior's JSD on the card against the CPU; the continuous Box recipes
+(box_tb, box_db): an iteration on the card against the CPU, captured
+against eager (bitwise), a host read refused, the quadrature eval.
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -888,6 +890,124 @@ def test_ising_capture_refuses_a_host_read(cuda):
     with pytest.raises(RuntimeError):
         loop.run(0, 3)
     assert loop.captured is None
+
+
+# -- the continuous Box ---------------------------------------------------------------
+
+def _box_loop(device, recipe="box_tb", policy_seed=1, noise=None):
+    from repro_torch.algo import OnPolicySampler, TrainLoop
+    rec = recipes.get_train(recipe)
+    env = rec.make_env()
+    policy = rec.make_policy(env, seed=policy_seed, device=device,
+                             requires_grad=True)
+    sampler = None if noise is None else OnPolicySampler(noise=noise)
+    return TrainLoop(env, env.init(device), policy,
+                     rec.make_config(env, rec.num_envs, rec.iterations),
+                     sampler=sampler)
+
+
+@pytest.mark.parametrize("recipe", ["box_tb", "box_db"])
+def test_box_iteration_on_cuda_matches_cpu(cuda, recipe):
+    """One iteration at full width (64 envs, MLP 4 -> 128 -> 128 -> 50,
+    K = 4) on the card and on the CPU from the same parameters and hash
+    noise: done and exit flags equal (no draw of this seed sits within
+    1e-5 of a tie), observations within 1e-5; on the card's batch, the
+    loss to 1e-5 relative and each gradient to 1e-4 of its largest entry;
+    no kernel wrapper launches."""
+    counts = (ops.decode_attention, ops.traj_logprob,
+              ops.traj_logprob_backward, ops.subtb_loss)
+    loop_g = _box_loop(cuda, recipe)
+    loop_c = _box_loop("cpu", recipe)
+    loop_c.policy.load_params({k: v.detach().cpu() for k, v in
+                               loop_g.policy.params.flat().items()})
+    st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+    before = [c.launches for c in counts]
+    batch_g = loop_g.sample(st_g)
+    loss_g = float(loop_g.loss_and_grads(batch_g))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [0] * 4
+    batch_c = loop_c.sample(st_c)
+    assert torch.equal(batch_g.done.cpu(), batch_c.done)
+    assert torch.equal(batch_g.actions[..., 2].cpu(), batch_c.actions[..., 2])
+    assert float((batch_g.obs.cpu() - batch_c.obs).abs().max()) <= 1e-5
+    cpu_batch = type(batch_g)(**{f.name: getattr(batch_g, f.name).cpu()
+                                 for f in dataclasses.fields(batch_g)})
+    loss_c = float(loop_c.loss_and_grads(cpu_batch))
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    grads_c = {k: p.grad for k, p in loop_c.policy.params.flat().items()}
+    for k, p in loop_g.policy.params.flat().items():
+        scale = float(grads_c[k].abs().max())
+        err = float((p.grad.cpu() - grads_c[k]).abs().max())
+        assert err <= 1e-4 * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("recipe", ["box_tb", "box_db"])
+def test_box_capture_is_bitwise_eager(cuda, recipe):
+    """Three iterations through a captured iteration (its warm-up under
+    sync debug mode "error": a host read in the flow hash, the env, the
+    flow policy or the density path raises) against an eager run from the
+    same parameters and seed: every iteration's actions, the losses and
+    the parameters after them bitwise; a replay launches no kernel
+    wrapper."""
+    def snap(metrics, batch):   # a copy: the next replay overwrites them
+        return metrics["loss"].clone(), batch.actions.clone()
+
+    def three(captured):
+        loop = _box_loop(cuda, recipe, policy_seed=2)
+        state = loop.init(seed=3)
+        if captured:
+            graph = loop.capture(state)
+            rows = [snap(*graph.warmup)] + [snap(*graph()) for _ in range(2)]
+        else:
+            graph = None
+            rows = [snap(*loop.step(state)[1:]) for _ in range(3)]
+        torch.cuda.synchronize()
+        return rows, {k: v.detach().clone() for k, v in
+                      loop.policy.params.flat().items()}, graph
+
+    eager, pa, _ = three(False)
+    capt, pc, graph = three(True)
+    for (la, aa), (lc, ac) in zip(eager, capt):
+        assert torch.equal(lc, la) and torch.equal(ac, aa)
+    for k in pa:
+        assert torch.equal(pc[k], pa[k]), k
+    assert graph.replays == 2 and not any(graph.launches.values())
+
+
+def test_box_capture_refuses_a_host_read(cuda):
+    """A flow-noise source that reads the seed on the host cannot be
+    captured: the warm-up raises, and nothing runs eagerly in its place."""
+    from repro_torch.core.types import hash_flow_noise
+
+    def host_read(seed, index, t, dims):
+        int(seed[0])
+        return hash_flow_noise(seed, index, t, dims)
+
+    loop = _box_loop(cuda, noise=host_read)
+    with pytest.raises(RuntimeError):
+        loop.run(0, 3)
+    assert loop.captured is None
+
+
+def test_box_quadrature_eval_on_cuda_matches_cpu(cuda):
+    """The recipe's eval on the card: its target equal to the CPU's to
+    1e-6, the same bins as the CPU's for the card's terminals, finite
+    metrics in range, the same metrics at the same seed."""
+    rec = recipes.get_train("box_tb")
+    env = rec.make_env()
+    evs = {}
+    for dev in (cuda, torch.device("cpu")):
+        policy = rec.make_policy(env, seed=0, device=dev)
+        evs[dev.type], = rec.make_evals(env, env.init(dev), policy,
+                                        eval_batch=64)
+    g, c = evs["cuda"], evs["cpu"]
+    torch.testing.assert_close(g.target.cpu(), c.target, rtol=1e-6,
+                               atol=1e-9)
+    out = g(7)
+    assert 0 < float(out["quad_tv"]) <= 1 and float(out["quad_jsd"]) > 0
+    assert torch.equal(g(7)["quad_tv"], out["quad_tv"])
+    pos = torch.rand(4096, 2, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(g.flat_index(pos.to(cuda)).cpu(), c.flat_index(pos))
 
 
 # -- flash_attention and rwkv6_scan ------------------------------------------------
