@@ -26,7 +26,10 @@ printing one JSON line:
              at the main paths' shapes (the sequence recipes' included:
              decode_attention at (16, 9 / 61, 8, 8) with ragged lengths,
              traj_logprob at (16, 8, 4), (16, 5, 22), (128, 61, 21), the
-             fused step at their eval rollouts'; the graph recipes'
+             fused step at their eval rollouts'; the pop-only cached
+             backward's decode_attention at (16, 9 / 61, 8, 8) from full
+             lengths down to BOS alone, tfbind8's replay loss's
+             traj_logprob at (32, 8, 4 / 1); the graph recipes'
              traj_logprob at (32, 26, 1378), (32, 26, 53), (256, 11, 26);
              ising_ebgfn's at (256, 81, 162), (256, 81, 81) and
              ising_converge's at (64, 16, 32), (64, 16, 16))
@@ -152,12 +155,39 @@ printing one JSON line:
              three seeds (``scripts/box_reference.py``; the band is the
              larger of 0.05 and three times the seeds' spread), no kernel
              launched, it/s and eval seconds;
+   replay_train - the three replay paths of the CLI at full width,
+             ``hypergrid_tb --sampler replay --replay-capacity 4096
+             --prioritized``, ``tfbind8_tb`` and ``amp_tb --sampler
+             backward_replay`` (16 fresh and 16 replayed rows): 50, 50 and
+             5 iterations through ``run_recipe``, captured, every
+             iteration's launches held exactly (decode_attention /
+             traj_logprob forward / backward: hypergrid 0 / 0 / 0, tfbind8
+             16 / 2 / 1, amp 183 / 0 / 0); then 3 iterations captured held
+             bitwise to eager (actions, losses, parameters, the buffer),
+             eager and captured it/s, one replay's launches, kernels, busy
+             time and idle share;
+   cached_backward - ``backward_rollout(..., with_log_pf=True)`` on
+             tfbind8 and AMP with the decode policy over 16 terminals (the
+             pop-only cached backward, JAX's default): one decode_attention
+             launch per layer and step (16 and 183), held to the uncached
+             rollout on the card (actions bitwise, log P_F and log P_B to
+             1e-4), both timed;
+   replay_converge - ``hypergrid_tb`` with prioritized replay (capacity
+             4,096) captured for 1,500 iterations: exact-DP TV after 500,
+             1,000 and 1,500 within a band of the JAX package's mean over
+             three seeds (``scripts/replay_reference.py``; the band the
+             larger of 0.05 and three times the seeds' spread), no kernel;
    path_shapes - every shape at which the phases the kernels line counts
              (serve, train, hypergrid_train, seqs_train, seqs_evals,
              dag_train, phylo_train, dag_evals, phylo_evals, ising_train,
-             ising_converge, box_converge) launched decode_step,
-             decode_attention or traj_logprob has a row of phase 3, held
-             against the plain version;
+             ising_converge, box_converge, replay_train, cached_backward,
+             replay_converge) launched decode_step, decode_attention or
+             traj_logprob has a row of phase 3, held against the plain
+             version;
+   replay_hold - one iteration of each replay path on the card against
+             the same iteration on the CPU at full size, after 1 that fills
+             both buffers: fresh actions (near ties counted apart), the
+             replayed rows equal, loss and gradients on the card's batch;
    box_hold - one iteration of box_tb and of box_db on the card and on
              the CPU from the same parameters and hash noise: done and
              exit flags equal (near ties counted apart), observations to
@@ -349,6 +379,47 @@ BOX_CONVERGE_MIN_BAND = 0.05
 BOX_RECIPES = ("box_tb", "box_db")
 BOX_ENV = "Box 2-D, delta (0.1, 0.25), T=11, 3-mode mixture reward"
 BOX_POLICY = "MLP 4 -> 128 -> 128 -> 50, K=4 squashed mixtures + exit + flow"
+#: replay_train: the three replay paths of the CLI (recipe -> sampler and
+#: its options; the replay batch is the recipe's 16 envs)
+REPLAY_PATHS = {
+    "hypergrid_tb": ("replay", {"capacity": 4096, "prioritized": True}),
+    "tfbind8_tb": ("backward_replay", {}),
+    "amp_tb": ("backward_replay", {}),
+}
+REPLAY_BATCH = 16
+#: each replay path's launches per iteration (read from the code): the
+#: fresh rollout's cached queries, as on-policy; the replay's backward
+#: rollout evaluates no policy (the uniform P_B; a transformer has no
+#: learned head); the loss over the 32 rows: tfbind8's traj_logprob P_F and
+#: P_B forwards and P_F's backward, the hypergrid's and AMP's stop-action
+#: losses none
+REPLAY_LAUNCHES_PER_ITER = {
+    "hypergrid_tb": {},
+    "tfbind8_tb": {"decode_attention": 16, "traj_logprob_fwd": 2,
+                   "traj_logprob_bwd": 1},
+    "amp_tb": {"decode_attention": 183}}
+#: replay_train: iterations through run_recipe, and the (eager, captured)
+#: iterations each rate is taken over
+REPLAY_RUN_ITERS = {"hypergrid_tb": 50, "tfbind8_tb": 50, "amp_tb": 5}
+REPLAY_RATE_ITERS = {"hypergrid_tb": (10, 40), "tfbind8_tb": (10, 40),
+                     "amp_tb": (2, 10)}
+#: cached_backward: a pop-only cached backward rollout with log P_F over
+#: REPLAY_BATCH terminals queries decode_attention once per layer and step:
+#: tfbind8 2 layers x 8 steps, AMP 3 x 61
+CACHED_BACKWARD_LAUNCHES = {"tfbind8_tb": 16, "amp_tb": 183}
+#: replay_hold: iterations that fill both buffers before the held one
+REPLAY_HOLD_WARM = 1
+#: replay_converge: hypergrid_tb with prioritized replay; the JAX
+#: package's exact-DP TV over seeds 0-2 after each checkpoint
+#: (scripts/replay_reference.py, its defaults), mean and spread; the band
+#: is max(REPLAY_CONVERGE_MIN_BAND, 3 x spread), fixed from the reference
+#: before the card's first run
+REPLAY_CONVERGE_ITERS = 1500
+REPLAY_CONVERGE_MEANS = {500: 0.24564765890439352, 1000: 0.10819897552331288,
+                         1500: 0.06821954995393753}
+REPLAY_CONVERGE_SPREAD = {500: 0.08219686150550842, 1000: 0.03546851873397827,
+                          1500: 0.012679323554039001}
+REPLAY_CONVERGE_MIN_BAND = 0.05
 #: graph_train: every on-policy recipe and EB-GFN at full width, with the
 #: launches of one iteration (eager, and in one replay of its capture
 #: alike); the kernels left out launch 0 times
@@ -364,8 +435,10 @@ GRAPH_LAUNCHES_PER_ITER = {
 #: graph_train: iterations of each eager and captured run held against each
 #: other, and the iterations each of the two is timed over after them
 GRAPH_HOLD_ITERS = 3
-GRAPH_RATE_ITERS = {"amp_tb": 10, "phylo_fldb": 10, "ising_ebgfn": 10}
-GRAPH_RATE_ITERS_DEFAULT = 40
+#: (40, and 10 for amp_tb, phylo_fldb and ising_ebgfn, until the replay
+#: phases came)
+GRAPH_RATE_ITERS = {"amp_tb": 5, "phylo_fldb": 5, "ising_ebgfn": 5}
+GRAPH_RATE_ITERS_DEFAULT = 20
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
@@ -1647,7 +1720,8 @@ def grad_errors(grads_g: dict, grads_c: dict, grad_atol: float) -> tuple:
 
 
 def hold_iteration(phase: str, recipe_name: str, device, env=None,
-                   grad_atol: float = 0.0):
+                   grad_atol: float = 0.0, sampler=None,
+                   sampler_kwargs=None, warm: int = 0):
     """One iteration of a recipe, at its own batch, on the card (kernels)
     and on the host's CPU (plain versions) from the same parameters and
     noise.  Actions: the
@@ -1659,9 +1733,16 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None,
     ``grad_atol`` everywhere (0 unless given: the graph recipes take 1e-5,
     the CPU tests' absolute bound, for a bias whose gradient is 0 up to
     rounding) is held to ``grad_atol`` absolute instead, and named in
-    ``grad_waived``.  Returns the card's policy, loop and state."""
+    ``grad_waived``.  With a replay ``sampler`` (a registry name, built
+    with ``sampler_kwargs``), ``warm`` iterations first fill both buffers
+    (each device on its own batches, loss and update skipped: the
+    parameters stay equal); then the held iteration's replayed rows, drawn
+    from buffers that hold the same terminals when every fresh row of the
+    warm iterations agreed, must equal the CPU's (no near-tie waiver
+    there: the uniform P_B's draws do not depend on the policy).  Returns
+    the card's policy, loop and state."""
     from repro_torch import recipes
-    from repro_torch.algo import TrainLoop
+    from repro_torch.algo import TrainLoop, make_sampler
     from repro_torch.core.trainer import current_eps
     from repro_torch.core.types import (hash_step_noise, masked_logprobs,
                                         train_seed)
@@ -1675,30 +1756,45 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None,
     pol_c = recipe.make_policy(env, seed=1, device=cpu, requires_grad=True)
     pol_c.load_params({k: v.detach().cpu()
                        for k, v in pol_g.params.flat().items()})
-    loop_g = TrainLoop(env, env.init(device), pol_g, cfg)
-    loop_c = TrainLoop(env, env.init(cpu), pol_c, cfg)
+    loops = [TrainLoop(env, env.init(d), pol, cfg, sampler=make_sampler(
+        sampler or "on_policy", **(sampler_kwargs or {})))
+        for d, pol in ((device, pol_g), (cpu, pol_c))]
+    loop_g, loop_c = loops
     st_g, st_c = loop_g.init(seed=5), loop_c.init(seed=5)
+    warm_differ = 0
+    for _ in range(warm):
+        w_g, w_c = loop_g.sample(st_g), loop_c.sample(st_c)
+        warm_differ += int((w_g.actions.cpu() != w_c.actions)[
+            :, :cfg.num_envs].any(0).sum())
+        st_g.counter.add_(1)
+        st_c.counter.add_(1)
+    step0 = warm
     batch_g = loop_g.sample(st_g)
     batch_c = loop_c.sample(st_c)
     a_g, a_c = batch_g.actions.cpu(), batch_c.actions
-    T, B = a_c.shape
+    T, B = a_c.shape[0], cfg.num_envs
     differ = (a_g != a_c)
+    replayed = differ[:, B:].any(0)
+    differ = differ[:, :B]
     if differ.any():
         with torch.no_grad():
-            logits = pol_c.apply(batch_c.obs.reshape(
-                ((T + 1) * B,) + batch_c.obs.shape[2:]))["logits"].reshape(
+            obs = batch_c.obs[:, :B]
+            logits = pol_c.apply(obs.reshape(
+                ((T + 1) * B,) + obs.shape[2:]))["logits"].reshape(
                 T + 1, B, -1)
 
     def score(t, b):
         noise = hash_step_noise(
-            torch.tensor([train_seed(5, 0)]), torch.tensor([b]),
+            torch.tensor([train_seed(5, step0)]), torch.tensor([b]),
             torch.tensor([t]), env.action_dim)
         mask = batch_c.fwd_mask[t, b] | batch_c.done[t, b]
-        if float(noise.explore_u[0]) < current_eps(cfg, 0):
+        if float(noise.explore_u[0]) < current_eps(cfg, step0):
             return torch.where(mask, 0.0, float("-inf")) + noise.gumbel_u[0]
         return masked_logprobs(logits[t, b], mask) + noise.gumbel[0]
 
     ties, mismatched = _rows_off_a_tie(differ, range(T), score)
+    replayed_mismatched = (int(replayed.sum())
+                           if not (ties or warm_differ) else 0)
     loss_g = float(loop_g.loss_and_grads(batch_g))
     loss_c = float(loop_c.loss_and_grads(_to_cpu(batch_g)))
     grads_c = {k: p.grad for k, p in pol_c.params.flat().items()}
@@ -1707,15 +1803,24 @@ def hold_iteration(phase: str, recipe_name: str, device, env=None,
         grad_atol)
     worst = max(grad_err, key=grad_err.get)
     rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
-    emit(phase, recipe=recipe_name, steps=T, envs=B,
+    extra = {} if sampler is None else dict(
+        sampler=sampler, options=sampler_kwargs or {},
+        batch_rows=a_c.shape[1], warm_iterations=warm,
+        warm_fresh_rows_differing=warm_differ,
+        buffer_size=int(st_g.sampler.size),
+        replayed_rows_differing=int(replayed.sum()),
+        replayed_mismatched_rows=replayed_mismatched)
+    emit(phase, recipe=recipe_name, steps=T, envs=B, **extra,
          actions_equal=int((~differ).sum()),
          rows_differing=int(differ.any(0).sum()), near_tie_rows=ties,
          mismatched_rows=mismatched, loss_cuda=loss_g, loss_cpu=loss_c,
          loss_rel_err=rel, grad_max_err_over_scale=grad_err[worst],
          grad_worst_param=worst, grad_atol=grad_atol, grad_waived=waived)
-    if mismatched or not rel <= 1e-5 or not grad_err[worst] <= 1e-4:
+    if mismatched or replayed_mismatched or not rel <= 1e-5 \
+            or not grad_err[worst] <= 1e-4:
         raise AssertionError(
-            f"{phase}: {mismatched} rows differ off a tie, loss rel "
+            f"{phase}: {mismatched} rows differ off a tie "
+            f"({replayed_mismatched} replayed rows), loss rel "
             f"error {rel}, gradient error {grad_err[worst]} ({worst})")
     return pol_g, loop_g, st_g
 
@@ -2013,11 +2118,13 @@ def replayed_fused_step(loop, state, device) -> None:
 
 # -- phase 7: the sequence-design recipes -------------------------------------
 
-def counted_run(name: str, iters: int, per_iter: dict, device):
+def counted_run(name: str, iters: int, per_iter: dict, device,
+                **run_kwargs):
     """``run_recipe(name)`` at full width for ``iters`` iterations, evals
     off, captured as train: every iteration's launches read (the eager
     warm-up's from the wrappers, a replay's from the capture) and held to
     ``per_iter`` exactly (a kernel it leaves out: 0), every row finite.
+    ``run_kwargs`` go to ``run_recipe`` (a sampler and its options).
     Returns ``(fields of the phase's line, the run's launches)``."""
     from repro_torch.run import run_recipe
 
@@ -2033,7 +2140,7 @@ def counted_run(name: str, iters: int, per_iter: dict, device):
 
     t0 = time.perf_counter()
     out = run_recipe(name, iterations=iters, seed=0, device=device,
-                     eval_every=0, log=log)
+                     eval_every=0, log=log, **run_kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     captured = out["loop"].captured
@@ -2052,7 +2159,7 @@ def counted_run(name: str, iters: int, per_iter: dict, device):
                for k in ("loss", "log_z", "mean_log_reward")):
         raise AssertionError(f"{name}: rows not finite: {hist[-2:]}")
     steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
-    B = out["loop"].cfg.num_envs
+    B = out["loop"].num_envs
     return dict(
         num_envs=B, iterations=iters, wall_s=wall,
         iterations_per_s=iters / wall, steady_iterations_per_s=steady,
@@ -2809,6 +2916,257 @@ def box_converge(device) -> dict:
     return launches
 
 
+# -- phase 8c: replay training --------------------------------------------------
+
+def _sampler_loop(rec, env, env_params, device, sampler, kwargs, seed=1):
+    """A fresh TrainLoop of recipe ``rec`` over ``sampler`` (its policy
+    drawn from ``seed``)."""
+    from repro_torch.algo import TrainLoop, make_sampler
+    policy = rec.make_policy(env, seed=seed, device=device,
+                             requires_grad=True)
+    return TrainLoop(env, env_params, policy,
+                     rec.make_config(env, rec.num_envs, rec.iterations),
+                     sampler=make_sampler(sampler, **kwargs))
+
+
+def _buffers_bitwise(a, b) -> bool:
+    return (torch.equal(a.insert_pos, b.insert_pos)
+            and torch.equal(a.size, b.size)
+            and all(torch.equal(a.data[k], b.data[k]) for k in a.data))
+
+
+def replay_train_phase(device) -> dict:
+    """The three replay paths of the CLI (REPLAY_PATHS) at full width,
+    each: REPLAY_RUN_ITERS iterations through ``run_recipe`` with the
+    sampler (captured; every iteration's launches held to
+    REPLAY_LAUNCHES_PER_ITER exactly); then from one fresh state (policy
+    seed 1, loop seed 5) two eager runs and a captured run of
+    GRAPH_HOLD_ITERS iterations, the captured one held bitwise to the
+    eager one (actions of every iteration, losses, parameters, and the
+    buffer: slots, insert position, fill level), where the two eager runs
+    are bitwise; eager and captured it/s over REPLAY_RATE_ITERS; one
+    replay's kernels, busy time and idle share (replay_profile).  Then the
+    pop-only cached backward (cached_backward).  Returns the launches."""
+    from repro_torch import recipes
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name, (sampler, kwargs) in REPLAY_PATHS.items():
+        rec = recipes.get_train(name)
+        fields, launches = counted_run(
+            name, REPLAY_RUN_ITERS[name], REPLAY_LAUNCHES_PER_ITER[name],
+            device, sampler=sampler, sampler_kwargs=kwargs)
+        for k, v in launches.items():
+            total[k] += v
+        env = rec.make_env()
+        env_params = env.init(device)
+
+        def fresh():
+            loop = _sampler_loop(rec, env, env_params, device, sampler,
+                                 kwargs)
+            return loop, loop.init(seed=5)
+
+        loop_a, state_a = fresh()
+        reset_launches()
+        a = _hold_run(loop_a, state_a, captured=False)
+        eager = read_launches()
+        loop_b, state_b = fresh()
+        b = _hold_run(loop_b, state_b, captured=False)
+        loop_c, state_c = fresh()
+        c = _hold_run(loop_c, state_c, captured=True)
+        graph = c["graph"]
+        want = _only(eager, **REPLAY_LAUNCHES_PER_ITER[name])
+        eager_bitwise = _bitwise(a, b) and _buffers_bitwise(
+            state_a.sampler, state_b.sampler)
+        actions_all = all(torch.equal(x, y) for x, y in
+                          zip(c["actions"], a["actions"]))
+        bitwise = _bitwise(c, a) and actions_all
+        buffer_bitwise = _buffers_bitwise(state_c.sampler, state_a.sampler)
+        n_eager, n_graph = REPLAY_RATE_ITERS[name]
+        t0 = time.perf_counter()
+        for _ in range(n_eager):
+            loop_a.step(state_a)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n_graph):
+            graph()
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        prof = profiled_step(graph)
+        emit("replay_train", nvidia_smi=smi, recipe=name, sampler=sampler,
+             options=kwargs, num_envs=rec.num_envs,
+             replay_batch=loop_c.num_envs - rec.num_envs,
+             batch_rows=loop_c.num_envs, run=fields,
+             hold_iterations=GRAPH_HOLD_ITERS,
+             eager_runs_bitwise=eager_bitwise,
+             captured_bitwise_eager=bitwise,
+             captured_buffer_bitwise_eager=buffer_bitwise,
+             buffer_size=int(state_c.sampler.size),
+             captured_vs_eager_max_abs=_max_abs(c, a),
+             launches_per_iteration={k: v // GRAPH_HOLD_ITERS
+                                     for k, v in eager.items()},
+             graph_launches=graph.launches,
+             warmup_seconds=graph.warmup_seconds,
+             capture_seconds=graph.capture_seconds,
+             eager_iterations=n_eager, captured_iterations=n_graph,
+             eager_iterations_per_s=n_eager / eager_s,
+             captured_iterations_per_s=n_graph / graph_s,
+             speedup=(eager_s / n_eager) / (graph_s / n_graph),
+             replay_kernels=prof["device_kernels"],
+             replay_busy_us=prof["device_busy_us"],
+             replay_wall_us=prof["wall_us"],
+             replay_idle_share=prof["device_idle_share"],
+             replay_device_top=prof["device_top"][:5])
+        want_hold = {k: v * GRAPH_HOLD_ITERS for k, v in want.items()}
+        if not (bitwise and buffer_bitwise) and eager_bitwise:
+            raise AssertionError(
+                f"replay_train {name}: captured run not bitwise eager "
+                f"(buffer {buffer_bitwise}, {_max_abs(c, a)} off)")
+        if eager != want_hold or graph.launches != want:
+            raise AssertionError(
+                f"replay_train {name}: eager launched {eager} in "
+                f"{GRAPH_HOLD_ITERS} iterations, one replay "
+                f"{graph.launches}; each iteration should {want}")
+    cached = cached_backward_phase(device)
+    for k, v in cached.items():
+        total[k] += v
+    return total
+
+
+def cached_backward_phase(device) -> dict:
+    """``backward_rollout(..., with_log_pf=True)`` on tfbind8 and AMP with
+    the recipes' decode policies (policy seed 1) from REPLAY_BATCH terminals
+    of a forward rollout, JAX's default ``use_cache="auto"``: the pop-only
+    cached backward, one decode_attention launch per layer and step
+    (CACHED_BACKWARD_LAUNCHES), held against the uncached rollout on the
+    card (``use_cache=False``: full passes, no kernel) on the same noise:
+    actions bitwise, log P_F and log P_B to 1e-4.  Both timed.  Returns
+    the cached rollouts' launches."""
+    from repro_torch import recipes
+    from repro_torch.core.rollout import backward_rollout, forward_rollout
+
+    total = {k: 0 for k in wrappers()}
+    for name, per_rollout in CACHED_BACKWARD_LAUNCHES.items():
+        rec = recipes.get_train(name)
+        env = rec.make_env()
+        params = env.init(device)
+        policy = rec.make_policy(env, seed=1, device=device)
+        _, term = forward_rollout(3, env, params, policy, REPLAY_BATCH,
+                                  exploration_eps=0.5,
+                                  return_final_state=True)
+        out, seconds, launches = {}, {}, {}
+        for use_cache in ("auto", False):
+            backward_rollout(4, env, params, policy, term,
+                             use_cache=use_cache)          # warm
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out[use_cache] = backward_rollout(
+                4, env, params, policy, term, collect=True,
+                use_cache=use_cache)
+            torch.cuda.synchronize()
+            seconds[use_cache] = time.perf_counter() - t0
+            launches[use_cache] = {k: v for k, v in read_launches().items()
+                                   if v}
+        ca, un = out["auto"], out[False]
+        actions = torch.equal(ca.batch.actions, un.batch.actions)
+        pf_err = float((ca.log_pf - un.log_pf).abs().max())
+        pb_err = float((ca.log_pb - un.log_pb).abs().max())
+        finite = bool(torch.isfinite(ca.log_pf).all())
+        emit("cached_backward", recipe=name, rows=REPLAY_BATCH,
+             steps=env.max_steps, actions_bitwise=actions,
+             log_pf_max_abs=pf_err, log_pb_max_abs=pb_err,
+             log_pf_finite=finite, launches=launches["auto"],
+             uncached_launches=launches[False],
+             cached_seconds=seconds["auto"],
+             uncached_seconds=seconds[False])
+        want = {"decode_attention": per_rollout}
+        if not (actions and pf_err <= 1e-4 and pb_err <= 1e-4 and finite) \
+                or launches["auto"] != want or launches[False]:
+            raise AssertionError(
+                f"cached_backward {name}: actions {actions}, log P_F "
+                f"{pf_err}, log P_B {pb_err}, launches {launches}")
+        total["decode_attention"] += per_rollout
+    return total
+
+
+def replay_hold(device) -> None:
+    """One iteration of each replay path on the card against the same
+    iteration on the CPU, at full size (``hold_iteration`` with the
+    sampler), after REPLAY_HOLD_WARM iterations that fill both buffers."""
+    for name, (sampler, kwargs) in REPLAY_PATHS.items():
+        hold_iteration("replay_hold", name, device, sampler=sampler,
+                       sampler_kwargs=kwargs, warm=REPLAY_HOLD_WARM)
+
+
+def replay_converge(device) -> dict:
+    """``hypergrid_tb`` with reward-prioritized replay (capacity 4,096, the
+    README's command) at full size, captured, for REPLAY_CONVERGE_ITERS
+    iterations (policy drawn from seed 0, loop seed 0; epsilon annealed
+    over half the run, as ``--iterations`` sets it): exact-DP TV after each
+    checkpoint within the band of the JAX package's mean there
+    (REPLAY_CONVERGE_MEANS, ``scripts/replay_reference.py``; the band the
+    larger of REPLAY_CONVERGE_MIN_BAND and three times the seeds' spread,
+    fixed before the card's first run).  Returns the run's launches."""
+    from repro_torch import recipes
+    from repro_torch.algo import ReplaySampler, TrainLoop
+    from repro_torch.evals import ExactDistributionEval
+
+    smi = nvidia_smi()
+    rec = recipes.get_train("hypergrid_tb")
+    env = rec.make_env()
+    params = env.init(device)
+    policy = rec.make_policy(env, seed=0, device=device, requires_grad=True)
+    loop = TrainLoop(env, params, policy,
+                     rec.make_config(env, rec.num_envs,
+                                     REPLAY_CONVERGE_ITERS),
+                     sampler=ReplaySampler(capacity=4096, prioritized=True))
+    ev = ExactDistributionEval(env, params, policy)
+    eval_s = []
+
+    def checkpoint(it, state, metrics, batch):
+        if it + 1 not in REPLAY_CONVERGE_MEANS:
+            return None
+        torch.cuda.synchronize()        # the replays queued before it
+        t0 = time.perf_counter()
+        out = ev(0)
+        row = (it + 1, float(out["exact_tv"]), float(out["exact_jsd"]),
+               float(metrics["loss"]))
+        eval_s.append(time.perf_counter() - t0)
+        return row
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = loop.run(0, REPLAY_CONVERGE_ITERS, callback=checkpoint)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = run_launches(read_launches(), loop.captured)
+    rows = [r for r in hist if r is not None]
+    tv = {c: v for c, v, _, _ in rows}
+    band = {c: max(REPLAY_CONVERGE_MIN_BAND, 3 * s)
+            for c, s in REPLAY_CONVERGE_SPREAD.items()}
+    off = {c: tv[c] - m for c, m in REPLAY_CONVERGE_MEANS.items()}
+    train_s = seconds - sum(eval_s)
+    emit("replay_converge", nvidia_smi=smi, recipe="hypergrid_tb",
+         sampler="replay", options={"capacity": 4096, "prioritized": True},
+         num_envs=rec.num_envs, batch_rows=loop.num_envs,
+         iterations=REPLAY_CONVERGE_ITERS, seconds=seconds,
+         eval_seconds=eval_s, training_seconds=train_s,
+         iterations_per_s=REPLAY_CONVERGE_ITERS / train_s,
+         exact_tv=tv, exact_jsd={c: j for c, _, j, _ in rows},
+         loss={c: lo for c, _, _, lo in rows},
+         jax_mean=REPLAY_CONVERGE_MEANS, off_jax_mean=off, band=band,
+         buffer_size=int(state.sampler.size),
+         replays=loop.captured.replays, graph_launches=loop.captured.launches,
+         launches={k: v for k, v in launches.items() if v})
+    if any(launches.values()) or any(abs(off[c]) > band[c] for c in off):
+        raise AssertionError(
+            f"replay_converge: exact_tv {tv} off JAX's means by {off} "
+            f"(bands {band}); launches {launches}")
+    return launches
+
+
 # -- phase 9: captured training iterations -------------------------------------
 
 def _hold_run(loop, state, captured: bool):
@@ -3351,6 +3709,15 @@ def main() -> int:
                                     [1, 2, 6, 11, 61, 60, 33, 7, 61, 2, 45,
                                      19, 61, 30, 3, 58], seed=21,
                                     device=device, floor_us=floor_us)]
+    # the pop-only cached backward (cached_backward): 16 terminals whose
+    # queries attend the whole sequence down to BOS alone
+    attn += [check_decode_attention(16, 9, 8, 8, [9] * 8 + [5] * 4 + [1] * 4,
+                                    seed=22, device=device,
+                                    floor_us=floor_us),
+             check_decode_attention(16, 61, 8, 8,
+                                    [61, 61, 60, 41, 33, 20, 11, 9, 5, 3,
+                                     2, 1, 1, 57, 48, 13], seed=23,
+                                    device=device, floor_us=floor_us)]
     traj = [check_traj_logprob(16, 15, 3840, seed=0, device=device,
                                floor_us=floor_us, parent=parent),
             check_traj_logprob(16, 15, 15, seed=1, device=device,
@@ -3368,6 +3735,10 @@ def main() -> int:
                  (16, 5, 2), (128, 15, 3840), (128, 15, 15), (256, 8, 4),
                  (256, 8, 1), (256, 5, 22), (256, 5, 2), (128, 61, 2),
                  (256, 29, 5)])]
+    # tfbind8_tb's replay loss over the 16 fresh and 16 replayed rows: P_F
+    # and P_B (32 x 8)
+    traj += [check_traj_logprob(32, 8, A, seed=50 + A, device=device,
+                                floor_us=floor_us) for A in (4, 1)]
     # the graph recipes: phylo_fldb's loss, P_F over DS1's 1,378 slot pairs
     # and its learned P_B over the 53 slots (32 trees of 26 merges), and
     # dag_mdb's log Z bounds, P_F and P_B over 26 actions (256 x 11)
@@ -3485,7 +3856,10 @@ def main() -> int:
     with recording_path_shapes():
         ising_conv = ising_converge(device)
         box_conv = box_converge(device)
+        replay = replay_train_phase(device)
+        replay_conv = replay_converge(device)
     check_path_shapes(rows, attn, traj)
+    replay_hold(device)
     box_hold(device)
     dag_converge(device)
     graph_train_phase(device)
@@ -3514,10 +3888,11 @@ def main() -> int:
     def main_launches(kernel):
         """A kernel's launches on bitseq_tb's, the hypergrid's, the
         sequence recipes', the graph recipes' (training and evals),
-        EB-GFN's and box_tb's paths (the last launches none)."""
+        EB-GFN's, box_tb's (none) and the replay paths'."""
         return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
                                        graph_env, graph_evals, ising,
-                                       ising_conv, box_conv))
+                                       ising_conv, box_conv, replay,
+                                       replay_conv))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

@@ -39,7 +39,7 @@ from ..core.rollout import RolloutBatch
 from ..core.trainer import GFNConfig, make_loss_parts_fn, make_optimizer
 from ..core.types import TrainState, train_seed
 from ..kernels import ops
-from .samplers import OnPolicySampler
+from .samplers import make_sampler
 
 class ScanLog(NamedTuple):
     """``mode="scan"``'s per-iteration outputs on the device: ``metrics``
@@ -242,27 +242,32 @@ class TrainLoop(CapturableLoop):
 
     ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy` or
     :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
-    grad; ``sampler`` defaults to
-    :class:`OnPolicySampler`.  Iteration ``i`` of a run seeded ``seed``
-    draws its rollout noise from ``train_seed(seed, i)``."""
+    grad; ``sampler`` is a sampler of :mod:`repro_torch.algo.samplers` or
+    its registry name (``"on_policy"``, the default, ``"eps_noisy"``,
+    ``"replay"``, ``"backward_replay"``).  Iteration ``i`` of a run seeded
+    ``seed`` draws its noise from ``train_seed(seed, i)``.  The sampler's
+    state (a replay buffer) rides in ``TrainState.sampler``, made by
+    :meth:`init` before any capture, as JAX's ``LoopState.sampler``: a
+    captured iteration adds to it and draws from it on the device."""
 
     #: the metrics of an iteration, in the order of JAX's metrics dict
     METRICS = ("loss", "log_z", "mean_log_reward")
 
     def __init__(self, env, env_params, policy, cfg: GFNConfig,
-                 sampler: Optional[OnPolicySampler] = None):
+                 sampler=None):
         if not all(p.requires_grad for p in policy.params.parameters()):
             raise ValueError("TrainLoop needs a policy whose parameters "
                              "require grad (requires_grad=True)")
         self.env, self.env_params = env, env_params
         self.policy, self.cfg = policy, cfg
-        self.sampler = sampler or OnPolicySampler()
-        self._sample = self.sampler.build(env, env_params, policy, cfg)
+        self.sampler = make_sampler(sampler or "on_policy")
+        self._init_sampler, self._sample = self.sampler.build(
+            env, env_params, policy, cfg)
         self.parts_fn = make_loss_parts_fn(env, policy, cfg)
 
     @property
     def num_envs(self) -> int:
-        return self.cfg.num_envs
+        return self.sampler.batch_size(self.cfg)
 
     def init(self, seed: int) -> TrainState:
         train_seed(seed, 0)                   # the seed's range check
@@ -272,11 +277,15 @@ class TrainLoop(CapturableLoop):
                           optimizer=make_optimizer(self.cfg, params),
                           seed=int(seed),
                           counter=torch.zeros((), dtype=torch.int64,
-                                              device=dev))
+                                              device=dev),
+                          sampler=self._init_sampler())
 
     def sample(self, state: TrainState) -> RolloutBatch:
-        """The batch of the iteration ``state`` is at."""
-        return self._sample(state.noise_seed(), state.counter)
+        """The batch of the iteration ``state`` is at; the sampler's state
+        (``state.sampler``) is updated in place."""
+        state.sampler, batch = self._sample(state.sampler, state.noise_seed(),
+                                            state.counter)
+        return batch
 
     def loss_and_grads(self, batch: RolloutBatch) -> torch.Tensor:
         """:func:`loss_and_grads` of the loop's objective on ``batch``."""

@@ -231,7 +231,8 @@ class EBGFNLoop(CapturableLoop):
         neg = forward_rollout(seed, env, reward, pol, B, noise=n.neg)
         mh = backward_rollout(seed, env, reward, pol,
                               env.terminal_state_from_spins(data),
-                              noise=n.mh_bwd, collect=collect)
+                              noise=n.mh_bwd, collect=collect,
+                              use_cache=False)
         J = reward.reward_params["J"]
         x_neg = neg.obs[-1]
         log_pt_neg = torch.where(neg.valid, neg.log_pf_beh, 0.0).sum(0)
@@ -274,7 +275,7 @@ class EBGFNLoop(CapturableLoop):
         fwd = forward_rollout(seed, env, reward, pol, B, noise=n.fwd)
         bwd = backward_rollout(seed, env, reward, pol, terminal,
                                noise=n.bwd, collect=True,
-                               with_log_pf=False).batch
+                               with_log_pf=False, use_cache=False).batch
         take = n.take(seeds, self._ids) < self.alpha
         batch = _mix(take, fwd, bwd)
         loss = loss_and_grads(pol.params, *tb_parts(

@@ -13,9 +13,10 @@ parameter tree is the JAX package's: ``embed/table``, ``pos/pos``,
 then a mean over positions, with no pad mask and no cache entry points,
 as in the JAX package; its tree is ``embed``, ``pos``,
 ``encoder/layer_{i}/...``, ``readout``, ``log_z``.  The pad (empty) token
-is ``vocab_size - 1``.  The readout has A forward logits and one
-state-flow head (the JAX factory's defaults; its learned backward head is
-not ported yet).
+is ``vocab_size - 1``.  The readout has A forward logits, then Ab backward
+logits with ``learn_backward`` (no recipe sets it), then one state-flow
+head, as the JAX factory's.  A policy reports a learned backward head in
+``has_logits_b``, which backward rollouts read before they evaluate it.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from ..kernels.ops import decode_step
 from ..nn.core import (ParamTree, dense_apply, dense_init, embedding_apply,
                        embedding_init, load_flat, mlp_apply, mlp_init,
                        normal_init)
-from ..nn.transformer import (Cache, cache_init, decode_encoder_init,
-                              decoder_stacked_weights, encoder_apply,
-                              encoder_apply_bank, encoder_apply_cached,
-                              encoder_init, positional_embedding_init)
+from ..nn.transformer import (Cache, cache_fill, cache_init,
+                              decode_encoder_init, decoder_stacked_weights,
+                              encoder_apply, encoder_apply_bank,
+                              encoder_apply_cached, encoder_init,
+                              encoder_query_cached,
+                              positional_embedding_init)
 
 
 class MLPPolicy(nn.Module):
@@ -67,6 +70,11 @@ class MLPPolicy(nn.Module):
                               generator=cpu_generator(seed), device=dev),
             "log_z": torch.full((), float(init_log_z), device=dev),
         }, requires_grad=requires_grad)
+
+    @property
+    def has_logits_b(self) -> bool:
+        """True when :meth:`apply` gives a learned ``logits_b`` head."""
+        return self.learn_backward
 
     def load_params(self, flat: Mapping[str, torch.Tensor]) -> None:
         """Copy ``/``-keyed parameters (every leaf, same shapes) in."""
@@ -103,15 +111,21 @@ class TransformerPolicy(nn.Module):
     def __init__(self, vocab_size: int, max_len: int, action_dim: int, *,
                  num_layers: int = 3, dim: int = 64, num_heads: int = 8,
                  init_log_z: float = 0.0, arch: str = "decode",
+                 backward_action_dim: Optional[int] = None,
+                 learn_backward: bool = False,
                  seed: int = 0, device: DeviceLike = None,
                  requires_grad: bool = False):
         super().__init__()
         if arch not in ("decode", "pooled"):
             raise ValueError(f"unknown transformer arch {arch!r}")
+        if learn_backward and backward_action_dim is None:
+            raise ValueError("learn_backward needs backward_action_dim")
         dev = resolve_device(device)
         self.arch = arch
         self.vocab_size, self.max_len = vocab_size, max_len
         self.action_dim, self.dim, self.num_heads = action_dim, dim, num_heads
+        self.learn_backward = learn_backward
+        self.backward_action_dim = backward_action_dim
         self.pad_id = vocab_size - 1
         g = cpu_generator(seed)
         kw = dict(generator=g, device=dev)
@@ -124,12 +138,22 @@ class TransformerPolicy(nn.Module):
         else:
             tree["encoder"] = encoder_init(num_layers=num_layers, dim=dim,
                                            num_heads=num_heads, **kw)
-        tree["readout"] = dense_init(dim, action_dim + 1, **kw)
+        tree["readout"] = dense_init(
+            dim, action_dim + (backward_action_dim if learn_backward else 0)
+            + 1, **kw)
         tree["log_z"] = torch.full((), float(init_log_z), device=dev)
         self.params = ParamTree(tree, requires_grad=requires_grad)
         self._kernel_weights: Optional[Dict[str, torch.Tensor]] = None
         self._kernel_weights_key: Optional[tuple] = None
         self._param_seq = tuple(self.params.parameters())
+
+    @property
+    def has_logits_b(self) -> bool:
+        """True when the readout has a learned backward head
+        (``learn_backward``; no recipe's transformer has one, as in JAX:
+        the learned P_B of their backward rollouts is the uniform one,
+        which evaluates nothing)."""
+        return self.learn_backward
 
     @property
     def supports_cache(self) -> bool:
@@ -185,10 +209,15 @@ class TransformerPolicy(nn.Module):
     # -- heads -----------------------------------------------------------------
     def heads(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Readout of the decoder output y (B, D) into the heads dict:
-        ``logits`` (B, A) and ``log_flow`` (B,)."""
+        ``logits`` (B, A), ``logits_b`` (B, Ab) with ``learn_backward``,
+        and ``log_flow`` (B,), in that order along the readout."""
         out = dense_apply(self.params["readout"], y)
-        return {"logits": out[..., :self.action_dim],
-                "log_flow": out[..., self.action_dim]}
+        res = {"logits": out[..., :self.action_dim]}
+        if self.learn_backward:
+            res["logits_b"] = out[..., self.action_dim:
+                                  self.action_dim + self.backward_action_dim]
+        res["log_flow"] = out[..., -1]
+        return res
 
     def _embed(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         return (embedding_apply(self.params["embed"], tokens.long())
@@ -222,6 +251,26 @@ class TransformerPolicy(nn.Module):
         x0 = self.params["bos"][None, :].expand(batch_size, self.dim)
         return cache_init(self.params["decoder"], x0, self.max_len + 1,
                           num_heads=self.num_heads)
+
+    def cache_fill(self, cache: Cache, tokens: torch.Tensor) -> Cache:
+        """Write the K/V of the (B, S) token observations ``tokens`` (a
+        terminal sequence, pads past its length) into slots 1..S, in
+        place; slot 0 keeps the BOS entry.  Returns the cache."""
+        self._need_cache("cache_fill")
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        return cache_fill(self.params["decoder"], cache,
+                          self._embed(tokens, pos), num_heads=self.num_heads)
+
+    def query_cached(self, cache: Cache,
+                     length: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The heads of the prefix of ``length`` (B,) tokens of a filled
+        cache (slots 0..length attended), with no append: each layer's
+        attention is one decode-attention launch on CUDA, the plain masked
+        softmax on the CPU."""
+        self._need_cache("query_cached")
+        return self.heads(encoder_query_cached(
+            self.params["decoder"], cache, length, num_heads=self.num_heads))
 
     def _slot(self, step: Union[int, torch.Tensor]):
         """The token added at step t-1 lives in slot t; ``step`` is a scalar
@@ -278,6 +327,7 @@ class PhyloPolicy(nn.Module):
     ``log_z``.  It has no KV-cache entry points."""
 
     dim, num_heads = 32, 8
+    has_logits_b = True
 
     def __init__(self, env, num_layers: int = 6, *, seed: int = 0,
                  device: DeviceLike = None, requires_grad: bool = False):

@@ -25,9 +25,12 @@ Forward rollouts take one of four branches, as in the JAX package:
 states under the uniform or the learned P_B and returns their total log
 P_F and log P_B (the EUBO eval's estimator, EB-GFN's MH test) and, with
 ``collect=True``, the trajectories themselves as a forward-ordered
-:class:`RolloutBatch` (EB-GFN's trajectories from data).  On a continuous
-env it samples through the flow policy's ``sample_b`` and scores log P_F
-through its ``log_prob``.
+:class:`RolloutBatch` (EB-GFN's trajectories from data; the replay
+samplers' replayed terminals, which :func:`concat_rollout_batches` joins
+to the fresh batch).  On a continuous env it samples through the flow
+policy's ``sample_b`` and scores log P_F through its ``log_prob``.  On a
+pop-only sequence env with a cached policy it answers the policy from a
+KV cache filled once from the terminals (the pop-only cached backward).
 """
 from __future__ import annotations
 
@@ -114,6 +117,56 @@ def _cache_engaged(env: Environment, policy) -> bool:
     new observation token."""
     return (getattr(policy, "supports_cache", False)
             and getattr(env, "supports_incremental_obs", False))
+
+
+def has_logits_b(policy) -> bool:
+    """Whether ``policy.apply`` gives a learned ``logits_b`` head, read
+    from the policy before any pass (a policy that does not say is taken
+    to have one).  Where it has none the learned P_B is the uniform one,
+    and a backward rollout evaluates nothing for it: JAX's jit drops that
+    unused pass."""
+    return getattr(policy, "has_logits_b", True)
+
+
+def _backward_cache(env: Environment, policy, use_cache, needs_policy: bool
+                    ) -> bool:
+    """Resolve ``backward_rollout``'s ``use_cache`` (``"auto"``, True or
+    False) as JAX's ``_cache_engaged`` and ``backward_rollout`` do, raising
+    where they raise: the pop-only cached backward engages on a policy with
+    cache entry points, an env with ``supports_incremental_obs`` and
+    ``incremental_pop_only``, and a rollout that evaluates the policy
+    (``with_log_pf`` or a learned P_B)."""
+    if use_cache not in ("auto", True, False):
+        raise ValueError(f"use_cache must be 'auto', True or False; got "
+                         f"{use_cache!r}")
+    capable = _cache_engaged(env, policy)
+    if use_cache is True and not capable:
+        raise ValueError(
+            "use_cache=True needs a policy with cache entry points "
+            "(TransformerPolicy(..., arch='decode')) and an env with "
+            f"supports_incremental_obs; got policy "
+            f"{type(policy).__name__}, env={type(env).__name__}")
+    cached = (capable and use_cache is not False and needs_policy
+              and getattr(env, "incremental_pop_only", False))
+    if use_cache is True and not cached:
+        raise ValueError(
+            "use_cache=True on backward_rollout needs a pop-only edit "
+            "regime (env.incremental_pop_only), a policy with cache_fill, "
+            "and at least one per-step policy evaluation (with_log_pf or a "
+            f"learned backward policy); got env={type(env).__name__}")
+    return cached
+
+
+def concat_rollout_batches(a: RolloutBatch, b: RolloutBatch) -> RolloutBatch:
+    """Concatenate two time-major batches along the batch axis (port of
+    ``repro.core.rollout.concat_rollout_batches``): ``log_reward`` is the
+    only (B,) field, every other carries time on axis 0 and the batch on
+    axis 1.  The replay samplers mix fresh trajectories with replayed
+    ones so."""
+    return RolloutBatch(**{
+        f.name: torch.cat([getattr(a, f.name), getattr(b, f.name)],
+                          dim=0 if getattr(a, f.name).dim() == 1 else 1)
+        for f in dataclasses.fields(RolloutBatch)})
 
 
 @torch.no_grad()
@@ -250,7 +303,8 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                      collect: bool = False,
                      with_log_pf: bool = True,
                      known_log_reward: Optional[torch.Tensor] = None,
-                     index: Optional[torch.Tensor] = None
+                     index: Optional[torch.Tensor] = None,
+                     use_cache: Union[bool, str] = "auto"
                      ) -> BackwardRollout:
     """Sample tau ~ P_B(. | x) back from ``terminal_state`` for
     ``env.max_steps`` steps and return log P_F(tau) and log P_B(tau | x)
@@ -278,7 +332,20 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     :class:`FlowNoise`, ``noise(seed, index[i], t, policy.noise_dims)``
     (default :func:`hash_flow_backward_noise`), and its ``log_prob`` gives
     log P_F; ``backward_policy="uniform"`` raises there, as in JAX: a
-    uniform density over continuous increments is not defined."""
+    uniform density over continuous increments is not defined.
+
+    The policy is evaluated only where a step reads it: log P_F at the
+    previous state when ``with_log_pf``, and ``logits_b`` at the current
+    state when the P_B is learned and the policy has that head
+    (:func:`has_logits_b`); a rollout that needs neither evaluates
+    nothing.  On a pop-only env (``incremental_pop_only``: the sequence
+    envs) with a policy that has cache entry points, ``use_cache="auto"``
+    (JAX's default) fills a KV cache once from the terminal sequences
+    (``policy.cache_fill``) and answers each evaluation from it at the
+    state's length (``policy.query_cached``: the decode-attention kernel
+    on CUDA), with no append; ``use_cache=False`` re-encodes each state
+    (``policy.apply``), and ``use_cache=True`` raises where the cache
+    cannot engage, as JAX's does."""
     if backward_policy not in ("learned", "uniform"):
         raise ValueError(f"unknown backward_policy {backward_policy!r}")
     continuous = _continuous(env, policy)
@@ -303,6 +370,27 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     ys = {k: [] for k in ("obs", "fwd_mask", "bwd_mask", "done", "actions",
                           "bwd_actions", "valid", "log_pf", "log_r_state",
                           "energy")}
+    learned_b = (not continuous and backward_policy == "learned"
+                 and has_logits_b(policy))
+    # JAX's rule decides (and raises); a cache nothing would query is not
+    # filled
+    cached = _backward_cache(
+        env, policy, use_cache,
+        needs_policy=with_log_pf or backward_policy != "uniform") \
+        and (with_log_pf or learned_b)
+    if cached:
+        term_cache = policy.cache_fill(policy.cache_init(B),
+                                       env.observe(terminal_state,
+                                                   env_params))
+
+    def policy_out(s, obs):
+        """The policy's heads at states ``s``: a query of the terminal
+        cache at their length, or a pass over their observation ``obs``."""
+        if cached:
+            return policy.query_cached(term_cache,
+                                       env.observe_last(s, env_params)[2])
+        return policy.apply(obs)
+
     state = terminal_state
     for t in range(env.max_steps):
         at_init = env.is_initial(state, env_params)
@@ -313,10 +401,8 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                 env.observe(state, env_params), bmask | at_init[:, None],
                 noise(seeds, ids, step_t, policy.noise_dims))
         else:
-            logits_b = None
-            if backward_policy == "learned":
-                logits_b = policy.apply(env.observe(state, env_params)).get(
-                    "logits_b")
+            logits_b = policy_out(state, env.observe(
+                state, env_params)).get("logits_b") if learned_b else None
             if logits_b is None:
                 logits_b = torch.zeros(bmask.shape, dtype=torch.float32,
                                        device=dev)
@@ -332,7 +418,7 @@ def backward_rollout(seed: Union[int, torch.Tensor], env: Environment,
             if continuous:
                 log_pf = policy.log_prob(prev_obs, fwd_a)
             else:
-                logp = masked_logprobs(policy.apply(prev_obs)["logits"],
+                logp = masked_logprobs(policy_out(prev, prev_obs)["logits"],
                                        fmask_prev)
                 log_pf = torch.gather(logp, -1, fwd_a.long()[:, None])[:, 0]
             log_pf = torch.where(live, log_pf, 0.0)

@@ -30,7 +30,7 @@ defaults.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -203,6 +203,23 @@ def hash_stream_gumbel(stream: int) -> NoiseSource:
     return noise
 
 
+def hash_select_noise(seed: torch.Tensor, index: torch.Tensor,
+                      capacity: int, prioritized: bool) -> torch.Tensor:
+    """Default selection-noise source of the replay samplers (JAX's
+    ``k_sel``): per replayed item ``index[r]``, from the counter hash of
+    ``(seed[r], index[r])`` on a stream no other draw uses, either one
+    uniform in (0, 1) (``prioritized`` False: the uniform slot draw,
+    ``jax.random.randint``), giving (R,), or a row of ``capacity``
+    Gumbels (``prioritized`` True: the Gumbel-max draw of
+    ``jax.random.categorical`` over the buffer's slots), giving
+    (R, capacity)."""
+    key = _mix32(_row_key(seed, index, torch.zeros_like(index))
+                 ^ 0x6A09E667)
+    if prioritized:
+        return _gumbel_of_key(key, capacity)
+    return _uniform_of_bits(key)
+
+
 def hash_uniform(seed: torch.Tensor, index: torch.Tensor,
                  stream: int) -> torch.Tensor:
     """(B,) uniforms strictly inside (0, 1), one per row, from the counter
@@ -300,11 +317,16 @@ class TrainState:
     device, counts the iterations done.  Iteration i draws its noise from
     ``train_seed(seed, i)``, which :meth:`noise_seed` computes on the
     device: a captured iteration reads and advances both without the
-    host."""
+    host.  ``sampler`` carries the sampler's state across iterations."""
     params: torch.nn.Module
     optimizer: torch.optim.Optimizer
     seed: int
     counter: torch.Tensor
+    #: the sampler's carried state (JAX's ``LoopState.sampler``): a replay
+    #: sampler's :class:`repro_torch.buffer.fifo.BufferState`, whose
+    #: device tensors an iteration updates in place; None for stateless
+    #: samplers
+    sampler: Any = dataclasses.field(default=None, kw_only=True)
 
     def noise_seed(self) -> torch.Tensor:
         """``train_seed(seed, counter)`` as a 0-dim int64 tensor on the

@@ -76,6 +76,10 @@ class Environment(abc.ABC):
     #: True when each forward step adds at most one observation token,
     #: exposed through :meth:`observe_last` (the KV-cache rollout path)
     supports_incremental_obs: bool = False
+    #: True when every backward step removes only the newest observation
+    #: token, so a KV cache filled once from a terminal sequence answers
+    #: every state a backward rollout visits (the pop-only cached backward)
+    incremental_pop_only: bool = False
 
     @abc.abstractmethod
     def reset(self, num_envs: int, params: EnvParams

@@ -80,7 +80,9 @@ class BitSeqEnvironment(Environment):
                   params: BitSeqParams) -> BitSeqState:
         rows = torch.arange(action.shape[0], device=action.device)
         tokens = state.tokens.clone()
-        tokens[rows, action.long()] = self.empty
+        # a device tensor: a Python number is copied from the host
+        tokens[rows, action.long()] = torch.full_like(state.steps,
+                                                      self.empty)
         return BitSeqState(tokens=tokens,
                            steps=torch.clamp(state.steps - 1, min=0))
 

@@ -106,6 +106,7 @@ class AutoregressiveEnvironment(_SeqEnvironment):
     backward action, "remove the last symbol"."""
 
     supports_incremental_obs = True
+    incremental_pop_only = True
 
     def __init__(self, reward_module, length: int, vocab: int):
         self.reward_module = reward_module
@@ -134,8 +135,11 @@ class AutoregressiveEnvironment(_SeqEnvironment):
                   params: SeqParams) -> SeqState:
         tokens = state.tokens.clone()
         # at length 0 this writes the last slot, as JAX's index -1 does;
-        # backward_step keeps the initial state there
-        tokens[_rows(action), state.length.long() - 1] = self.pad
+        # backward_step keeps the initial state there.  The pad goes in as
+        # a device tensor: a Python number is copied from the host, a sync
+        # a captured iteration refuses
+        tokens[_rows(action), state.length.long() - 1] = torch.full_like(
+            state.length, self.pad)
         return SeqState(tokens=tokens,
                         length=torch.clamp(state.length - 1, min=0),
                         steps=torch.clamp(state.steps - 1, min=0),
@@ -201,6 +205,7 @@ class VariableLengthSeqEnvironment(_SeqEnvironment):
     ``max_len + 1`` steps."""
 
     supports_incremental_obs = True
+    incremental_pop_only = True
 
     def __init__(self, reward_module, max_len: int, vocab: int,
                  min_len: int = 1):
@@ -237,7 +242,8 @@ class VariableLengthSeqEnvironment(_SeqEnvironment):
         is_unstop = action == 1
         pos = torch.clamp(state.length.long() - 1, min=0)
         removed = state.tokens.clone()
-        removed[_rows(action), pos] = self.pad
+        removed[_rows(action), pos] = torch.full_like(state.length,
+                                                      self.pad)
         return SeqState(
             tokens=torch.where(is_unstop[:, None], state.tokens, removed),
             length=torch.where(is_unstop, state.length,
@@ -366,7 +372,8 @@ class PrependAppendEnvironment(_SeqEnvironment):
         back = torch.clamp(state.end - 1, min=0)
         pos = torch.where(front, state.start, back)
         buf = state.buf.clone()
-        buf[_rows(action), pos.long().clamp(max=buf.shape[1] - 1)] = self.pad
+        buf[_rows(action), pos.long().clamp(max=buf.shape[1] - 1)] = \
+            torch.full_like(state.steps, self.pad)
         return PrependAppendState(
             buf=buf, start=torch.where(front, state.start + 1, state.start),
             end=torch.where(front, state.end, back),

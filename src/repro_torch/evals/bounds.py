@@ -56,8 +56,10 @@ class LogZBoundsEval:
                "log_z_is": (torch.logsumexp(w, 0)
                             - math.log(float(self.num_samples)))}
         if self.target_states is not None:
+            # uncached, as JAX's eval (it passes the bare policy.apply)
             br = backward_rollout(seed, self.env, self.env_params,
                                   self.policy, self.target_states,
-                                  noise=self.backward_noise)
+                                  noise=self.backward_noise,
+                                  use_cache=False)
             out["eubo"] = (self.target_log_r + br.log_pb - br.log_pf).mean()
         return out

@@ -113,9 +113,10 @@ def log_prob_mc_estimate(seed: int, env, env_params, policy, terminal_state,
     seeds = torch.tensor(sample_seeds(seed, num_samples), dtype=torch.int64,
                          device=dev).repeat_interleave(B)
     index = torch.arange(B, dtype=torch.int64, device=dev).repeat(num_samples)
+    # uncached, as JAX's (it passes the bare policy.apply)
     out = backward_rollout(seeds, env, env_params, policy,
                            _tile_state(terminal_state, num_samples),
-                           noise=noise, index=index)
+                           noise=noise, index=index, use_cache=False)
     ratios = (out.log_pf - out.log_pb).reshape(num_samples, B)
     return torch.logsumexp(ratios, 0) - math.log(num_samples)
 

@@ -155,6 +155,19 @@ def cache_init(p: Params, x0: torch.Tensor, capacity: int, *,
     return {"k": k, "v": v}
 
 
+def cache_fill(p: Params, cache: Cache, xs: torch.Tensor, *,
+               num_heads: int) -> Cache:
+    """Write the K/V of token embeddings xs (B, S, D) into slots 1..S (token
+    i -> slot i + 1) of every layer in one batched pass, in place: the
+    pop-only backward rollout fills the cache once from the terminal
+    sequence and then only queries it."""
+    S = xs.shape[1]
+    kn, vn = _kv_heads_stacked(p, xs, num_heads)        # (Lyr, B, S, H, hd)
+    cache["k"][:, :, 1:S + 1] = kn
+    cache["v"][:, :, 1:S + 1] = vn
+    return cache
+
+
 def cache_append(p: Params, cache: Cache, x_new: torch.Tensor,
                  slot: Union[int, torch.Tensor], *, num_heads: int) -> Cache:
     """Write one token's K/V for every layer at ``slot``, in place.

@@ -283,9 +283,9 @@ def test_hash_flow_noise_is_the_default_of_rollout_and_sampler(full):
     for f in RolloutBatch.__dataclass_fields__:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     cfg = GFNConfig(num_envs=8, exploration_eps=0.1)
-    sample = OnPolicySampler().build(full["tenv"], full["tp"], full["tpol"],
-                                     cfg)
-    c = sample(torch.tensor(3), torch.tensor(0))
+    init, sample = OnPolicySampler().build(full["tenv"], full["tp"],
+                                           full["tpol"], cfg)
+    _, c = sample(init(), torch.tensor(3), torch.tensor(0))
     assert torch.equal(a.actions, c.actions)
 
 

@@ -10,8 +10,10 @@ on the card against the CPU; a training iteration captured in a CUDA
 graph against eager ones, the checks that capture keeps, and the DAG
 posterior's JSD on the card against the CPU; the continuous Box recipes
 (box_tb, box_db): an iteration on the card against the CPU, captured
-against eager (bitwise), a host read refused, the quadrature eval.
-Imports no JAX, so it runs on a machine with a GPU and no JAX:
+against eager (bitwise), a host read refused, the quadrature eval; replay
+training (the FIFO buffer and the replay samplers in the captured
+iteration, bitwise eager, a host read refused) and the pop-only cached
+backward through decode_attention.  Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
@@ -987,6 +989,108 @@ def test_box_capture_refuses_a_host_read(cuda):
     with pytest.raises(RuntimeError):
         loop.run(0, 3)
     assert loop.captured is None
+
+
+# -- replay training: the buffer and the samplers in the captured iteration -------
+
+def _replay_loop(device, recipe, sampler, select_noise=None, **kwargs):
+    from repro_torch.algo import TrainLoop, make_sampler
+    rec = recipes.get_train(recipe)
+    env = rec.make_env(**({"dim": 2, "side": 4}
+                          if recipe.startswith("hypergrid") else {}))
+    policy = rec.make_policy(env, seed=2, device=device, requires_grad=True)
+    if select_noise is not None:
+        kwargs["select_noise"] = select_noise
+    return TrainLoop(env, env.init(device), policy,
+                     rec.make_config(env, 16, 100),
+                     sampler=make_sampler(sampler, **kwargs))
+
+
+@pytest.mark.parametrize("recipe,sampler,kwargs,per_iteration", [
+    ("hypergrid_tb", "replay", {"capacity": 40, "prioritized": True}, {}),
+    ("hypergrid_tb", "replay", {"capacity": 40, "replay_batch": 7}, {}),
+    ("tfbind8_tb", "backward_replay", {},
+     {"decode_attention": 16, "traj_logprob_fwd": 2,
+      "traj_logprob_bwd": 1})])
+def test_replay_capture_is_bitwise_eager(cuda, recipe, sampler, kwargs,
+                                         per_iteration):
+    """Four iterations of a replay sampler through a captured iteration
+    (its warm-up under sync debug mode "error": a host read of the
+    buffer's fill level or insert position raises) against an eager run
+    from the same parameters and seed: every iteration's actions and
+    loss, the parameters and the buffer (slots, insert position, fill
+    level: a 40-slot buffer wraps) after them bitwise; a replay launches
+    the kernels of one eager iteration."""
+    def snap(metrics, batch):   # a copy: the next replay overwrites them
+        return metrics["loss"].clone(), batch.actions.clone()
+
+    def four(captured):
+        loop = _replay_loop(cuda, recipe, sampler, **kwargs)
+        state = loop.init(seed=3)
+        if captured:
+            graph = loop.capture(state)
+            rows = [snap(*graph.warmup)] + [snap(*graph()) for _ in range(3)]
+        else:
+            graph = None
+            rows = [snap(*loop.step(state)[1:]) for _ in range(4)]
+        torch.cuda.synchronize()
+        buf = state.sampler
+        return rows, {k: v.detach().clone() for k, v in
+                      loop.policy.params.flat().items()}, \
+            (buf.data, buf.insert_pos, buf.size), graph
+
+    eager, pa, ba, _ = four(False)
+    capt, pc, bc, graph = four(True)
+    for (la, aa), (lc, ac) in zip(eager, capt):
+        assert torch.equal(lc, la) and torch.equal(ac, aa)
+    for k in pa:
+        assert torch.equal(pc[k], pa[k]), k
+    for k in ba[0]:
+        assert torch.equal(bc[0][k], ba[0][k]), k
+    assert torch.equal(bc[1], ba[1]) and torch.equal(bc[2], ba[2])
+    assert int(ba[2]) == min(4 * 16, kwargs.get("capacity", 2048))
+    assert graph.replays == 3
+    assert {k: v for k, v in graph.launches.items() if v} == per_iteration
+
+
+def test_replay_capture_refuses_a_host_read(cuda):
+    """A selection-noise source that reads the seed on the host cannot be
+    captured: the warm-up raises, and nothing runs eagerly in its place."""
+    from repro_torch.core.types import hash_select_noise
+
+    def host_read(seed, index, capacity, prioritized):
+        int(seed[0])
+        return hash_select_noise(seed, index, capacity, prioritized)
+
+    loop = _replay_loop(cuda, "hypergrid_tb", "replay", capacity=40,
+                        select_noise=host_read)
+    with pytest.raises(RuntimeError):
+        loop.run(0, 3)
+    assert loop.captured is None
+
+
+def test_cached_backward_on_cuda_launches_decode_attention(cuda):
+    """The pop-only cached backward on tfbind8 with the recipe's decode
+    policy: one decode_attention launch per layer and step, and log P_F /
+    log P_B within 1e-4 of the uncached rollout's, actions equal."""
+    from repro_torch.core.rollout import backward_rollout, forward_rollout
+    from repro_torch.kernels import ops
+    rec = recipes.get_train("tfbind8_tb")
+    env = rec.make_env()
+    params = env.init(cuda)
+    policy = rec.make_policy(env, seed=1, device=cuda)
+    _, term = forward_rollout(3, env, params, policy, 16,
+                              exploration_eps=0.5, return_final_state=True)
+    before = ops.decode_attention.launches
+    ca = backward_rollout(4, env, params, policy, term, collect=True)
+    launched = ops.decode_attention.launches - before
+    un = backward_rollout(4, env, params, policy, term, collect=True,
+                          use_cache=False)
+    assert launched == 2 * env.max_steps
+    assert ops.decode_attention.launches - before == launched
+    assert torch.equal(ca.batch.actions, un.batch.actions)
+    torch.testing.assert_close(ca.log_pf, un.log_pf, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ca.log_pb, un.log_pb, atol=1e-4, rtol=0)
 
 
 def test_box_quadrature_eval_on_cuda_matches_cpu(cuda):

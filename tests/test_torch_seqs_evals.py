@@ -1,9 +1,9 @@
 """The port's sequence evaluators against the JAX package's, on a shared
-probe or batch: bitseq's flip-test probe, the uniform probes of TFBind8,
-QM9 and AMP (JAX's draws replayed, so the port's probe is JAX's state for
-state), the Monte-Carlo log P_theta(x) and its correlations with log R,
-the log Z bounds, the sampled TV/JSD with mode hits, and AMP's top-k
-reward and diversity.
+probe or batch: bitseq's flip-test probe, the Monte-Carlo log P_theta(x)
+and its correlations with log R, the log Z bounds, the sampled TV/JSD with
+mode hits, and AMP's top-k reward and diversity.  The uniform probes of
+TFBind8, QM9 and AMP (JAX's draws replayed, so the port's probe is JAX's
+state for state) are held in ``tests/test_torch_seqs_probe.py``.
 
 Noise: sources that replay JAX's draws.  A backward rollout of sample i
 of ``log_prob_mc_estimate`` is keyed ``split(key, N)[i]`` in JAX and
@@ -32,7 +32,7 @@ from repro.recipes.seqs import _bitseq_probe as jax_bitseq_probe  # noqa: E402
 from repro_torch.core.types import sample_seeds  # noqa: E402
 from repro_torch.evals import (LogZBoundsEval,  # noqa: E402
                                RewardCorrelationEval,
-                               SampledDistributionEval, uniform_probe_states)
+                               SampledDistributionEval)
 from repro_torch.metrics import distributions as tm  # noqa: E402
 from repro_torch.recipes import seqs as trecipes  # noqa: E402
 from test_torch_seqs import (REL, _bitseq_policies, _np,  # noqa: E402
@@ -98,31 +98,6 @@ def test_bitseq_probe_and_reward_correlation_match_jax():
            "spearman": jm.spearman_correlation(want, jlog_r)}
     tev = RewardCorrelationEval(tenv, tp, tpol, tterm, tlog_r,
                                 mc_samples=10, noise=noise)(seed)
-    for m in ("pearson", "spearman"):
-        np.testing.assert_allclose(float(tev[m]), float(jev[m]), **REL)
-
-
-@pytest.mark.parametrize("name", ["tfbind8", "qm9", "amp"])
-def test_uniform_probe_and_correlation_match_jax(name):
-    """With JAX's draws replayed the port's uniform probe is JAX's, state
-    for state (AMP's with the forced stop); the correlation eval over it
-    agrees (8 MC samples)."""
-    (jenv, jp, jpol, jparams), (tenv, tp, tpol) = _pair(name)
-    stop = tenv.stop_action if name == "amp" else None
-    key = jax.random.PRNGKey(23)
-    jterm, jlog_r = jax.jit(lambda k: jsampling.uniform_probe_states(
-        k, jenv, jp, 16, stop_action=stop))(key)
-    tterm, tlog_r = uniform_probe_states(
-        0, tenv, tp, 16, stop_action=stop,
-        noise=replay([0], key[None], tenv.max_steps))
-    _same_state(jterm, tterm, "probe")
-    np.testing.assert_allclose(tlog_r.numpy(), _np(jlog_r), rtol=1e-6)
-    key, seed = jax.random.PRNGKey(8), 77
-    jev = jax.jit(jsampling.RewardCorrelationEval(
-        jenv, jp, jpol.apply, jterm, jlog_r, mc_samples=8))(key, jparams)
-    tev = RewardCorrelationEval(
-        tenv, tp, tpol, tterm, tlog_r, mc_samples=8,
-        noise=_mc_replay(key, seed, 8, tenv.max_steps))(seed)
     for m in ("pearson", "spearman"):
         np.testing.assert_allclose(float(tev[m]), float(jev[m]), **REL)
 
