@@ -177,11 +177,26 @@ printing one JSON line:
              1,000 and 1,500 within a band of the JAX package's mean over
              three seeds (``scripts/replay_reference.py``; the band the
              larger of 0.05 and three times the seeds' spread), no kernel;
+   cli     - the training CLI, ``repro_torch.run.main``: ``--env tfbind8
+             --transform reward_cache --transform reward_exponent:...``
+             (beta annealed 1 -> 2 over 40 iterations) ``--cfg
+             max_grad_norm=1.0 --cfg weight_decay=1e-4 --eval-every 25
+             --metrics-json``, 50 iterations: launches of every iteration
+             exact (16 / 2 / 1), the JSON's schema 1, then 3 captured
+             iterations of the stack bitwise eager and one replay's device
+             kernels with and without the cache; ``hypergrid_subtb
+             --transform time_limit:limit=8`` and ``tfbind8_tb --sampler
+             backward_replay`` run to 25 with a checkpoint, resumed with
+             ``--restore`` to 50: every leaf of the final checkpoint
+             (buffer included) bitwise the uninterrupted run's, save and
+             restore seconds; a bitseq_tb checkpoint served through
+             ``launch.serve --checkpoint``, its samples equal to
+             ``forward_rollout`` of the trained policy;
    path_shapes - every shape at which the phases the kernels line counts
              (serve, train, hypergrid_train, seqs_train, seqs_evals,
              dag_train, phylo_train, dag_evals, phylo_evals, ising_train,
              ising_converge, box_converge, replay_train, cached_backward,
-             replay_converge) launched decode_step, decode_attention or
+             replay_converge, cli) launched decode_step, decode_attention or
              traj_logprob has a row of phase 3, held against the plain
              version;
    replay_hold - one iteration of each replay path on the card against
@@ -439,6 +454,36 @@ GRAPH_HOLD_ITERS = 3
 #: phases came)
 GRAPH_RATE_ITERS = {"amp_tb": 5, "phylo_fldb": 5, "ising_ebgfn": 5}
 GRAPH_RATE_ITERS_DEFAULT = 20
+#: cli: the training CLI's own entry point (``repro_torch.run.main``).
+#: tfbind8 through the env registry with a cached reward under a beta
+#: annealed over 40 iterations, AdamW's clip and decay, evals every 25
+#: iterations into a metrics JSON; its launches per iteration as
+#: tfbind8_tb's (the cache changes no kernel's count)
+CLI_ITERS = 50
+CLI_EVAL_EVERY = 25
+CLI_BETA = "reward_exponent:beta=1.0,final_beta=2.0,anneal_steps=40"
+CLI_TFBIND8 = ["--env", "tfbind8", "--transform", "reward_cache",
+               "--transform", CLI_BETA,
+               "--cfg", "max_grad_norm=1.0", "--cfg", "weight_decay=1e-4"]
+#: the resumes held bitwise to the uninterrupted run: run to CLI_CUT with a
+#: checkpoint there, then ``--restore`` to CLI_ITERS.  The hypergrid
+#: recipe anneals epsilon over half its iteration budget, so the anneal is
+#: pinned with --cfg: both runs then train under one schedule
+CLI_CUT = 25
+CLI_RESUMES = {
+    "hypergrid_subtb": ["--recipe", "hypergrid_subtb", "--transform",
+                        "time_limit:limit=8", "--cfg",
+                        f"exploration_anneal_steps={CLI_CUT}"],
+    "tfbind8_tb": ["--recipe", "tfbind8_tb", "--sampler",
+                   "backward_replay"]}
+CLI_LAUNCHES_PER_ITER = {
+    "tfbind8": SEQ_LAUNCHES_PER_ITER["tfbind8_tb"],
+    "hypergrid_subtb": {"subtb_loss_fwd": 1, "subtb_loss_bwd": 1},
+    "tfbind8_tb": REPLAY_LAUNCHES_PER_ITER["tfbind8_tb"]}
+#: cli: bitseq_tb at full width trained this many iterations into a
+#: checkpoint, then served from it through ``launch.serve --checkpoint``
+CLI_SERVE_TRAIN_ITERS = 3
+CLI_SERVE_SAMPLES = 16
 #: tests/test_training.py:19-43 on the card
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
@@ -3034,6 +3079,292 @@ def replay_train_phase(device) -> dict:
     return total
 
 
+# -- the training CLI: env registry, transforms, --cfg, checkpoints -------------
+
+def cli_run(argv, per_iter: dict) -> dict:
+    """``repro_torch.run.main(argv)`` (the CLI a user calls; output
+    swallowed), with its run read: every iteration's launches (the eager
+    warm-up's from the wrappers, a replay's from the capture; the evals'
+    launches, between iterations, counted apart) held to ``per_iter``
+    exactly, every row finite.  Returns the run's ``out`` and its
+    fields."""
+    import io
+
+    from repro_torch import run as cli
+    from repro_torch.evals import EvalSuite
+
+    real_run, real_record = cli.run_recipe, EvalSuite.maybe_record
+    seen, per_it = {}, []
+    evals = {k: 0 for k in wrappers()}
+    reset_launches()
+    last = read_launches()
+
+    def log(line):
+        if line.startswith("it "):
+            now = read_launches()
+            per_it.append({k: now[k] - last[k] for k in now})
+            last.update(now)
+
+    def record(suite, iteration):
+        before = read_launches()
+        row = real_record(suite, iteration)
+        for k, v in read_launches().items():
+            evals[k] += v - before[k]
+            last[k] += v - before[k]
+        return row
+
+    def spy(*args, **kwargs):
+        seen["out"] = real_run(*args, **dict(kwargs, log=log))
+        return seen["out"]
+
+    cli.run_recipe, EvalSuite.maybe_record = spy, record
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+    finally:
+        cli.run_recipe, EvalSuite.maybe_record = real_run, real_record
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = seen["out"]
+    captured = out["loop"].captured
+    launches = run_launches(read_launches(), captured)
+    want = _only(launches, **per_iter)
+    per_it = [got if it == 0 else {k: v + captured.launches[k]
+                                   for k, v in got.items()}
+              for it, got in enumerate(per_it)]
+    bad = [(it, got) for it, got in enumerate(per_it) if got != want]
+    if rc != 0 or bad or captured.launches != want:
+        raise AssertionError(f"cli {argv}: rc {rc}; one replay launched "
+                             f"{captured.launches}; iterations launching "
+                             f"other than {want}: {bad[:3]}")
+    hist = out["history"]
+    if not all(math.isfinite(r[k]) for r in hist
+               for k in ("loss", "log_z", "mean_log_reward")):
+        raise AssertionError(f"cli {argv}: rows not finite: {hist[-2:]}")
+    steady = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"]) \
+        if len(hist) > 1 else None
+    return dict(out=out, launches=launches, fields=dict(
+        argv=argv, iterations=len(hist), wall_s=wall,
+        steady_iterations_per_s=steady, launches=launches,
+        launches_per_iteration=want, eval_launches=evals,
+        graph_launches=captured.launches, replays=captured.replays,
+        warmup_seconds=captured.warmup_seconds,
+        capture_seconds=captured.capture_seconds))
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] += v
+
+
+def checkpoint_seconds(loop, state, tmp: Path) -> dict:
+    """One blocking save of the run's full state (the tree the loop writes,
+    its host copy and the files) and one restore of it into the state (the
+    files read, the tensors copied in place), timed on the host; the files
+    are warm in the page cache."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(tmp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = loop.checkpoint_tree(state)
+    mgr.save(1, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop.restore_state(state, mgr, 1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    return dict(save_seconds=save_s, restore_seconds=restore_s,
+                state_leaves=len(tree),
+                state_bytes=sum(t.numel() * t.element_size()
+                          for t in tree.values()))
+
+
+def cli_phase(device) -> dict:
+    """The training CLI on the card (``repro_torch.run.main``):
+
+    - CLI_TFBIND8: tfbind8 from the env registry with ``reward_cache`` and
+      a scheduled ``reward_exponent``, ``--cfg`` clip and weight decay,
+      CLI_ITERS iterations, evals every CLI_EVAL_EVERY into
+      ``--metrics-json``: every iteration's launches exact (16 / 2 / 1),
+      the JSON's schema 1 and its rows at 0 and 25; then from one fresh state (policy seed 1, loop seed 5) two
+      eager runs and a captured run of GRAPH_HOLD_ITERS iterations of the
+      same stack, the captured one bitwise eager (the beta moves every
+      iteration); one replay's device kernels beside a replay of the stack
+      without the cache;
+    - each CLI_RESUMES run: CLI_ITERS iterations with a checkpoint every
+      CLI_CUT, then CLI_CUT iterations into another directory and
+      ``--restore`` to CLI_ITERS: every leaf of the two final checkpoints
+      bitwise equal (params, Adam's moments and step, the counter, the
+      replay buffer), the resumed rows equal to the uninterrupted ones;
+      save and restore seconds of the full state;
+    - bitseq_tb at full width trained CLI_SERVE_TRAIN_ITERS iterations into
+      a checkpoint, served through ``python -m repro_torch.launch.serve
+      --checkpoint``: the samples equal ``forward_rollout`` of the trained
+      policy, decode_step launches counted.
+
+    Returns the launches of every run and of the serving."""
+    import io
+
+    import numpy as np
+
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.rollout import forward_rollout
+    from repro_torch.envs.transforms import apply_transforms, transform_stack
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- registry, transforms, --cfg, --metrics-json -----------------
+        path = tmp / "tfbind8.json"
+        got = cli_run(CLI_TFBIND8 + [
+            "--iterations", str(CLI_ITERS), "--eval-every",
+            str(CLI_EVAL_EVERY), "--metrics-json", str(path)],
+            CLI_LAUNCHES_PER_ITER["tfbind8"])
+        _add(total, got["launches"])
+        out = got["out"]
+        doc = json.loads(path.read_text())
+        stack = transform_stack(out["loop"].env)
+        cfg = out["loop"].cfg
+        if (doc["schema_version"] != 1 or doc["recipe"] != "tfbind8_tb"
+                or [r["step"] for r in doc["rows"]]
+                != list(range(0, CLI_ITERS, CLI_EVAL_EVERY))
+                or not all(math.isfinite(r[k]) for r in doc["rows"]
+                           for k in doc["metric_names"])
+                or stack != ("reward_exponent", "reward_cache")
+                or (cfg.max_grad_norm, cfg.weight_decay) != (1.0, 1e-4)):
+            raise AssertionError(f"cli tfbind8: stack {stack}, cfg {cfg}, "
+                                 f"metrics JSON {doc}")
+        rec = recipes.get_train("tfbind8_tb")
+        specs = {"cached": ["reward_cache", CLI_BETA],
+                 "uncached": [CLI_BETA]}
+
+        def fresh(kind):
+            env = apply_transforms(rec.make_env(), specs[kind])
+            loop = TrainLoop(env, env.init(device),
+                             rec.make_policy(env, seed=1, device=device,
+                                             requires_grad=True), cfg)
+            return loop, loop.init(seed=5)
+
+        loop_a, state_a = fresh("cached")
+        a = _hold_run(loop_a, state_a, captured=False)
+        loop_b, state_b = fresh("cached")
+        b = _hold_run(loop_b, state_b, captured=False)
+        loop_c, state_c = fresh("cached")
+        c = _hold_run(loop_c, state_c, captured=True)
+        eager_bitwise = _bitwise(a, b)
+        bitwise = _bitwise(c, a) and all(
+            torch.equal(x, y) for x, y in zip(c["actions"], a["actions"]))
+        beta = [float(loop_c.env.update_params(loop_c.env_params,
+                                               torch.tensor(i)).extra["beta"])
+                for i in range(GRAPH_HOLD_ITERS)]
+        cached_prof = profiled_step(c["graph"])
+        loop_u, state_u = fresh("uncached")
+        u = _hold_run(loop_u, state_u, captured=True)
+        uncached_prof = profiled_step(u["graph"])
+        emit("cli", nvidia_smi=smi, run="tfbind8 registry + transforms",
+             **got["fields"], transform_stack=list(stack),
+             metrics_json={k: doc[k] for k in ("schema_version", "recipe",
+                                               "iterations", "eval_every",
+                                               "eval_batch",
+                                               "metric_names")},
+             metric_rows=doc["rows"], hold_iterations=GRAPH_HOLD_ITERS,
+             hold_beta=beta, eager_runs_bitwise=eager_bitwise,
+             captured_bitwise_eager=bitwise,
+             captured_vs_eager_max_abs=_max_abs(c, a),
+             replay_kernels={"reward_cache": cached_prof["device_kernels"],
+                             "no_cache": uncached_prof["device_kernels"]},
+             replay_busy_us={"reward_cache": cached_prof["device_busy_us"],
+                             "no_cache": uncached_prof["device_busy_us"]},
+             replay_wall_us={"reward_cache": cached_prof["wall_us"],
+                             "no_cache": uncached_prof["wall_us"]})
+        if not (eager_bitwise and bitwise):
+            raise AssertionError(
+                f"cli tfbind8: captured run {_max_abs(c, a)} from eager, "
+                f"eager runs {_max_abs(a, b)} apart; both should be bitwise")
+        # -- checkpoints: a cut run resumed is the uninterrupted run ------
+        for name, flags in CLI_RESUMES.items():
+            per_iter = CLI_LAUNCHES_PER_ITER[name]
+            whole, cut = tmp / f"{name}_whole", tmp / f"{name}_cut"
+            common = flags + ["--eval-every", "0", "--checkpoint-every",
+                              str(CLI_CUT)]
+            w = cli_run(common + ["--iterations", str(CLI_ITERS),
+                                  "--checkpoint-dir", str(whole)], per_iter)
+            first = cli_run(common + ["--iterations", str(CLI_CUT),
+                                      "--checkpoint-dir", str(cut)],
+                            per_iter)
+            r = cli_run(common + ["--iterations", str(CLI_ITERS),
+                                  "--checkpoint-dir", str(cut),
+                                  "--restore"], per_iter)
+            for run in (w, first, r):
+                _add(total, run["launches"])
+            want = CheckpointManager(whole).load(CLI_ITERS)
+            have = CheckpointManager(cut).load(CLI_ITERS)
+            differ = sorted(k for k in want
+                            if k not in have or not torch.equal(want[k],
+                                                                have[k]))
+            rows_equal = [
+                {k: v for k, v in x.items() if k != "wall_s"} ==
+                {k: v for k, v in y.items() if k != "wall_s"}
+                for x, y in zip(w["out"]["history"][CLI_CUT:],
+                                r["out"]["history"])]
+            seconds = checkpoint_seconds(w["out"]["loop"], w["out"]["state"],
+                                         tmp / f"{name}_timing")
+            emit("cli", nvidia_smi=smi, run=f"{name} resume",
+                 uninterrupted=w["fields"], cut=first["fields"],
+                 resumed=r["fields"], checkpoint_leaves=len(want),
+                 buffer=".sampler/.size" in want,
+                 leaves_differing=differ,
+                 resumed_rows_equal=all(rows_equal) and len(rows_equal)
+                 == CLI_ITERS - CLI_CUT, **seconds)
+            if differ or not all(rows_equal) or \
+                    len(rows_equal) != CLI_ITERS - CLI_CUT:
+                raise AssertionError(f"cli {name}: the resumed run is not "
+                                     f"the uninterrupted one: {differ[:5]}")
+        # -- serving from a checkpoint ------------------------------------
+        ckpt = tmp / "bitseq_tb"
+        reset_launches()
+        trained = run_recipe("bitseq_tb", iterations=CLI_SERVE_TRAIN_ITERS,
+                             eval_every=0, device=device,
+                             checkpoint_dir=str(ckpt), checkpoint_every=1,
+                             log=lambda line: None)
+        _add(total, run_launches(read_launches(),
+                                 trained["loop"].captured))
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = serve_cli.main(["--env", "bitseq", "--checkpoint",
+                                 str(ckpt), "--num-samples",
+                                 str(CLI_SERVE_SAMPLES), "--seed", "7",
+                                 "--json"])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        served = read_launches()
+        _add(total, served)
+        doc = json.loads(text.getvalue())
+        env = recipes.get("bitseq").make_env()
+        with torch.no_grad():
+            ref = forward_rollout(7, env, env.init(device),
+                                  trained["policy"], CLI_SERVE_SAMPLES)
+        equal = np.array_equal(np.array(doc["samples"]),
+                               ref.obs[-1].cpu().numpy())
+        emit("cli", nvidia_smi=smi, run="serve bitseq_tb checkpoint",
+             train_iterations=CLI_SERVE_TRAIN_ITERS,
+             checkpoint_steps=CheckpointManager(ckpt).all_steps(),
+             samples=len(doc["samples"]), serve_seconds=serve_s,
+             launches=served, samples_equal_forward_rollout=equal)
+        if rc != 0 or not equal or served["decode_step"] == 0:
+            raise AssertionError(f"cli serve: rc {rc}, samples equal "
+                                 f"{equal}, launches {served}")
+    return total
+
+
 def cached_backward_phase(device) -> dict:
     """``backward_rollout(..., with_log_pf=True)`` on tfbind8 and AMP with
     the recipes' decode policies (policy seed 1) from REPLAY_BATCH terminals
@@ -3757,7 +4088,8 @@ def main() -> int:
     # paper grid's; 7000 a long trajectory (a block of 896 threads); then
     # potentials at the offset log Z gives them (1e3), where JAX's expanded
     # prefix form cancels, as N(0, 1) and as a random walk, and lambda = 1;
-    # 9000 takes two tiles (8 states x 1,024 threads each)
+    # 9000 takes two tiles (8 states x 1,024 threads each); (16, 9) the
+    # cli phase's hypergrid under time_limit:limit=8
     subtb = [check_subtb(B, T1, lam, seed=i, device=device,
                          floor_us=floor_us, kind=kind, offset=offset,
                          parent=parent)
@@ -3770,7 +4102,8 @@ def main() -> int:
                   (3, 7000, 0.999, "normal", 1e3),
                   (3, 7000, 0.999, "walk", 1e3),
                   (3, 7000, 1.0, "normal", 1e3),
-                  (2, 9000, 0.999, "walk", 1e3)])]
+                  (2, 9000, 0.999, "walk", 1e3),
+                  (16, 9, 0.9, "normal", 0.0)])]
     # the scoring pass's attention: Hymba's heads over 2 x 4,096 tokens in
     # bf16, window 2,048 (the tensor-core route), and the same geometry in
     # fp32 (the SIMT route; holds the skipping of key tiles outside the
@@ -3858,6 +4191,7 @@ def main() -> int:
         box_conv = box_converge(device)
         replay = replay_train_phase(device)
         replay_conv = replay_converge(device)
+        cli = cli_phase(device)
     check_path_shapes(rows, attn, traj)
     replay_hold(device)
     box_hold(device)
@@ -3888,18 +4222,18 @@ def main() -> int:
     def main_launches(kernel):
         """A kernel's launches on bitseq_tb's, the hypergrid's, the
         sequence recipes', the graph recipes' (training and evals),
-        EB-GFN's, box_tb's (none) and the replay paths'."""
+        EB-GFN's, box_tb's (none), the replay paths' and the CLI's."""
         return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
                                        graph_env, graph_evals, ising,
                                        ising_conv, box_conv, replay,
-                                       replay_conv))
+                                       replay_conv, cli))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         entry("decode_step", csrc + "decode_step.cu",
               "src/repro/kernels/decode_attention.py:239",
-              serve["decode_step"] + seqs_evals["decode_step"], rows,
-              main_row),
+              serve["decode_step"] + seqs_evals["decode_step"]
+              + cli["decode_step"], rows, main_row),
         entry("decode_attention", csrc + "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:98",
               main_launches("decode_attention"), attn, attn[0]),
@@ -3913,12 +4247,12 @@ def main() -> int:
               traj[0][1]),
         entry("subtb_loss_fwd", csrc + "subtb_loss.cu",
               "src/repro/kernels/subtb_loss.py:58",
-              hypergrid["subtb_loss_fwd"], [f for f, _ in subtb],
-              subtb[0][0]),
+              hypergrid["subtb_loss_fwd"] + cli["subtb_loss_fwd"],
+              [f for f, _ in subtb], subtb[0][0]),
         entry("subtb_loss_bwd", csrc + "subtb_loss.cu",
               "src/repro/core/objectives.py:253",
-              hypergrid["subtb_loss_bwd"], [b for _, b in subtb],
-              subtb[0][1]),
+              hypergrid["subtb_loss_bwd"] + cli["subtb_loss_bwd"],
+              [b for _, b in subtb], subtb[0][1]),
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
               prefill["flash_attention"], flash, flash[0]),

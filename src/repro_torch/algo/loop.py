@@ -181,7 +181,9 @@ class CapturableLoop:
         return CapturedIteration(self, state, log)
 
     def run(self, seed: int, num_iterations: int, *, mode: str = "python",
-            callback: Optional[Callable] = None, suite=None):
+            callback: Optional[Callable] = None, suite=None,
+            checkpoint=None, checkpoint_every: int = 0,
+            restore: bool = False):
         """Run ``num_iterations`` iterations from a fresh state.
 
         - ``mode="python"``: returns ``(state, history)``; history
@@ -200,7 +202,14 @@ class CapturableLoop:
         noise of its own, so training runs the same with and without it.
         On CUDA the first iteration runs eagerly and the rest replay one
         captured iteration (:attr:`captured`); a SubTB length out of range
-        inside the graph raises after the run."""
+        inside the graph raises after the run.
+
+        ``checkpoint`` (a :class:`repro_torch.checkpoint.CheckpointManager`,
+        python mode only, a loop with :meth:`checkpoint_tree`) saves the
+        state every ``checkpoint_every`` iterations (asynchronously) and
+        once at the end; ``restore=True`` resumes from its latest complete
+        step, written into the state's tensors in place before the first
+        iteration (and so before any capture)."""
         if mode not in ("python", "scan"):
             raise ValueError(f"unknown mode {mode!r}; expected 'python' | "
                              "'scan'")
@@ -208,7 +217,22 @@ class CapturableLoop:
             raise ValueError(
                 f"callback is only supported in mode='python' (got "
                 f"mode={mode!r}); compiled modes cannot call host code")
+        if checkpoint is not None and (mode != "python" or not hasattr(
+                self, "checkpoint_tree")):
+            raise ValueError(
+                f"checkpointing needs mode='python' "
+                f"and a loop that names its state; {type(self).__name__} "
+                f"in mode={mode!r} has no checkpoints")
+        if (restore or checkpoint_every > 0) and checkpoint is None:
+            raise ValueError(
+                "restore/checkpoint_every need a checkpoint manager; pass "
+                "checkpoint=CheckpointManager(dir) (silently retraining "
+                "from scratch would be worse than this error)")
         state = self.init(seed)
+        start = 0
+        if checkpoint is not None and restore:
+            start = self.restore_state(state, checkpoint, suite=suite,
+                                       num_iterations=num_iterations) or 0
         dev = state.counter.device
         log = None
         if mode == "scan":
@@ -218,7 +242,7 @@ class CapturableLoop:
                           torch.zeros(num_iterations, self.num_envs, **f32))
         self.captured = None
         history = []
-        for it in range(num_iterations):
+        for it in range(start, num_iterations):
             if not state.counter.is_cuda:
                 metrics, batch = self.iteration(state, log)
             elif self.captured is None:
@@ -230,8 +254,19 @@ class CapturableLoop:
                 suite.maybe_record(it)
             if callback is not None:
                 history.append(callback(it, state, metrics, batch))
+            if checkpoint is not None and checkpoint_every > 0 \
+                    and (it + 1) % checkpoint_every == 0 \
+                    and it + 1 < num_iterations:
+                # save() copies to the host before it returns, so the next
+                # replay may overwrite the state at once
+                checkpoint.save(it + 1, self.checkpoint_tree(
+                    state, suite, num_iterations), blocking=False)
         if state.counter.is_cuda:
             ops.check_device_errors(dev)
+        if checkpoint is not None and num_iterations > start:
+            checkpoint.save(num_iterations, self.checkpoint_tree(
+                state, suite, num_iterations))
+            checkpoint.wait()
         if mode == "scan":
             return state, (log.metrics, log.log_rewards)
         return state, history
@@ -308,3 +343,107 @@ class TrainLoop(CapturableLoop):
         self.log_row(state, log, metrics, batch)
         state.counter.add_(1)
         return metrics, batch
+
+    # -- checkpoints in the JAX package's layout -------------------------------
+    def _adam_prefix(self) -> str:
+        """JAX's chain puts ``clip_by_global_norm`` (stateless) before
+        ``scale_by_adam``, so Adam's state is tuple entry 1 with a clip
+        and 0 without."""
+        return (f".train/.opt_state/"
+                f"{0 if self.cfg.max_grad_norm is None else 1}")
+
+    @staticmethod
+    def _adam_state(optimizer: torch.optim.Optimizer,
+                    p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The Adam state of ``p``, made as torch makes it at the first
+        step when there is none yet: ``step`` a float32 0-dim tensor (on
+        the device when capturable), the moments zeros like ``p``."""
+        st = optimizer.state[p]
+        if not st:
+            group = next(g for g in optimizer.param_groups
+                         if any(q is p for q in g["params"]))
+            on_dev = group["capturable"] or group.get("fused")
+            st["step"] = torch.zeros((), dtype=torch.float32,
+                                     device=p.device if on_dev else "cpu")
+            st["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+        return st
+
+    def _state_leaves(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The train and sampler leaves both packages' loop states share,
+        by JAX's flattened names, as the port's own tensors (Adam's
+        ``count`` aside: torch keeps a step per parameter)."""
+        out = {}
+        params = state.params.flat()
+        adam = self._adam_prefix()
+        for n, p in params.items():
+            out[f".train/.params/{n}"] = p
+        for n, p in params.items():
+            out[f"{adam}/.mu/{n}"] = self._adam_state(
+                state.optimizer, p)["exp_avg"]
+        for n, p in params.items():
+            out[f"{adam}/.nu/{n}"] = self._adam_state(
+                state.optimizer, p)["exp_avg_sq"]
+        out[".train/.step"] = state.counter
+        buf = state.sampler
+        if buf is not None:
+            for k, t in buf.data.items():
+                out[f".sampler/.data/log_reward" if k == "log_reward"
+                    else f".sampler/.data/state/.{k}"] = t
+            out[".sampler/.insert_pos"] = buf.insert_pos
+            out[".sampler/.size"] = buf.size
+        return out
+
+    def checkpoint_tree(self, state: TrainState, suite=None,
+                        num_iterations: Optional[int] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The state as a checkpoint tree under JAX's flattened names
+        (``repro.checkpoint.manager._flatten`` of a ``LoopState``) and
+        dtypes (JAX's integers are int32): the policy params
+        (``.train/.params/...``), Adam's ``.count`` / ``.mu`` / ``.nu``,
+        ``.train/.step``, a replay buffer under ``.sampler`` and the eval
+        rows under ``.metrics`` (sized for ``num_iterations``).  JAX's
+        threefry ``.train/.key`` has no counterpart: iteration i draws
+        from ``(seed, i)`` here."""
+        tree = {n: t.to(torch.int32) if t.dtype == torch.int64 else t
+                for n, t in self._state_leaves(state).items()}
+        p0 = next(iter(state.params.flat().values()))
+        count = self._adam_state(state.optimizer, p0)["step"]
+        tree[f"{self._adam_prefix()}/.count"] = count.to(torch.int32)
+        if suite is not None:
+            tree.update(suite.metrics_state(num_iterations))
+        return tree
+
+    def restore_state(self, state: TrainState, checkpoint,
+                      step: Optional[int] = None, suite=None,
+                      num_iterations: Optional[int] = None) -> Optional[int]:
+        """Write step ``step`` of ``checkpoint`` (a
+        :class:`repro_torch.checkpoint.CheckpointManager`; its latest
+        complete step when None) into ``state`` in place, with ``copy_``,
+        so tensors a CUDA graph holds keep their storage: params, Adam's
+        moments and step (JAX's int32 ``count`` into every parameter's
+        float32 ``step``, the state made first where torch has none yet),
+        the counter, the buffer, and the eval rows (JAX's
+        ``_migrate_metrics``).  A leaf missing or of another shape raises
+        (JAX's ``_check_restored_shapes``).  The fused step's weight copies
+        are dropped after.  Returns the step restored (None: the directory
+        holds none, and ``state`` is untouched)."""
+        at = checkpoint.latest_step() if step is None else step
+        if at is None:
+            return None
+        target = self._state_leaves(state)
+        count = torch.zeros((), dtype=torch.float32)
+        target[f"{self._adam_prefix()}/.count"] = count
+        checkpoint.restore(at, target)
+        with torch.no_grad():
+            for p in state.params.flat().values():
+                self._adam_state(state.optimizer, p)["step"].copy_(count)
+        if suite is not None:
+            suite.load_metrics_state(checkpoint.load(at, ".metrics"),
+                                     num_iterations)
+        drop = getattr(self.policy, "weights_replaced", None)
+        if drop is not None:
+            drop()
+        return at

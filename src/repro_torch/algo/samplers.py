@@ -10,6 +10,10 @@ sample_fn)``, as in JAX:
 - ``sample_fn(state, noise_seed, step) -> (state, RolloutBatch)`` draws
   one training batch and updates ``state`` in place, with no host read.
 
+Each batch is drawn under ``env.update_params(env_params, step)``, as
+JAX's samplers apply the hook (``repro/algo/samplers.py:92``, ``:133``,
+``:211``): a scheduled reward anneals with the iteration counter.
+
 ``noise_seed`` takes the place of the JAX sampler's key: the loop passes
 ``train_seed(seed, step)``, so every iteration draws fresh noise.  Both
 are 0-dim int64 tensors on the policy's device, read there, so that a
@@ -67,8 +71,9 @@ class OnPolicySampler:
         B = self.num_envs or cfg.num_envs
 
         def sample_fn(state, noise_seed: torch.Tensor, step: torch.Tensor):
+            ep = env.update_params(env_params, step)
             return state, forward_rollout(
-                noise_seed, env, env_params, policy, B, noise=self.noise,
+                noise_seed, env, ep, policy, B, noise=self.noise,
                 exploration_eps=self._eps(cfg, step))
 
         return (lambda: None), sample_fn
@@ -173,8 +178,11 @@ class ReplaySampler:
         def sample_fn(buf_state, noise_seed: torch.Tensor,
                       step: torch.Tensor):
             dev = buf_state.size.device
+            # a scheduled transform refreshes its leaves here (stored
+            # priorities stay at push-time scale, as in JAX)
+            ep = env.update_params(env_params, step)
             fresh, final = forward_rollout(
-                noise_seed, env, env_params, policy, B, noise=self.noise,
+                noise_seed, env, ep, policy, B, noise=self.noise,
                 exploration_eps=current_eps_tensor(cfg, step),
                 return_final_state=True)
             items: Dict[str, torch.Tensor] = {
@@ -194,7 +202,7 @@ class ReplaySampler:
                 got = buf.sample(buf_state, sel)
             log_r = got.pop("log_reward")
             replayed = backward_rollout(
-                noise_seed, env, env_params, policy,
+                noise_seed, env, ep, policy,
                 state_cls(**got), noise=self.backward_noise,
                 collect=True, backward_policy=self.backward_policy,
                 known_log_reward=log_r if reuse_stored_log_r else None,

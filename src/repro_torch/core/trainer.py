@@ -28,32 +28,61 @@ class GFNConfig(NamedTuple):
 
 
 def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
-                   ) -> torch.optim.Adam:
-    """Adam with its own lr for the ``log_z`` leaves (paper Tables 3-7).
+                   ) -> torch.optim.Optimizer:
+    """Adam with its own lr for the ``log_z`` leaves (paper Tables 3-7),
+    with the JAX package's gradient clip and weight decay.
 
-    The JAX package chains ``scale_by_adam``, ``scale_by_label`` (log Z
-    updates times ``log_z_lr / lr``) and ``scale(-lr)``
-    (``repro/core/trainer.py:40-53``); that is Adam (b1 0.9, b2 0.999,
-    eps 1e-8, eps outside the square root) with a second parameter group
-    at ``log_z_lr``.  On CUDA it is built ``capturable`` (its step count
-    and bias corrections stay on the device), so that an eager step and a
-    step captured in a CUDA graph run the same update arithmetic.
-    Gradient clipping and weight decay raise until a ported recipe needs
-    them."""
-    if cfg.max_grad_norm is not None:
-        raise NotImplementedError("make_optimizer: max_grad_norm is not "
-                                  "ported yet")
-    if cfg.weight_decay:
-        raise NotImplementedError("make_optimizer: weight_decay is not "
-                                  "ported yet")
+    The JAX package chains ``clip_by_global_norm`` (when
+    ``max_grad_norm`` is set), ``scale_by_adam``, ``add_decayed_weights``
+    (when ``weight_decay`` is set), ``scale_by_label`` (log Z updates times
+    ``log_z_lr / lr``) and ``scale(-lr)`` (``repro/core/trainer.py:38-52``).
+    Adam is b1 0.9, b2 0.999, eps 1e-8 outside the square root, with a
+    second parameter group at ``log_z_lr``.  The decay is added to Adam's
+    update of every leaf, ``log_z`` included, and so scaled by its group's
+    lr: that is :class:`torch.optim.AdamW`'s ``p -= lr * wd * p`` (the same
+    arithmetic up to rounding).  The clip runs before each ``step()``, as
+    a step pre-hook (:func:`clip_by_global_norm_`).  On CUDA the optimizer
+    is built ``capturable`` (its step count and bias corrections stay on
+    the device), so that an eager step and a step captured in a CUDA graph
+    run the same update arithmetic.  Learning-rate schedules are not
+    ported: no ``GFNConfig`` field reaches them."""
     named = list(params.named_parameters())
     log_z = [p for n, p in named if "log_z" in n]
     rest = [p for n, p in named if "log_z" not in n]
     groups = [{"params": rest, "lr": cfg.lr}]
     if log_z:
         groups.append({"params": log_z, "lr": cfg.log_z_lr or cfg.lr})
-    return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            capturable=named[0][1].is_cuda)
+    kw = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+              capturable=named[0][1].is_cuda)
+    if cfg.weight_decay:
+        opt = torch.optim.AdamW(groups, weight_decay=cfg.weight_decay, **kw)
+    else:
+        opt = torch.optim.Adam(groups, **kw)
+    if cfg.max_grad_norm is not None:
+        max_norm = float(cfg.max_grad_norm)
+        leaves = [p for _, p in named]
+        opt.register_step_pre_hook(
+            lambda *_: clip_by_global_norm_(leaves, max_norm))
+    return opt
+
+
+def clip_by_global_norm_(params, max_norm: float) -> None:
+    """Scale every gradient by ``min(1, max_norm / (gn + 1e-9))``, ``gn``
+    the global norm over all of them (``repro/optim/adamw.py:46-55``), in
+    place and on the device: no host read, so it runs inside a captured
+    iteration.  ``max_norm`` is divided as a tensor (CUDA turns a Python
+    number divided by a tensor into a product with the tensor's
+    reciprocal)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    with torch.no_grad():
+        gn = torch.sqrt(torch.stack(
+            [g.float().square().sum() for g in grads]).sum())
+        num = torch.full((), max_norm, dtype=torch.float32, device=gn.device)
+        scale = torch.clamp(num / (gn + 1e-9), max=1.0)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
 
 
 def current_eps(cfg: GFNConfig, step: int) -> float:

@@ -138,6 +138,16 @@ class Environment(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} does not implement get_forward_action")
 
+    def update_params(self, params: EnvParams,
+                      iteration: torch.Tensor) -> EnvParams:
+        """Per-iteration refresh of the env params; every sampler applies
+        it once per training batch with the iteration counter (a 0-dim
+        device tensor).  Identity by default; a scheduled transform
+        (:class:`repro_torch.envs.transforms.RewardExponent` with a
+        ``final_beta``) anneals its leaves here, on the device."""
+        del iteration
+        return params
+
     def is_initial(self, state: EnvState, params: EnvParams) -> torch.Tensor:
         """Default: a state with zero elapsed steps."""
         return state.steps == 0

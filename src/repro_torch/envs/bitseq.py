@@ -16,7 +16,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..rewards.bitseq import BitSeqRewardModule
-from .base import Environment
+from .base import Environment, flat_index_of_tokens, tokens_of_flat_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +126,45 @@ class BitSeqEnvironment(Environment):
             tokens=words.to(torch.int32),
             steps=torch.full((words.shape[0],), self.L, dtype=torch.int32,
                              device=words.device))
+
+    # -- enumeration (small instances; RewardCache, exact targets) ----------
+    @property
+    def num_terminal_states(self) -> int:
+        return self.m ** self.L
+
+    def flatten_index(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Base-m flat index of full word sequences, the order of
+        :meth:`true_log_rewards`."""
+        return flat_index_of_tokens(tokens, self.m, self.L)
+
+    def flat_terminal_index(self, state: BitSeqState,
+                            params: BitSeqParams) -> torch.Tensor:
+        """(B,) flat index of (terminal) states; empty tokens appear only
+        in non-terminal states, whose reward is masked, and are clamped
+        into range."""
+        return self.flatten_index(torch.clamp(state.tokens, 0, self.m - 1))
+
+    def terminal_state_from_flat_index(self, idx: torch.Tensor
+                                       ) -> BitSeqState:
+        return self.terminal_state_from_words(
+            tokens_of_flat_index(idx, self.m, self.L))
+
+    def true_log_rewards(self, params: BitSeqParams,
+                         max_states: int = 1 << 22) -> torch.Tensor:
+        """log R over all m^L terminal words (flat base-m C-order), made on
+        the params' device; more than ``max_states`` raises, as in JAX."""
+        num = self.m ** self.L
+        if num > max_states:
+            raise ValueError(
+                f"bitseq has {num} terminal states > {max_states}; "
+                "exact target is only available for small instances")
+        words = tokens_of_flat_index(
+            torch.arange(num, device=params.device), self.m, self.L)
+        return self.reward_module.log_reward(words, params.reward_params)
+
+    def true_distribution(self, params: BitSeqParams,
+                          max_states: int = 1 << 22) -> torch.Tensor:
+        return torch.softmax(self.true_log_rewards(params, max_states), -1)
 
     def observe_last(self, state: BitSeqState, params: BitSeqParams,
                      last_action: torch.Tensor):

@@ -145,6 +145,12 @@ class HypergridEnvironment(Environment):
         """Exact R(x)/Z over all H^d terminal states, flat C-order."""
         return torch.softmax(self.true_log_rewards(params), dim=0)
 
+    def flat_terminal_index(self, state: HypergridState,
+                            params) -> torch.Tensor:
+        """(B,) flat C-order index of (terminal) states: the RewardCache
+        key, in the order of :meth:`true_log_rewards`."""
+        return self.flatten_index(state.pos)
+
     def flatten_index(self, pos: torch.Tensor) -> torch.Tensor:
         """C-order flat index of grid coordinates, matching
         :meth:`true_distribution`'s order."""

@@ -66,3 +66,51 @@ class EvalSuite:
 
     def rows(self) -> List[Dict[str, float]]:
         return list(self._rows)
+
+    # -- checkpoints: JAX's MetricsState layout --------------------------------
+    def num_rows(self, num_iterations: int) -> int:
+        """Rows a run records: one at every ``it % every == 0`` in
+        ``[0, num_iterations)``."""
+        if num_iterations <= 0:
+            return 0
+        return (num_iterations - 1) // self.every + 1
+
+    def metrics_state(self, num_iterations: int) -> Dict[str, torch.Tensor]:
+        """The recorded rows as JAX's ``MetricsState`` leaves, by flattened
+        name under ``.metrics``: ``.steps`` (R,) int32 (-1 unfilled),
+        ``.values/<name>`` (R,) float32 (NaN unfilled) and ``.count``,
+        R = :meth:`num_rows`."""
+        R = self.num_rows(num_iterations)
+        rows = self._rows[:R]
+        steps = torch.full((R,), -1, dtype=torch.int32)
+        steps[:len(rows)] = torch.tensor([r["step"] for r in rows],
+                                         dtype=torch.int32)
+        out = {".metrics/.steps": steps}
+        for n in self.metric_names:
+            v = torch.full((R,), float("nan"), dtype=torch.float32)
+            v[:len(rows)] = torch.tensor([r[n] for r in rows],
+                                         dtype=torch.float32)
+            out[f".metrics/.values/{n}"] = v
+        out[".metrics/.count"] = torch.tensor(len(rows), dtype=torch.int32)
+        return out
+
+    def load_metrics_state(self, data: Dict[str, torch.Tensor],
+                           num_iterations: int) -> None:
+        """Take the rows of a checkpoint's ``.metrics`` leaves (the inverse
+        of :meth:`metrics_state`), keeping at most :meth:`num_rows` of them
+        (JAX's ``_migrate_metrics``: a resume with another iteration
+        budget resizes the row buffer)."""
+        names = [".metrics/.steps", ".metrics/.count"] + [
+            f".metrics/.values/{n}" for n in self.metric_names]
+        missing = [n for n in names if n not in data]
+        if missing:
+            raise ValueError(f"checkpoint has no entry for {missing[0]!r}: "
+                             "it was saved without this eval suite")
+        count = min(int(data[".metrics/.count"]),
+                    self.num_rows(num_iterations))
+        steps = data[".metrics/.steps"]
+        self._rows = [
+            dict({"step": int(steps[r])},
+                 **{n: float(data[f".metrics/.values/{n}"][r])
+                    for n in self.metric_names})
+            for r in range(count)]

@@ -2,10 +2,15 @@
 
     python -m repro_torch.launch.serve --env bitseq --num-samples 4 --seed 7
     python -m repro_torch.launch.serve --env bitseq --smoke --device cpu
+    python -m repro_torch.launch.serve --env bitseq \\
+        --checkpoint checkpoints/bitseq_tb --num-samples 4
 
 Runs on ``cuda`` unless ``--device cpu`` is given; fails on a machine
-without a GPU otherwise.  The policy is freshly initialised from seed 0
-(the port does not read checkpoints yet).
+without a GPU otherwise.  The policy is freshly initialised from seed 0,
+or read from a training checkpoint of either package (``--checkpoint
+DIR``, at ``--step N`` or the latest complete step).  Refreshing onto a
+newer checkpoint while serving (JAX's ``--checkpoint-poll``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -33,6 +38,11 @@ def main(argv=None) -> int:
                     dest="overrides", help="env-factory override")
     ap.add_argument("--smoke", action="store_true",
                     help="use the env's seconds-scale smoke instance")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="checkpoint directory to load policy params from "
+                         "(default: fresh-initialized policy)")
+    ap.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: latest complete)")
     ap.add_argument("--lanes", type=int, default=16,
                     help="engine lane-pool size")
     ap.add_argument("--device", default=None,
@@ -51,7 +61,8 @@ def main(argv=None) -> int:
     sched = Scheduler(num_lanes=args.lanes, device=args.device)
     req = SampleRequest(env=args.env, num_samples=args.num_samples,
                         seed=args.seed, logit_temp=args.temperature,
-                        reward_beta=args.reward_beta, overrides=overrides)
+                        reward_beta=args.reward_beta, overrides=overrides,
+                        checkpoint=args.checkpoint, step=args.step)
     t0 = time.perf_counter()
     rid = sched.submit(req)
     results = sched.run(only=(rid,))

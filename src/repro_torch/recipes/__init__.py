@@ -6,11 +6,16 @@ Servable recipes: an env factory and a policy factory per environment name
 env, policy and config factories per recipe name (port of the training
 half of ``repro.recipes``), run by :mod:`repro_torch.run`; a recipe that
 is not a sample -> loss -> update loop (EB-GFN's ``ising_ebgfn``) has a
-``run_override`` that drives its own loop, as in the JAX package."""
+``run_override`` that drives its own loop, as in the JAX package.
+:func:`register` adds a third-party training recipe (JAX's
+``repro.recipes.register``); JAX's ``get`` / ``names`` are
+:func:`get_train` / :func:`train_names` here, since :func:`get` /
+:func:`names` name the servable envs."""
 from __future__ import annotations
 
 import ast
-from typing import Callable, Dict, Iterable, NamedTuple, Optional
+import dataclasses
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 from . import box, dag, hypergrid, ising, phylo, seqs
 
@@ -43,6 +48,23 @@ class TrainRecipe(NamedTuple):
     #: run_recipe's dict: a run function of the recipe's own (JAX's
     #: ``run_override``); then make_config and make_evals are None
     run_override: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RunOptions:
+    """A run's settings, resolved from the caller and the recipe's
+    defaults (port of ``repro.recipes.base.RunOptions``, without the
+    execution-plan fields: the port runs one device).  ``eval_batch`` is
+    the sample count of the sampling evals; ``transforms`` the env
+    transform stack, innermost first
+    (:func:`repro_torch.envs.transforms.parse_transform` specs);
+    ``eval_every == 0`` turns evals off."""
+    seed: int = 0
+    iterations: int = 20000
+    num_envs: int = 16
+    eval_every: int = 1000
+    eval_batch: int = 2000
+    transforms: Tuple[str, ...] = ()
 
 
 _TRAIN_RECIPES = {
@@ -110,6 +132,13 @@ for _obj in ("tb", "db", "subtb"):
         hypergrid.hypergrid_env, hypergrid.hypergrid_policy,
         hypergrid.hypergrid_config(_obj), iterations=20000, num_envs=16,
         make_evals=hypergrid.hypergrid_evals, eval_every=1000)
+
+
+def register(recipe: TrainRecipe) -> TrainRecipe:
+    """Add a training recipe to the registry (idempotent by name); it is
+    then runnable as ``python -m repro_torch.run --recipe <name>``."""
+    _TRAIN_RECIPES[recipe.name] = recipe
+    return recipe
 
 
 def names():

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,26 +50,47 @@ def ising_policy(env: IsingEnvironment, *, seed: int = 0,
 
 
 def ising_loop(env: IsingEnvironment, policy, *, seed: int, iterations: int,
-               num_envs: int = 256, num_data: int = NUM_DATA) -> EBGFNLoop:
+               num_envs: int = 256, num_data: int = NUM_DATA,
+               **step_kwargs) -> EBGFNLoop:
     """The recipe's loop around ``policy``: ``num_data`` MCMC samples drawn
     from ``seed`` (as JAX's recipe draws them), on the policy's device."""
     data = ising_dataset(seed, env.n, env.sigma, num_data)
     dev = next(policy.params.parameters()).device
     return EBGFNLoop(env, policy, torch.as_tensor(data, device=dev),
-                     iterations=iterations, num_envs=num_envs)
+                     iterations=iterations, num_envs=num_envs, **step_kwargs)
 
 
 def run(*, seed: int, iterations: int, num_envs: int, env: Dict,
         device: DeviceLike, eval_every: int,
-        log: Callable[[str], None]) -> dict:
+        log: Callable[[str], None], config: Optional[Dict] = None,
+        transforms: Sequence = ()) -> dict:
     """The recipe's run function (JAX's ``_run``): the dataset (``--set
     num_data=``, default 2,000, drawn from ``seed``), then ``iterations``
     EB-GFN iterations, captured on CUDA.  History rows as JAX's, ``{it,
     gfn_loss, neg_log_rmse, mh_accept}`` (plus ``wall_s``), at every
-    ``eval_every``-th iteration and the last (0: none)."""
+    ``eval_every``-th iteration and the last (0: none).  ``config`` may
+    set ``gfn_lr``, ``ebm_lr`` and ``alpha`` (other keys are warned about
+    and dropped, as in JAX); ``transforms`` must add no params layer (the
+    loop owns the reward params, the learned J)."""
+    from ..envs.transforms import EnvTransform, apply_transforms
     overrides = dict(env)
     num_data = overrides.pop("num_data", NUM_DATA)
-    environment = ising_env(**overrides)
+    environment = apply_transforms(ising_env(**overrides), transforms)
+    layer = environment
+    while isinstance(layer, EnvTransform):
+        if layer.wraps_params:
+            raise ValueError(
+                f"transform {layer.name!r} adds a params layer, but "
+                "EB-GFN owns the reward params (the learned J); only "
+                "param-free transforms compose with ising_ebgfn")
+        layer = layer.env
+    config = dict(config or {})
+    step_kwargs = {k: config[k] for k in ("gfn_lr", "ebm_lr", "alpha")
+                   if k in config}
+    dropped = sorted(set(config) - set(step_kwargs))
+    if dropped:
+        log(f"warning: ising_ebgfn ignores config overrides {dropped}; "
+            "supported: gfn_lr, ebm_lr, alpha")
     dev = resolve_device(device)
     log("generating MCMC dataset (Wolff / heat-bath PT)...")
     t0 = time.perf_counter()
@@ -78,7 +99,7 @@ def run(*, seed: int, iterations: int, num_envs: int, env: Dict,
     policy = ising_policy(environment, seed=seed, device=dev,
                           requires_grad=True)
     loop = ising_loop(environment, policy, seed=seed, iterations=iterations,
-                      num_envs=num_envs, num_data=num_data)
+                      num_envs=num_envs, num_data=num_data, **step_kwargs)
     J_true = environment.init(dev).reward_params["J"]
     t0 = time.perf_counter()
 

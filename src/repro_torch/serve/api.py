@@ -1,15 +1,15 @@
 """Request and result types of the serving tier (port of the request
 surface of ``repro.serve.api``; the port has no HTTP endpoint yet).
 
-The port accepts the JAX package's request fields except ``transforms``,
-``checkpoint``, ``step`` and ``deadline_s``, which it does not serve yet;
+The port accepts the JAX package's request fields except ``transforms``
+and ``deadline_s``, which it does not serve yet;
 :meth:`SampleRequest.from_dict` rejects them as unknown fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from .errors import BadRequest
 
@@ -28,6 +28,11 @@ class SampleRequest:
     logit_temp   forward-logit scale of this request's lanes
     reward_beta  reward exponent beta (R -> R^beta) of this request's lanes
     overrides    env-factory overrides, e.g. bitseq ``{"n": 16, "k": 4}``
+    checkpoint   checkpoint directory to load the policy params from (a
+                 training checkpoint of either package, through
+                 ``CheckpointManager.restore_subtree``); None: a fresh
+                 policy from the scheduler's seed
+    step         checkpoint step (default: the latest complete one)
     """
     env: str
     num_samples: int = 1
@@ -35,6 +40,8 @@ class SampleRequest:
     logit_temp: float = 1.0
     reward_beta: float = 1.0
     overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    checkpoint: Optional[str] = None
+    step: Optional[int] = None
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any],
@@ -82,6 +89,11 @@ def validate_request(req: SampleRequest,
     if not isinstance(req.overrides, dict) or \
             not all(isinstance(k, str) for k in req.overrides):
         raise BadRequest("'overrides' must be an object with string keys")
+    if req.checkpoint is not None and not isinstance(req.checkpoint, str):
+        raise BadRequest(f"'checkpoint' must be a string path or null, "
+                         f"got {req.checkpoint!r}")
+    if req.step is not None:
+        _check_int("step", req.step)
 
 
 @dataclasses.dataclass(frozen=True)

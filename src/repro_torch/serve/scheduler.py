@@ -1,9 +1,12 @@
 """Request scheduler: coalesces requests into engines (port of
-``repro.serve.scheduler``, without checkpoints, transforms, plans or
-fault injection).
+``repro.serve.scheduler``, without transforms, plans, fault injection or
+the refresh onto a newer checkpoint).
 
-Requests are grouped by their engine key ``(env, overrides)``, which pins
-the environment and policy an engine serves.  Sample count, seed and both
+Requests are grouped by their engine key ``(env, overrides, checkpoint,
+step)``, which pins the environment and policy an engine serves; the
+policy params come from ``CheckpointManager.restore_subtree`` when the
+request names a checkpoint (the latest complete step unless it names one),
+else from the scheduler's seed.  Sample count, seed and both
 temperatures are lane-resident state inside one engine, so requests that
 differ only in those share a device batch.  Engines are built lazily from
 :mod:`repro_torch.recipes` and persist across :meth:`Scheduler.run` calls.
@@ -21,7 +24,8 @@ from .errors import BadRequest
 
 
 def _engine_key(req: SampleRequest) -> Tuple:
-    return (req.env, tuple(sorted(req.overrides.items())))
+    return (req.env, tuple(sorted(req.overrides.items())), req.checkpoint,
+            req.step)
 
 
 class Scheduler:
@@ -49,6 +53,18 @@ class Scheduler:
         env_params = env.init(self.device)
         policy = recipe.make_policy(env, seed=self.init_seed,
                                     device=self.device)
+        if req.checkpoint is not None:
+            from ..checkpoint import CheckpointManager
+            mgr = CheckpointManager(req.checkpoint)
+            step = req.step if req.step is not None else mgr.latest_step()
+            if step is None:
+                raise BadRequest(f"no complete checkpoint found in "
+                                 f"{req.checkpoint!r}")
+            try:
+                mgr.restore_subtree(step, policy.params.flat())
+            except (OSError, ValueError) as e:
+                raise BadRequest(str(e)) from None
+            policy.weights_replaced()
         return SamplingEngine(env, env_params, policy,
                               num_lanes=self.num_lanes)
 

@@ -13,7 +13,9 @@ posterior's JSD on the card against the CPU; the continuous Box recipes
 against eager (bitwise), a host read refused, the quadrature eval; replay
 training (the FIFO buffer and the replay samplers in the captured
 iteration, bitwise eager, a host read refused) and the pop-only cached
-backward through decode_attention.  Imports no JAX, so it runs on a machine with a GPU and no JAX:
+backward through decode_attention; the training CLI's state: a captured
+iteration with the clip, weight decay and a scheduled beta bitwise eager,
+a resume from a checkpoint bitwise the uninterrupted run.  Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
@@ -1091,6 +1093,87 @@ def test_cached_backward_on_cuda_launches_decode_attention(cuda):
     assert torch.equal(ca.batch.actions, un.batch.actions)
     torch.testing.assert_close(ca.log_pf, un.log_pf, atol=1e-4, rtol=0)
     torch.testing.assert_close(ca.log_pb, un.log_pb, atol=1e-4, rtol=0)
+
+
+def _cli_stack_loop(device, transforms, sampler=None):
+    """tfbind8_tb's loop over a transform stack, with AdamW's clip and
+    weight decay (the training CLI's ``--cfg``), policy seed 1."""
+    from repro_torch.algo import TrainLoop
+    from repro_torch.envs.transforms import apply_transforms
+    rec = recipes.get_train("tfbind8_tb")
+    env = apply_transforms(rec.make_env(), transforms)
+    cfg = rec.make_config(env, 16, 100)._replace(max_grad_norm=1.0,
+                                                 weight_decay=1e-4)
+    return TrainLoop(env, env.init(device),
+                     rec.make_policy(env, seed=1, device=device,
+                                     requires_grad=True), cfg,
+                     sampler=sampler)
+
+
+def test_capture_with_clip_decay_and_scheduled_beta_is_bitwise_eager(cuda):
+    """tfbind8 under ``reward_cache`` and a beta annealed over 4
+    iterations, with the clip and weight decay: four captured iterations
+    (the warm-up under sync debug mode "error": the clip's norm, AdamW's
+    decay and the beta schedule read no host value) against four eager
+    ones from the same state: actions, losses and parameters bitwise,
+    while beta moves every iteration."""
+    stack = ("reward_cache",
+             "reward_exponent:beta=1.0,final_beta=2.0,anneal_steps=4")
+
+    def four(captured):
+        loop = _cli_stack_loop(cuda, stack)
+        state = loop.init(seed=3)
+        if captured:
+            graph = loop.capture(state)
+            m, b = graph.warmup
+            rows = [(m["loss"].clone(), b.actions.clone())]
+            for _ in range(3):    # a copy: the next replay overwrites them
+                m, b = graph()
+                rows.append((m["loss"].clone(), b.actions.clone()))
+        else:
+            rows = [(m["loss"].clone(), b.actions.clone()) for m, b in
+                    (loop.step(state)[1:] for _ in range(4))]
+        torch.cuda.synchronize()
+        return loop, rows, {k: v.detach().clone() for k, v in
+                            loop.policy.params.flat().items()}
+
+    loop, eager, pa = four(False)
+    _, capt, pc = four(True)
+    for (la, aa), (lc, ac) in zip(eager, capt):
+        assert torch.equal(lc, la) and torch.equal(ac, aa)
+    for k in pa:
+        assert torch.equal(pc[k], pa[k]), k
+    betas = [float(loop.env.update_params(
+        loop.env_params, torch.tensor(i, device=cuda)).extra["beta"])
+        for i in range(5)]
+    assert betas == [1.0, 1.25, 1.5, 1.75, 2.0]
+
+
+def test_resume_on_cuda_is_bitwise_the_uninterrupted_run(cuda, tmp_path):
+    """tfbind8_tb with the backward-replay sampler, the clip and decay:
+    six captured iterations against three, a checkpoint, and a restore
+    into a fresh loop for three more (its own capture): every leaf of the
+    state (params, Adam's moments and step, the counter, the buffer)
+    bitwise."""
+    from repro_torch.algo import make_sampler
+    from repro_torch.checkpoint import CheckpointManager
+
+    def loop():
+        return _cli_stack_loop(cuda, (), make_sampler("backward_replay",
+                                                      capacity=64))
+
+    a = loop()
+    sa, _ = a.run(3, 6)
+    mgr = CheckpointManager(tmp_path)
+    b = loop()
+    b.run(3, 3, checkpoint=mgr, checkpoint_every=3)
+    c = loop()
+    sc, _ = c.run(3, 6, checkpoint=mgr, restore=True)
+    assert c.captured.replays == 2
+    want, have = a.checkpoint_tree(sa), c.checkpoint_tree(sc)
+    assert set(want) == set(have) and ".sampler/.size" in want
+    for k in want:
+        assert torch.equal(want[k], have[k]), k
 
 
 def test_box_quadrature_eval_on_cuda_matches_cpu(cuda):

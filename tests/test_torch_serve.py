@@ -164,7 +164,9 @@ def test_scheduler_coalesces_and_validates():
     with pytest.raises(BadRequest):
         sched.submit(SampleRequest(env="ising"))
     with pytest.raises(BadRequest):
-        SampleRequest.from_dict({"env": "bitseq", "checkpoint": "x"})
+        SampleRequest.from_dict({"env": "bitseq", "deadline_s": 1.0})
+    with pytest.raises(BadRequest):
+        SampleRequest.from_dict({"env": "bitseq", "checkpoint": 3})
     with pytest.raises(BadRequest):
         SampleRequest.from_dict({"env": "bitseq", "logit_temp": -1.0})
 

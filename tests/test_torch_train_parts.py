@@ -111,8 +111,11 @@ def test_optimizer_groups_and_eps_schedule():
     assert lrs == [1e-3, 1e-1]
     assert [p for g in opt.param_groups if g["lr"] == 1e-1
             for p in g["params"]] == [tpol.params["log_z"]]
-    with pytest.raises(NotImplementedError):
-        make_optimizer(GFNConfig(max_grad_norm=1.0), tpol.params)
+    # the clip runs as a step pre-hook; weight decay makes it AdamW
+    clipped = make_optimizer(GFNConfig(max_grad_norm=1.0, weight_decay=0.1),
+                             tpol.params)
+    assert isinstance(clipped, torch.optim.AdamW)
+    assert len(clipped._optimizer_step_pre_hooks) == 1
     cfg = GFNConfig(exploration_eps=0.3, exploration_anneal_steps=10)
     from repro.core.trainer import current_eps as jax_current_eps
     jcfg = JaxGFNConfig(exploration_eps=0.3, exploration_anneal_steps=10)
