@@ -58,6 +58,20 @@ printing one JSON line:
              ``forward_rollout`` and the kernels' launches are counted;
    serve_profile - the serving loop's device idle share, device and host
              tops;
+   serve_tier - the serving tier as users run it: a ServeFront over a
+             Scheduler behind the HTTP endpoint (127.0.0.1, a free port);
+             each of the seven servable envs at the registry's defaults
+             (two held requests, one at beta 2, one at logit_temp 0.8 on
+             the KV-cache envs, then 8 timed ones from 4 client threads:
+             samples/s, p50 / p99 latency, launches by env, decode_step
+             on bitseq / tfbind8 / AMP only; every body held against
+             forward_rollout, a tempered hypergrid one against a one-lane
+             engine), 8 concurrent clients answered once each, a dedup
+             repeat, the drain; serve_tier_profile (a hypergrid + AMP
+             mix's device idle share), serve_tier_faults (a retried step,
+             a poisoned pool quarantined and replayed, a restore fault's
+             typed 500, a 504 with progress, a 408), serve_tier_autosize
+             (bitseq's pool over buckets 16-64, each prewarmed);
 5. train   - ``bitseq_tb`` training at full width (16 envs) for 50
              iterations through ``repro_torch.run.run_recipe`` (evals off:
              seqs_evals times them), which runs iteration 0 eagerly and
@@ -1666,6 +1680,472 @@ def profile_serve(sched, device) -> None:
          host_top=[{"function": f"{Path(f).name}:{ln}:{fn}",
                     "own_share": v[2] / total, "calls": v[1]}
                    for (f, ln, fn), v in top])
+
+
+# -- phase 4b: the serving tier ---------------------------------------------------
+
+#: the seven servable envs at the registry's defaults (bitseq n=120, k=8;
+#: AMP max_len 60; hypergrid 4x8^4; phylo DS1; dag d=5); a rehearsal on
+#: the CPU patches in the smoke overrides
+SERVE_TIER_ENVS = {name: {} for name in ("bitseq", "tfbind8", "qm9", "amp",
+                                         "hypergrid", "phylo", "dag")}
+SERVE_TIER_LANES = 64
+#: per env: the held pair's samples per request, then the timed requests
+#: (at least the count, samples each; from SERVE_TIER_CLIENTS threads,
+#: distinct seeds, so dedup never answers them), sent until the window
+#: also spans SERVE_TIER_WINDOW_S: samples/s is read over that window and
+#: p50 / p99 over its requests alone.  Every held request asks for 8, 32
+#: or 64 samples: its forward_rollout reference launches decode_step at
+#: that batch, and each such shape has a kernel row
+SERVE_TIER_PAIR = 64
+SERVE_TIER_TIMED = (64, 32)
+SERVE_TIER_WINDOW_S = 3.0
+SERVE_TIER_CLIENTS = 4
+#: the autosize buckets of bitseq's pool, each prewarmed: 16, 32, 64
+SERVE_TIER_BUCKETS = (16, 64)
+
+
+def _http(port, method, path, doc=None):
+    """One request to the local endpoint; (status, headers, body)."""
+    from http.client import HTTPConnection
+    conn = HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        body = None if doc is None else json.dumps(doc)
+        conn.request(method, path, body,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _serving(target):
+    """``make_server(target)`` on 127.0.0.1 and a free port, serving on a
+    thread; returns (server, thread, port)."""
+    import threading
+
+    from repro_torch.serve import make_server
+    server = make_server(target, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, server.server_address[1]
+
+
+def _stop_serving(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=60)
+
+
+class _Oracle:
+    """Holds a served body against ``forward_rollout`` of its request on
+    the objects its engine serves: samples and steps bitwise, log_r within
+    1e-6 of beta x the rollout's (relative above 1)."""
+
+    def __init__(self, sched):
+        self.sched = sched
+
+    def check(self, doc, body, what) -> float:
+        import numpy as np
+
+        from repro_torch.core.rollout import forward_rollout
+        from repro_torch.serve import SampleRequest
+        req = SampleRequest(**doc)
+        eng = self.sched.engine_for(req)
+        temp = req.logit_temp if req.logit_temp != 1.0 else None
+        if temp is not None and not eng.cached:
+            raise AssertionError(f"{what}: a tempered full-obs request is "
+                                 "held against a one-lane engine instead")
+        ref = forward_rollout(req.seed, eng.env.env, eng.inner_params,
+                              eng.policy, req.num_samples, logit_temp=temp)
+        want = ref.obs[-1].cpu().numpy()
+        got = np.asarray(body["samples"])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(
+                f"{what}: samples differ from forward_rollout "
+                f"({got.shape} vs {want.shape})")
+        want_r = (torch.tensor(req.reward_beta, dtype=torch.float32,
+                               device=ref.log_reward.device)
+                  * ref.log_reward).cpu().numpy()
+        got_r = np.asarray(body["log_rewards"], np.float32)
+        err = float(np.max(np.abs(got_r - want_r)
+                           / np.maximum(1.0, np.abs(want_r))))
+        if not np.isfinite(got_r).all() or err > 1e-6:
+            raise AssertionError(f"{what}: log_r off forward_rollout by "
+                                 f"{err}")
+        if list(body["steps"]) != ref.valid.sum(0).cpu().tolist():
+            raise AssertionError(f"{what}: steps differ")
+        return err
+
+
+def _one_lane(sched, doc):
+    """The request alone on a one-lane engine of the same objects (a
+    tempered full-observation request's reference)."""
+    from repro_torch.serve import SampleRequest, SamplingEngine
+    req = SampleRequest(**doc)
+    eng = sched.engine_for(req)
+    solo = SamplingEngine(eng.env.env, eng.inner_params, eng.policy,
+                          num_lanes=1)
+    rid = solo.submit(num_samples=req.num_samples, seed=req.seed,
+                      logit_temp=req.logit_temp, reward_beta=req.reward_beta)
+    return solo.run()[rid]
+
+
+def _clients(port, docs, threads):
+    """``docs`` POSTed from ``threads`` client threads (round robin);
+    returns [(doc, status, body, seconds)] in the order answered."""
+    import threading
+    out, lock = [], threading.Lock()
+
+    def client(mine):
+        for doc in mine:
+            t0 = time.perf_counter()
+            status, _, body = _http(port, "POST", "/sample", doc)
+            dt = time.perf_counter() - t0
+            with lock:
+                out.append((doc, status, body, dt))
+
+    ts = [threading.Thread(target=client, args=(docs[i::threads],))
+          for i in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("an HTTP client hung")
+    return out
+
+
+def _timed_clients(port, make_doc, threads, min_requests, min_window_s):
+    """``make_doc(i)`` for i = 0, 1, ... POSTed from ``threads`` client
+    threads, each taking the next i, until at least ``min_requests`` were
+    sent and ``min_window_s`` has passed; returns (answers as
+    :func:`_clients` does, the window's seconds)."""
+    import itertools
+    import threading
+    out, lock = [], threading.Lock()
+    counter = itertools.count()
+    t0 = time.perf_counter()
+
+    def client():
+        while True:
+            with lock:
+                i = next(counter)
+                if (i >= min_requests
+                        and time.perf_counter() - t0 >= min_window_s):
+                    return
+            doc = make_doc(i)
+            t1 = time.perf_counter()
+            status, _, body = _http(port, "POST", "/sample", doc)
+            dt = time.perf_counter() - t1
+            with lock:
+                out.append((doc, status, body, dt))
+
+    ts = [threading.Thread(target=client) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("an HTTP client hung")
+    return out, time.perf_counter() - t0
+
+
+def serve_tier_phase(device) -> dict:
+    """The serving tier as users run it: a ``ServeFront`` over a
+    ``Scheduler`` on the card behind the HTTP endpoint; every servable env
+    at full width (each body held against ``forward_rollout``; launches
+    counted one env at a time), concurrent clients, dedup, the idle share
+    of a mix, the drain, then the fault paths and autosize with prewarm on
+    fronts of their own.  Returns the per-env runs' launches, summed."""
+    import numpy as np
+
+    from repro_torch.envs.registry import get_env
+    from repro_torch.serve import SampleRequest, Scheduler, ServeFront
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    sched = Scheduler(num_lanes=SERVE_TIER_LANES, device=device)
+    front = ServeFront(sched, checkpoint_poll_s=None)
+    server, sthread, port = _serving(front)
+    oracle = _Oracle(sched)
+    total = {k: 0 for k in wrappers()}
+    per_env = {}
+    seed = 10_000
+    for name, ov in SERVE_TIER_ENVS.items():
+        kv = get_env(name).serving == "kv-cache"
+        t0 = time.perf_counter()
+        status, _, body = _http(port, "POST", "/sample",
+                                {"env": name, "overrides": ov,
+                                 "num_samples": 4, "seed": 1})
+        if status != 200:
+            raise AssertionError(f"{name}: warm-up answered {status} {body}")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pair = [{"env": name, "overrides": ov, "num_samples": SERVE_TIER_PAIR,
+                 "seed": seed, "reward_beta": 2.0},
+                {"env": name, "overrides": ov, "num_samples": SERVE_TIER_PAIR,
+                 "seed": seed + 1, "logit_temp": 0.8 if kv else 1.0}]
+        min_req, n_samp = SERVE_TIER_TIMED
+        base = seed + 2
+        seed += 100_000
+        reset_launches()
+        t0 = time.perf_counter()
+        answered = _clients(port, pair, 2)
+        pair_wall = time.perf_counter() - t0
+        answered_timed, wall = _timed_clients(
+            port, lambda i, base=base: {"env": name, "overrides": ov,
+                                        "num_samples": n_samp,
+                                        "seed": base + i},
+            SERVE_TIER_CLIENTS, min_req, SERVE_TIER_WINDOW_S)
+        n_req = len(answered_timed)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        errs = []
+        for doc, status, body, _ in answered + answered_timed:
+            if status != 200:
+                raise AssertionError(f"{name}: {status} {body}")
+            errs.append(oracle.check(doc, body,
+                                     f"{name} seed {doc['seed']}"))
+        lat = [dt for *_, dt in answered_timed]
+        if kv and launches["decode_step"] == 0:
+            raise AssertionError(f"{name}: decode_step never launched")
+        if not kv and any(launches.values()):
+            raise AssertionError(f"{name}: the full-observation tier "
+                                 f"launched {launches}")
+        for k in total:
+            total[k] += launches[k]
+        eng = sched.engine_for(SampleRequest(env=name, overrides=ov))
+        per_env[name] = launches["decode_step"]
+        emit("serve_tier_env", env=name, tier=get_env(name).serving,
+             overrides=ov, lanes=eng.num_lanes,
+             steps_per_sync=eng.steps_per_sync, build_s=build_s,
+             pair_samples=2 * SERVE_TIER_PAIR, pair_wall_s=pair_wall,
+             timed_requests=n_req, timed_samples=n_req * n_samp,
+             wall_s=wall, samples_per_s=n_req * n_samp / wall,
+             latency_p50_s=float(np.percentile(lat, 50)),
+             latency_p99_s=float(np.percentile(lat, 99)),
+             launches=launches, max_log_r_err=max(errs),
+             matches_forward_rollout=True)
+    # a tempered full-observation request against the same request alone
+    # on one lane (forward_rollout takes no temperature off the fused
+    # branch)
+    doc = {"env": "hypergrid", "overrides": SERVE_TIER_ENVS["hypergrid"],
+           "num_samples": 16, "seed": 77, "logit_temp": 0.8,
+           "reward_beta": 2.0}
+    status, _, body = _http(port, "POST", "/sample", doc)
+    solo = _one_lane(sched, doc)
+    if status != 200 or not np.array_equal(np.asarray(body["samples"]),
+                                           solo.samples) \
+            or not np.array_equal(np.asarray(body["log_rewards"],
+                                             np.float32), solo.log_rewards):
+        raise AssertionError("tempered hypergrid differs from its one-lane "
+                             "engine")
+
+    # concurrency: 8 clients, a mixed batch each, every request once
+    names = list(SERVE_TIER_ENVS)
+    docs = [{"env": names[(c + j) % len(names)],
+             "overrides": SERVE_TIER_ENVS[names[(c + j) % len(names)]],
+             "num_samples": 8, "seed": 20_000 + 3 * c + j,
+             "reward_beta": 2.0 if j == 1 else 1.0}
+            for c in range(8) for j in range(3)]
+    t0 = time.perf_counter()
+    answered = _clients(port, docs, 8)
+    mixed_wall = time.perf_counter() - t0
+    if sorted(d["seed"] for d, *_ in answered) != \
+            sorted(d["seed"] for d in docs):
+        raise AssertionError("a concurrent request was not answered once")
+    for doc, status, body, _ in answered:
+        if status != 200:
+            raise AssertionError(f"concurrent {doc['env']}: {status}")
+        oracle.check(doc, body, f"concurrent {doc['env']} {doc['seed']}")
+    clat = [dt for *_, dt in answered]
+
+    # dedup: a repeated request moves the engine's dedup counters and is
+    # answered with the original's body
+    first = {"env": "tfbind8", "overrides": SERVE_TIER_ENVS["tfbind8"],
+             "num_samples": 16, "seed": 30_000, "logit_temp": 0.8}
+    eng = sched.engine_for(SampleRequest(**first))
+    _, _, a = _http(port, "POST", "/sample", first)
+    before = dict(eng.counters)
+    _, _, b = _http(port, "POST", "/sample", first)
+    hits = (eng.counters["dedup_hits"] - before["dedup_hits"]
+            + eng.counters["dedup_joins"] - before["dedup_joins"])
+    if hits != 1 or not b["deduped"] or b["samples"] != a["samples"] \
+            or b["log_rewards"] != a["log_rewards"]:
+        raise AssertionError(f"dedup: {hits} hits, deduped={b['deduped']}")
+    dedup = {k: eng.counters[k] for k in ("dedup_hits", "dedup_joins",
+                                          "dedup_misses")}
+    health = _http(port, "GET", "/healthz")[2]
+    envs_doc = _http(port, "GET", "/envs")[2]
+    stats = _http(port, "GET", "/stats")[2]
+    if health["status"] != "ok" or health["runners"] != len(names) \
+            or len(envs_doc["envs"]) != 9 or len(stats["engines"]) != \
+            len(names):
+        raise AssertionError(f"healthz {health}")
+
+    idle = serve_tier_profile(front)
+
+    # drain: requests in flight finish, then nothing is admitted
+    futs = [front.submit(SampleRequest(env=n, overrides=SERVE_TIER_ENVS[n],
+                                       num_samples=SERVE_TIER_LANES,
+                                       seed=40_000 + i))
+            for i, n in enumerate(("amp", "phylo", "bitseq"))]
+    report = front.shutdown(drain=True, timeout=300)
+    if not report["drained"] or not all(
+            f.done() and f.exception() is None for f in futs):
+        raise AssertionError(f"drain: {report}")
+    status, _, body = _http(port, "POST", "/sample", docs[0])
+    if status != 503 or body["kind"] != "shutting_down":
+        raise AssertionError(f"after the drain: {status} {body}")
+    _stop_serving(server, sthread)
+
+    faults = serve_tier_faults(device)
+    autosize = serve_tier_autosize(device)
+    emit("serve_tier", nvidia_smi=smi, lanes=SERVE_TIER_LANES,
+         envs=names, decode_step_by_env=per_env, launches=total,
+         concurrent_requests=len(docs), concurrent_wall_s=mixed_wall,
+         concurrent_p50_s=float(np.percentile(clat, 50)),
+         concurrent_p99_s=float(np.percentile(clat, 99)),
+         dedup=dedup, drain=report, profile_idle_share=idle,
+         faults=faults, autosize=autosize,
+         phase_s=time.perf_counter() - t_phase)
+    return total
+
+
+def serve_tier_profile(front) -> float:
+    """A hypergrid and an AMP request at once through the front, timed
+    plain, then under ``torch.profiler``; returns the device idle share
+    (1 - busy / plain wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import SampleRequest
+
+    def mix(seed):
+        futs = [front.submit(SampleRequest(
+            env=n, overrides=SERVE_TIER_ENVS[n], num_samples=128,
+            seed=seed + i)) for i, n in enumerate(("hypergrid", "amp"))]
+        for f in futs:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix(50_000)
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mix(50_100)
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    idle = 1 - busy / wall_us
+    emit("serve_tier_profile", mix="hypergrid 128 + amp 128 samples",
+         wall_us=wall_us, device_busy_us=busy, device_idle_share=idle,
+         device_top=[{"name": k[:70], "device_us": t, "calls": c}
+                     for k, t, c in rows[:8]])
+    return idle
+
+
+def serve_tier_faults(device) -> dict:
+    """The fault paths on bitseq at full width, each on a front of its
+    own: a retried engine_step fault, a lane_state poison (quarantine,
+    rebuild, replay), a restore fault over HTTP (a typed 500, then a
+    success), a tight deadline (504 with progress; the engine then serves
+    bitwise) and a queued one (408).  Every answer is held bitwise."""
+    from repro_torch.serve import (DeadlineExceeded, FaultPlan, FaultSpec,
+                                   QueueTimeout, SampleRequest, Scheduler,
+                                   ServeFront)
+
+    env = {"env": "bitseq", "overrides": SERVE_TIER_ENVS["bitseq"]}
+    out = {}
+
+    def front_with(plan=None):
+        sched = Scheduler(num_lanes=SERVE_TIER_LANES, device=device,
+                          fault_plan=plan, retry_backoff_s=0.001)
+        return sched, ServeFront(sched, checkpoint_poll_s=None), \
+            _Oracle(sched)
+
+    def held(front, oracle, doc, what):
+        res = front.request(SampleRequest(**doc))
+        return oracle.check(doc, res.to_dict(), what)
+
+    sched, front, oracle = front_with()
+    held(front, oracle, dict(env, num_samples=8, seed=1), "fault warm-up")
+    eng = next(iter(sched._engines.values()))
+    eng._faults = FaultPlan.single("engine_step", at=(1,))
+    held(front, oracle, dict(env, num_samples=32, seed=2), "retried step")
+    if eng.counters["step_retries"] != 1 or eng.counters["step_failures"]:
+        raise AssertionError(f"retry: {eng.counters}")
+    out["retry"] = {"step_retries": eng.counters["step_retries"]}
+    front.shutdown(drain=True, timeout=120)
+
+    sched, front, oracle = front_with(FaultPlan.single("lane_state",
+                                                       at=(2,)))
+    held(front, oracle, dict(env, num_samples=64, seed=3, reward_beta=2.0),
+         "poisoned, then replayed")
+    c = front.stats()["counters"]
+    if c.get("evictions", 0) < 1 or c.get("replays", 0) < 1:
+        raise AssertionError(f"quarantine: {c}")
+    out["quarantine"] = {k: c[k] for k in ("evictions", "replays")}
+    front.shutdown(drain=True, timeout=120)
+
+    sched, front, oracle = front_with(FaultPlan.single("restore", at=(0,)))
+    server, sthread, port = _serving(front)
+    doc = dict(env, num_samples=8, seed=4)
+    s1, _, b1 = _http(port, "POST", "/sample", doc)
+    s2, _, b2 = _http(port, "POST", "/sample", doc)
+    if s1 != 500 or b1.get("kind") != "engine_failure" or s2 != 200:
+        raise AssertionError(f"restore fault: {s1} {b1} then {s2}")
+    oracle.check(doc, b2, "after the restore fault")
+    out["restore"] = {"first": s1, "kind": b1["kind"], "then": s2}
+    _stop_serving(server, sthread)
+    front.shutdown(drain=True, timeout=120)
+
+    plan = FaultPlan([FaultSpec("latency", rate=1.0, latency_s=0.05)],
+                     seed=7)
+    sched, front, oracle = front_with(plan)
+    held(front, oracle, dict(env, num_samples=8, seed=5), "latency warm-up")
+    try:
+        front.request(SampleRequest(**dict(env, num_samples=256, seed=6)),
+                      deadline_s=0.3)
+        raise AssertionError("the tight deadline did not expire")
+    except DeadlineExceeded as e:
+        if e.code != 504 or not 0 <= e.extra["collected"] < 256:
+            raise AssertionError(f"504: {e.extra}")
+        out["deadline_504"] = dict(e.extra)
+    held(front, oracle, dict(env, num_samples=32, seed=7), "after the 504")
+    try:
+        front.request(SampleRequest(**dict(env, num_samples=1, seed=8)),
+                      deadline_s=1e-6)
+        raise AssertionError("the queued deadline did not expire")
+    except QueueTimeout as e:
+        out["queue_408"] = e.code
+    front.shutdown(drain=True, timeout=120)
+    emit("serve_tier_faults", **out)
+    return out
+
+
+def serve_tier_autosize(device) -> dict:
+    """A front that autosizes bitseq's pool between power-of-two buckets
+    and prewarms each when the engine is built (one block per bucket on
+    the card); its answers held bitwise."""
+    from repro_torch.serve import SampleRequest, Scheduler, ServeFront
+    lo, hi = SERVE_TIER_BUCKETS
+    sched = Scheduler(num_lanes=lo, device=device)
+    front = ServeFront(sched, checkpoint_poll_s=None, autosize=True,
+                       min_lanes=lo, max_lanes=hi, prewarm_lanes=True)
+    oracle = _Oracle(sched)
+    docs = [{"env": "bitseq", "overrides": SERVE_TIER_ENVS["bitseq"],
+             "num_samples": 32, "seed": 60_000 + i} for i in range(4)]
+    futs = [front.submit(SampleRequest(**d)) for d in docs]
+    for d, f in zip(docs, futs):
+        oracle.check(d, f.result(timeout=600).to_dict(), "autosized")
+    runner = next(iter(front._runners.values()))
+    out = {"buckets": front.autosize_buckets(),
+           "lanes_now": runner.engine.num_lanes,
+           "resizes": runner.engine.counters["resizes"]}
+    front.shutdown(drain=True, timeout=120)
+    emit("serve_tier_autosize", **out)
+    return out
 
 
 # -- phase 5: bitseq_tb training --------------------------------------------------
@@ -4010,6 +4490,16 @@ def main() -> int:
                                device=device, floor_us=floor_us)
              for B, L, C, A in ((256, 2, 9, 4), (2000, 2, 9, 4),
                                 (128, 3, 61, 21), (256, 3, 61, 21))]
+    # the serving tier (serve_tier): its held requests' forward_rollout
+    # batches of 8 / 32 / 64 at bitseq, tfbind8 (2 layers, 9 slots, A = 4)
+    # and AMP (61 slots, A = 21), which are also the front's 64 lanes and
+    # bitseq's autosize buckets 16 / 32 / 64
+    rows += [check_decode_step(B, L, C, 64, 8, 256, A, seed=300 + B + A,
+                               device=device, floor_us=floor_us)
+             for B, L, C, A in ((8, 3, 16, 3840), (32, 3, 16, 3840),
+                                (8, 2, 9, 4), (32, 2, 9, 4), (64, 2, 9, 4),
+                                (8, 3, 61, 21), (32, 3, 61, 21),
+                                (64, 3, 61, 21))]
     main_row = next(r for r in rows if r["B"] == SERVE_LANES)
     check_decode_step_lanes(device)
     # the training rollout's shape first; odd S and H with empty rows; then
@@ -4163,6 +4653,7 @@ def main() -> int:
     # the phases the kernels line counts record the shapes they launch at
     with recording_path_shapes():
         serve = serve_phase(device)
+        serve_tier = serve_tier_phase(device)
         train = train_phase(device)
     loop, state, before = train_hold_phase(device)
     train_profile(loop, state)
@@ -4232,8 +4723,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("decode_step", csrc + "decode_step.cu",
               "src/repro/kernels/decode_attention.py:239",
-              serve["decode_step"] + seqs_evals["decode_step"]
-              + cli["decode_step"], rows, main_row),
+              serve["decode_step"] + serve_tier["decode_step"]
+              + seqs_evals["decode_step"] + cli["decode_step"], rows,
+              main_row),
         entry("decode_attention", csrc + "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:98",
               main_launches("decode_attention"), attn, attn[0]),

@@ -11,8 +11,9 @@ env, transform stack and objective can be launched as::
 ``--set key=value`` overrides go to the factory as they do to a recipe's
 ``make_env``.  The catalog has the JAX package's nine entries, with its
 factories' defaults, smoke overrides, transform lists and columns;
-``serving`` is the JAX serving tier's column (the port's scheduler serves
-the envs of :func:`repro_torch.recipes.names`).
+``serving`` is the serving tier's column: the port's scheduler serves
+every entry whose column is not ``"none"``, through the KV cache or by
+observing the full state at each step.
 """
 from __future__ import annotations
 

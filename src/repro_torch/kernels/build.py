@@ -12,13 +12,14 @@ module builds nothing.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -123,21 +124,35 @@ def find_nvcc() -> str:
     return nvcc
 
 
-@functools.lru_cache(maxsize=None)
+#: held while the library is built or loaded: the serving front's runner
+#: threads may reach the first launch together, and two builds would run
+#: nvcc into the same object files
+_LOCK = threading.RLock()
+_BUILT: Optional[tuple] = None
+_LIBRARY: Optional[ctypes.CDLL] = None
+
+
 def build() -> tuple:
     """Compile the kernels if needed: one ``nvcc -c`` per source, all
     started together, then one ``nvcc -shared`` link.  Returns ``(library
     path, compiler log)``; the log holds ptxas's register and shared-memory
     report when this call compiled, and is empty when it reused a built
-    library."""
-    digest = hashlib.sha256()
-    for src in SOURCES + HEADERS:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return str(lib), ""
+    library.  Once per process, whichever threads ask."""
+    global _BUILT
+    with _LOCK:
+        if _BUILT is None:
+            digest = hashlib.sha256()
+            for src in SOURCES + HEADERS:
+                digest.update(src.read_bytes())
+            digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            lib = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+            _BUILT = (str(lib), "" if lib.exists() else _compile(lib))
+        return _BUILT
+
+
+def _compile(lib: Path) -> str:
+    """Build ``lib`` from the sources; returns the compiler log."""
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [Path(tmpdir) / f"{src.stem}.o" for src in SOURCES]
@@ -159,13 +174,19 @@ def build() -> tuple:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)
-    return str(lib), log + proc.stdout + proc.stderr
+    return log + proc.stdout + proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library, loaded once per process."""
-    path, _ = build()
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            _LIBRARY = _load(build()[0])
+        return _LIBRARY
+
+
+def _load(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     lib.repro_decode_step.argtypes = [ctypes.POINTER(DecodeStepArgs),
                                       ctypes.c_void_p]

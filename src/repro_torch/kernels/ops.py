@@ -12,6 +12,7 @@ again without Python, so no count moves then.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Mapping, Optional, Union
 
 import torch
@@ -55,16 +56,23 @@ def _refuse_grad(op: str, *tensors) -> None:
                            "require grad")
 
 
+#: the counts' increments are read-modify-writes; the serving front
+#: launches from a runner thread per engine
+_COUNT_LOCK = threading.Lock()
+
+
 def _launched(wrapper, route: Optional[str] = None) -> None:
     """Count one launch of ``wrapper``'s kernel: in ``launches`` (and its
     route's count) when it ran, in ``captured`` when the stream was being
     captured into a CUDA graph, which recorded the launch."""
-    if torch.cuda.is_current_stream_capturing():
-        wrapper.captured += 1
-    else:
-        wrapper.launches += 1
-        if route is not None:
-            wrapper.route_launches[route] += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _COUNT_LOCK:
+        if capturing:
+            wrapper.captured += 1
+        else:
+            wrapper.launches += 1
+            if route is not None:
+                wrapper.route_launches[route] += 1
 
 
 def captured_launches() -> Dict[str, int]:

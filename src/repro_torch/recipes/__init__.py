@@ -1,8 +1,10 @@
 """Recipes of the port.
 
-Servable recipes: an env factory and a policy factory per environment name
-(port of the serving half of ``repro.recipes`` and the
-``repro.envs.registry`` entries the scheduler reads).  Training recipes:
+Servable envs: :func:`get` reads a :class:`Recipe` (env factory, policy
+factory, smoke overrides) off the env registry
+(:mod:`repro_torch.envs.registry`), for every entry whose ``serving``
+column is not ``"none"``: the entry's factory and its default recipe's
+policy factory, as the JAX scheduler builds them.  Training recipes:
 env, policy and config factories per recipe name (port of the training
 half of ``repro.recipes``), run by :mod:`repro_torch.run`; a recipe that
 is not a sample -> loss -> update loop (EB-GFN's ``ising_ebgfn``) has a
@@ -21,16 +23,12 @@ from . import box, dag, hypergrid, ising, phylo, seqs
 
 
 class Recipe(NamedTuple):
+    """A servable env: the registry entry's factory, its default recipe's
+    policy factory and the entry's smoke overrides."""
     name: str
     make_env: Callable          # (**overrides) -> Environment
     make_policy: Callable       # (env, *, seed, device) -> policy
     smoke_overrides: Dict       # a seconds-scale instance
-
-
-_RECIPES = {
-    "bitseq": Recipe("bitseq", seqs.bitseq_env, seqs.bitseq_policy,
-                     {"n": 16, "k": 4}),
-}
 
 
 class TrainRecipe(NamedTuple):
@@ -142,7 +140,10 @@ def register(recipe: TrainRecipe) -> TrainRecipe:
 
 
 def names():
-    return sorted(_RECIPES)
+    """The servable env names (registry entries whose ``serving`` column
+    is not ``"none"``)."""
+    from ..envs.registry import ENVS
+    return sorted(n for n, e in ENVS.items() if e.serving != "none")
 
 
 def train_names():
@@ -157,10 +158,18 @@ def get_train(name: str) -> TrainRecipe:
 
 
 def get(name: str) -> Recipe:
-    if name not in _RECIPES:
-        raise KeyError(f"env {name!r} is not servable by the port; "
-                       f"servable: {names()}")
-    return _RECIPES[name]
+    """The servable env ``name``: the one lookup the scheduler and the
+    command line serve through.  KeyError for an unknown env and for an
+    entry whose ``serving`` column is ``"none"``."""
+    from ..envs.registry import get_env
+    entry = get_env(name)
+    if entry.serving == "none":
+        raise KeyError(
+            f"env {name!r} is not servable: its recipe ({entry.recipe!r}) "
+            "has no standalone policy (see the serving column of "
+            f"--list-envs); servable: {names()}")
+    return Recipe(name, entry.make, get_train(entry.recipe).make_policy,
+                  dict(entry.smoke_overrides))
 
 
 def parse_overrides(pairs: Iterable[str], error: Callable[[str], None]

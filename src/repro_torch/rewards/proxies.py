@@ -24,8 +24,9 @@ import torch
 PROXIES = Path(__file__).with_name("proxies.npz")
 WRITER = "python tests/test_torch_seqs.py --write-proxies"
 #: the AMP max_len values whose positional table the file holds: the
-#: recipe's 60 and the 10 of the CPU commands and tests
-AMP_LENGTHS = (60, 10)
+#: recipe's 60, the 10 of the CPU commands and tests, and the 12 of the
+#: registry's smoke instance (the serving tests)
+AMP_LENGTHS = (60, 10, 12)
 
 
 def as_tensors(tree: Dict[str, Any], device: torch.device

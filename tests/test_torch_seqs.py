@@ -165,7 +165,7 @@ def test_amp_reward_at_max_len_10_reads_jax_table_of_that_length():
 
 def test_amp_proxy_refuses_a_length_the_file_does_not_hold():
     with pytest.raises(ValueError, match="write-proxies"):
-        AMPRewardModule(max_len=12).init(CPU)
+        AMPRewardModule(max_len=13).init(CPU)
 
 
 # -- each env step by step on the same actions ----------------------------------

@@ -164,7 +164,7 @@ def test_scheduler_coalesces_and_validates():
     with pytest.raises(BadRequest):
         sched.submit(SampleRequest(env="ising"))
     with pytest.raises(BadRequest):
-        SampleRequest.from_dict({"env": "bitseq", "deadline_s": 1.0})
+        SampleRequest.from_dict({"env": "bitseq", "deadline_s": 0.0})
     with pytest.raises(BadRequest):
         SampleRequest.from_dict({"env": "bitseq", "checkpoint": 3})
     with pytest.raises(BadRequest):
