@@ -32,7 +32,13 @@ printing one JSON line:
              traj_logprob at (32, 8, 4 / 1); the graph recipes'
              traj_logprob at (32, 26, 1378), (32, 26, 53), (256, 11, 26);
              ising_ebgfn's at (256, 81, 162), (256, 81, 81) and
-             ising_converge's at (64, 16, 32), (64, 16, 16))
+             ising_converge's at (64, 16, 32), (64, 16, 16); flash
+             at the dense models' (2, 2,048, 40 / 64 / 96 over 8, 128)
+             causal bf16, the cached (2, 16 / 2,048, 40/8, 128) call at
+             q_offset 1,024 / kv_len 1,040 and the dense hold's fp32
+             (1, 128, 40/8, 128); the scan at rwkv6-1.6b's (2, 4,096, 32,
+             64/64) and (8, 1, ...) with u, the rwkv hold's fp32 shapes,
+             Hymba's scoring pass from no state)
              and at odd ones, with its
              device time, the plain version's, the least time the card
              could take (``bound``) and, where one PyTorch call computes the
@@ -206,13 +212,6 @@ printing one JSON line:
              restore seconds; a bitseq_tb checkpoint served through
              ``launch.serve --checkpoint``, its samples equal to
              ``forward_rollout`` of the trained policy;
-   path_shapes - every shape at which the phases the kernels line counts
-             (serve, train, hypergrid_train, seqs_train, seqs_evals,
-             dag_train, phylo_train, dag_evals, phylo_evals, ising_train,
-             ising_converge, box_converge, replay_train, cached_backward,
-             replay_converge, cli) launched decode_step, decode_attention or
-             traj_logprob has a row of phase 3, held against the plain
-             version;
    replay_hold - one iteration of each replay path on the card against
              the same iteration on the CPU at full size, after 1 that fills
              both buffers: fresh actions (near ties counted apart), the
@@ -254,7 +253,50 @@ printing one JSON line:
    lm_profile - one full-width decode step's idle share and tops;
    lm_hold - a 2-layer full-width fp32 Hymba (window 32) on the card
              (kernels) against the CPU (plain versions): a 512-token
-             scoring pass and 40 decode steps, 1e-3, greedy tokens equal;
+             scoring pass and 40 decode steps, 1e-3, greedy tokens equal,
+             the SSM state and the window's K/V after them within 1e-3
+             (``lm_family_hold``, as the dense and RWKV6 holds);
+11. dense_decode - ``lm_decode.serve`` with qwen2.5-32b whole (64 layers,
+             d_model 5,120, bf16, 32.76 B parameters drawn on the card a
+             layer at a time): batch 8, 32 + 32 tokens; steps/s, tokens/s,
+             peak memory, no kernel launched (single-token attention over
+             the cache is plain torch, as in JAX);
+   dense_prefill - ``make_prefill_step`` over 2 x 2,048 tokens: exactly 64
+             flash launches, all on the tensor cores; finite log-probs <= 0;
+   dense_cached - per layer one cached S = 16 call of
+             ``attention_sublayer`` onto a 2,048-slot cache holding 1,024
+             tokens: 64 flash launches with q_offset 1,024 and kv_len
+             1,040 (read from the recorded calls);
+   dense_int8 - the dense_decode run on an int8 KV cache: rates, the
+             cache's bytes against bf16's, the drift against the bf16
+             cache teacher-forced along that run's 32 prompt tokens
+             (reported);
+   dense_profile - one decode step's idle share and tops;
+   command_r - command-r-35b whole (40 layers, d_model 8,192, tied
+             embeddings): 8 decode steps and a 2 x 2,048 scoring pass
+             with 40 tensor-core flash launches;
+   dense_cut - qwen2-72b and command-r-plus-104b at full width and 8
+             layers (``reduced``: their bf16 weights do not fit the card
+             at full depth): a scoring pass (8 flash launches, GQA groups
+             of 8 and 12) and 4 decode steps each;
+   rwkv_decode / rwkv_prefill - rwkv6-1.6b whole (24 layers, 32 heads of
+             64): decode at batch 8, 32 + 32 tokens, 24 recurrence
+             launches a step (with u and the state); a 2 x 4,096 scoring
+             pass with 24 chunk launches, all with u; rwkv_profile;
+   dense_hold / rwkv_hold - a 2-layer full-width fp32 qwen2.5-32b /
+             rwkv6-1.6b, weights drawn on the card and copied to the CPU:
+             the card (kernels) against the CPU (plain versions), a
+             128-token scoring pass and 16 decode steps within 1e-3, the
+             same argmax off near ties; the dense hold then 8 steps on an
+             int8 cache, mean |d log p| against the float cache under 0.05
+             (top-1 agreement reported);
+   path_shapes - every shape at which the counted phases (serve, the
+             training, eval and replay phases, cli, and the LM phases
+             above: lm_decode, lm_prefill, dense_*, command_r, dense_cut,
+             rwkv_*) launched decode_step, decode_attention, traj_logprob,
+             flash_attention or rwkv6_scan has a row of phase 3, held
+             against the plain version; the line prints each shape's
+             launches;
 
 then a ``kernels`` line, the card's ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -264,6 +306,7 @@ repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -514,9 +557,33 @@ BF16_ATOL_RMS = 1e-3
 HYMBA_LAYERS = 32
 DECODE_BATCH, DECODE_PROMPT, DECODE_GEN = 8, 32, 32
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
-#: lm_hold: 2 full-width layers in fp32, a 32-slot window
-HOLD_LAYERS, HOLD_TOKENS, HOLD_WINDOW, HOLD_STEPS = 2, 512, 32, 40
+#: lm_hold (Hymba through lm_family_hold): a 32-slot window, a scoring
+#: pass of HYMBA_HOLD_TOKENS, HYMBA_HOLD_STEPS decode steps past the window
+HYMBA_HOLD_TOKENS, HYMBA_HOLD_WINDOW, HYMBA_HOLD_STEPS = 512, 32, 40
 HOLD_TOL = 1e-3
+#: the dense family (phase 11): qwen2.5-32b whole, the LM entry point's
+#: default (src/repro/configs/qwen2_5_32b.py: 64 layers, d_model 5,120,
+#: 40 / 8 heads of 128), scored over 2 x 2,048 tokens
+DENSE_ARCH = "qwen2.5-32b"
+DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN = 2, 2048
+#: dense_cached: CACHED_NEW tokens per layer onto a cache of CACHED_SLOTS
+#: slots holding CACHED_FILLED
+CACHED_SLOTS, CACHED_FILLED, CACHED_NEW = 2048, 1024, 16
+#: command_r's decode steps at DECODE_BATCH: prompt + generated
+COMMAND_R_PROMPT, COMMAND_R_GEN = 4, 4
+#: dense_cut: the two dense models whose bf16 weights do not fit the card
+#: at full depth, at CUT_LAYERS layers; CUT_PROMPT + CUT_GEN decode steps
+CUT_ARCHS = ("qwen2-72b", "command-r-plus-104b")
+CUT_LAYERS, CUT_PROMPT, CUT_GEN = 8, 2, 2
+#: rwkv6-1.6b whole (24 layers, d_model 2,048, 32 heads of 64), scored over
+#: 2 x RWKV_PREFILL_LEN tokens
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_PREFILL_LEN = 4096
+#: dense_hold / rwkv_hold: 2 full-width fp32 layers, a scoring pass of
+#: LM_HOLD_TOKENS, LM_HOLD_STEPS decode steps, INT8_HOLD_STEPS on an int8
+#: cache (dense); the int8 cache's drift bar, tests/test_serving.py:28-43
+LM_HOLD_LAYERS, LM_HOLD_TOKENS, LM_HOLD_STEPS, INT8_HOLD_STEPS = 2, 128, 16, 8
+INT8_DRIFT = 0.05
 #: in the device-kernel name of both flash routes (``ops.flash_route``:
 #: ``flash_attention_kernel``, ``flash_attention_wgmma_kernel``), so the
 #: profiler's flash time sums every kernel either route launches
@@ -526,6 +593,9 @@ FLASH_MATCH = "flash_attention"
 #: ``rwkv6_chunk_carry_kernel``, ``rwkv6_chunk_out_kernel``), and of each
 #: route's own
 SCAN_MATCH = "rwkv6_"
+#: the scan rows profile the plain step recurrence over about this many
+#: steps (calls of T steps, 1 to 20 of them)
+PLAIN_SCAN_STEPS = 1024
 SCAN_ROUTE_MATCH = {"recurrence": "rwkv6_scan_kernel",
                     "chunk": "rwkv6_chunk_"}
 
@@ -592,22 +662,46 @@ def run_launches(eager: dict, captured) -> dict:
             for k in eager}
 
 
-#: the shapes the main path handed each kernel, recorded while
-#: ``recording_path_shapes`` is on; each needs a row of its check
-PATH_SHAPES = {"decode_step": set(), "decode_attention": set(),
-               "traj_logprob": set()}
+#: the shapes the main path handed each kernel, with the launches at each,
+#: recorded while ``recording_path_shapes`` is on; each needs a row of its
+#: check
+PATH_SHAPES = {name: collections.Counter() for name in (
+    "decode_step", "decode_attention", "traj_logprob", "flash_attention",
+    "rwkv6_scan")}
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a call's operand lies on the card (what the recorders
+    record)."""
+    return t.is_cuda
+
+
+def flash_key(B, Sq, Skv, H, KVH, D, dtype, causal, window, q_offset,
+              kv_len) -> tuple:
+    """A flash call's shape and arguments (``kv_len`` None reads as Skv)."""
+    return (B, Sq, Skv, H, KVH, D, str(dtype), bool(causal), int(window),
+            int(q_offset), Skv if kv_len is None else int(kv_len))
+
+
+def scan_key(B, T, H, Dk, Dv, dtype, bonus, state) -> tuple:
+    """A scan call's shape, dtype and whether it takes ``u`` and a state."""
+    return (B, T, H, Dk, Dv, str(dtype), bool(bonus), bool(state))
 
 
 @contextlib.contextmanager
 def recording_path_shapes():
     """Record the shape of every call the port's modules make, on a CUDA
     tensor, to the decode_step, decode_attention and traj_logprob wrappers
-    (the backward's logits are the forward's).  The modules hold each
-    wrapper under an imported name; that name is swapped for a recorder
-    that calls the wrapper itself, so launch counts are untouched.  The
-    checks call ``ops`` and are not recorded."""
+    (the backward's logits are the forward's), and to flash_attention and
+    rwkv6_scan where ``models/layers.py`` calls ``ops``.  The modules hold
+    each of the first three under an imported name; that name is swapped
+    for a recorder that calls the wrapper itself, so launch counts are
+    untouched; ``models.layers`` reads the last two from ``ops``, which is
+    swapped for a proxy that records and calls them.  The checks call
+    ``ops`` and are not recorded."""
     from repro_torch.core import objectives, policies
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as model_layers
     from repro_torch.nn import transformer
 
     def step_shape(w, x_new, cache, *args, **kwargs):
@@ -624,29 +718,67 @@ def recording_path_shapes():
     def recorder(name, wrapper, shape):
         def call(*args, **kwargs):
             t, key = shape(*args, **kwargs)
-            if t.is_cuda:
-                PATH_SHAPES[name].add(tuple(int(d) for d in key))
+            if on_card(t):
+                PATH_SHAPES[name][tuple(int(d) for d in key)] += 1
             return wrapper(*args, **kwargs)
         return call
 
+    class RecordingOps:
+        """``ops`` as ``models.layers`` sees it, recording each flash and
+        scan call's key before the wrapper runs (and counts) as it would."""
+
+        def __getattr__(self, name):
+            return getattr(ops, name)
+
+        @staticmethod
+        def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                            kv_len=None):
+            if on_card(q):
+                PATH_SHAPES["flash_attention"][flash_key(
+                    q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                    k.shape[2], q.shape[3], q.dtype, causal, window,
+                    q_offset, kv_len)] += 1
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
+
+        @staticmethod
+        def rwkv6_scan(r, k, v, w, u=None, state=None):
+            if on_card(r):
+                PATH_SHAPES["rwkv6_scan"][scan_key(
+                    *r.shape, v.shape[-1], r.dtype, u is not None,
+                    state is not None)] += 1
+            return ops.rwkv6_scan(r, k, v, w, u, state)
+
     for module, name, wrapper, shape in sites:
         setattr(module, name, recorder(name, wrapper, shape))
+    model_layers.ops = RecordingOps()
     try:
         yield
     finally:
         for module, name, wrapper, _ in sites:
             setattr(module, name, wrapper)
+        model_layers.ops = ops
 
 
-def check_path_shapes(rows, attn, traj) -> None:
+def check_path_shapes(rows, attn, traj, flash, scan) -> None:
     """Every shape the main path launched a kernel at has a row of that
-    kernel's check (held against its plain version); fails otherwise."""
+    kernel's check (held against its plain version); fails otherwise.
+    Prints each launched shape with its launches."""
     checked = {"decode_step": {tuple(r[k] for k in "BLCDHFA") for r in rows},
                "decode_attention": {(r["B"], r["S"], r["H"], r["hd"])
                                     for r in attn},
-               "traj_logprob": {(f["B"], f["T"], f["A"]) for f, _ in traj}}
-    unchecked = {k: sorted(v - checked[k]) for k, v in PATH_SHAPES.items()}
-    emit("path_shapes", launched={k: sorted(v)
+               "traj_logprob": {(f["B"], f["T"], f["A"]) for f, _ in traj},
+               "flash_attention": {flash_key(
+                   r["B"], r["Sq"], r["Skv"], r["H"], r["KVH"], r["D"],
+                   r["dtype"], r["causal"], r["window"], r["q_offset"],
+                   r["kv_len"]) for r in flash},
+               "rwkv6_scan": {scan_key(r["B"], r["T"], r["H"], r["Dk"],
+                                       r["Dv"], r["dtype"], r["bonus"],
+                                       r["state"]) for r in scan}}
+    unchecked = {k: sorted(set(v) - checked[k])
+                 for k, v in PATH_SHAPES.items()}
+    emit("path_shapes", launched={k: sorted([list(key), n] for key, n
+                                            in v.items())
                                   for k, v in PATH_SHAPES.items()},
          unchecked=unchecked)
     if not all(PATH_SHAPES.values()) or any(unchecked.values()):
@@ -1447,7 +1579,8 @@ def check_flash_attention(B, Sq, Skv, H, KVH, D, *, causal, window,
     library_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
     pairs = int(mask.sum()) * B * H             # attended (query, key) pairs
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    rows = Skv if kv_len is None else min(Skv, kv_len)  # K / V rows read
+    nbytes = q.element_size() * (2 * q.numel() + 2 * B * rows * KVH * D)
     row = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KVH": KVH, "D": D,
            "dtype": str(dt), "causal": causal, "window": window,
            "q_offset": q_offset, "kv_len": kv_len, "route": route, **held,
@@ -1495,7 +1628,10 @@ def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
     fp32 state as fp32.  A row on the chunk route also runs the recurrence
     kernel on the same inputs (the route forced here), holds it too, and
     times it beside the chunk kernels (and each of their three passes); a
-    repeat call must be bitwise equal.
+    repeat call must be bitwise equal.  The plain version is profiled
+    over about PLAIN_SCAN_STEPS steps in all (at least one call): each
+    step is a chain of small launches, and the profiler's records of a
+    long one cost seconds to read.
     No library call computes this recurrence."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_rwkv6
@@ -1529,7 +1665,7 @@ def check_rwkv6_scan(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
            "held": held, "repeat_bitwise_equal": bitwise,
            **timings(kernel, plain, None,
                      match=SCAN_ROUTE_MATCH[ops.scan_route(dt, T)],
-                     plain_iters=2 if T > 256 else 20),
+                     plain_iters=max(1, min(20, PLAIN_SCAN_STEPS // T))),
            **bound(nbytes, flops)}
     if route == ["chunk"]:
         with forced_scan_route("recurrence"):
@@ -4113,16 +4249,19 @@ def graph_train_phase(device) -> None:
 
 # -- phase 10: Hymba-1.5B serving: decode and prompt scoring -----------------------
 
-def hymba_config(**changes):
+def lm_config(arch: str, **changes):
+    """An architecture's full config from the port's registry, with
+    ``changes`` (a cut depth, another dtype or cache)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config("hymba-1.5b"), **changes)
+    return dataclasses.replace(get_config(arch), **changes)
 
 
-def hymba_params(cfg, device, seed: int = 0):
+def lm_params(cfg, device, seed: int = 0):
     """Random full-width weights from a seeded generator on the card
-    (1.39 B normal draws; on a host CPU that takes many seconds)."""
+    (1.39 B normal draws for Hymba, 32.76 B for qwen2.5-32b; on a host CPU
+    that takes many seconds)."""
     from repro_torch.models import lm as LM
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -4133,6 +4272,131 @@ def _only(launches: dict, **want) -> dict:
     return {k: want.get(k, 0) for k in launches}
 
 
+def prefill_batch(cfg, device, batch: int = PREFILL_BATCH,
+                  seq_len: int = PREFILL_LEN):
+    """A scoring pass's random tokens (seeded; Hymba's 2 x 4,096 unless
+    given) and targets."""
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=g,
+                         device=device)
+    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+
+
+def free_card(device) -> None:
+    """Hand the memory of the models dropped so far back to the card
+    before the next model is drawn."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+
+
+def model_fields(cfg, params) -> dict:
+    """A model's line fields: its config, parameters and weight bytes."""
+    return {"model": cfg.name, "family": cfg.family,
+            "config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.num_heads, cfg.num_kv_heads],
+                       "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                       "vocab": cfg.vocab_size, "qkv_bias": cfg.qkv_bias,
+                       "tie_embeddings": cfg.tie_embeddings,
+                       "ssm_state": cfg.ssm_state,
+                       "window": cfg.sliding_window, "dtype": cfg.dtype,
+                       "kv_cache_dtype": cfg.kv_cache_dtype},
+            "params": sum(p.numel() for p in params.parameters()),
+            "param_count_analytic": cfg.param_count(),
+            "weight_gb": sum(p.numel() * p.element_size()
+                             for p in params.parameters()) / 1e9}
+
+
+def lm_prompt(cfg, device, batch: int, prompt_len: int) -> torch.Tensor:
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                         device=device)
+
+
+def served(cfg, params, device, prompt, gen: int):
+    """``lm_decode.serve`` over ``prompt`` (prefilled a decode step at a
+    time) and ``gen`` sampled tokens, after a short warm call (cuBLAS):
+    the tokens and the line's fields (rates, peak memory since the warm
+    call, launches and routes)."""
+    from repro_torch.launch import lm_decode
+
+    batch, prompt_len = prompt.shape
+    lm_decode.serve(cfg, batch=batch, prompt_len=2, gen=2, seed=1,
+                    device=device, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, tps = lm_decode.serve(cfg, batch=batch, prompt_len=prompt_len,
+                                gen=gen, seed=0, device=device, params=params,
+                                prompt=prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = prompt_len + gen
+    return toks, {"batch": batch, "prompt_len": prompt_len, "gen": gen,
+                  "decode_steps": steps, "wall_s": wall,
+                  "gen_tokens_per_s": tps, "gen_steps_per_s": tps / batch,
+                  "steps_per_s": steps / wall,
+                  "peak_memory_gb":
+                      torch.cuda.max_memory_allocated(device) / 1e9,
+                  "launches": read_launches(), "flash_routes": flash_routes(),
+                  "scan_routes": scan_routes(),
+                  "first_tokens": toks[0, :8].tolist()}
+
+
+def scored(cfg, params, device, batch: int, seq_len: int):
+    """``make_prefill_step`` over ``batch`` x ``seq_len`` seeded tokens: a
+    warm pass, a timed one (its launches and routes) and a profiled one
+    (device time by kernel).  Returns the log-probs and the fields."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    args = ({"model": params}, prefill_batch(cfg, device, batch, seq_len))
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    lp = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fields = {"launches": read_launches(), "flash_routes": flash_routes(),
+              "scan_routes": scan_routes()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    flash_us = sum(t for n, t, _ in rows if FLASH_MATCH in n)
+    scan_us = sum(t for n, t, _ in rows if SCAN_MATCH in n)
+    tokens = batch * seq_len
+    model_flop = 2 * cfg.param_count() * tokens
+    fields.update(
+        batch=batch, seq_len=seq_len, wall_s=wall, tokens_per_s=tokens / wall,
+        peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        device_busy_us=busy, device_idle_share=1 - busy / (wall * 1e6),
+        flash_us=flash_us, scan_us=scan_us,
+        flash_share_of_busy=flash_us / busy, scan_share_of_busy=scan_us / busy,
+        model_tflop=model_flop / 1e12,
+        model_tflop_per_s_busy=model_flop / (busy * 1e-6) / 1e12,
+        device_top=[{"name": k[:70], "device_us": t, "calls": c}
+                    for k, t, c in rows[:8]],
+        logprob_shape=list(lp.shape), finite=bool(torch.isfinite(lp).all()),
+        mean_logprob=float(lp.mean()), max_logprob=float(lp.max()),
+        uniform_logprob=-math.log(cfg.vocab_size))
+    return lp, fields
+
+
+def scored_ok(fields, batch: int, seq_len: int) -> bool:
+    return (fields["logprob_shape"] == [batch, seq_len] and fields["finite"]
+            and fields["max_logprob"] <= 0.0)
+
+
 def lm_decode_phase(cfg, params, device):
     """``repro_torch.launch.lm_decode.serve`` at full width and depth:
     batch 8, 32 prompt tokens prefilled one decode step at a time, then 32
@@ -4140,41 +4404,17 @@ def lm_decode_phase(cfg, params, device):
     route ``ops.scan_route`` gives at T = 1, no flash (decode attends the
     window cache in plain torch, as JAX does).  Returns the launches and
     the scan's launches by route."""
-    from repro_torch.launch import lm_decode
+    from repro_torch.kernels import ops
 
     smi = nvidia_smi()
-    lm_decode.serve(cfg, batch=DECODE_BATCH, prompt_len=2, gen=2, seed=1,
-                    device=device, params=params)          # warm: cuBLAS
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_launches()
-    t0 = time.perf_counter()
-    toks, tps = lm_decode.serve(cfg, batch=DECODE_BATCH,
-                                prompt_len=DECODE_PROMPT, gen=DECODE_GEN,
-                                seed=0, device=device, params=params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, routes = read_launches(), scan_routes()
-    steps = DECODE_PROMPT + DECODE_GEN
-    want = _only(launches, rwkv6_scan=HYMBA_LAYERS * steps)
-    from repro_torch.kernels import ops
-    want_routes = {r: HYMBA_LAYERS * steps * (
-        r == ops.scan_route(torch.bfloat16, 1)) for r in routes}
-    n_params = sum(p.numel() for p in params.parameters())
-    emit("lm_decode", nvidia_smi=smi, model=cfg.name,
-         config={"layers": cfg.num_layers, "d_model": cfg.d_model,
-                 "heads": [cfg.num_heads, cfg.num_kv_heads],
-                 "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-                 "vocab": cfg.vocab_size, "ssm_state": cfg.ssm_state,
-                 "window": cfg.sliding_window, "dtype": cfg.dtype},
-         params=n_params, param_count_analytic=cfg.param_count(),
-         batch=DECODE_BATCH, prompt_len=DECODE_PROMPT,
-         gen=DECODE_GEN, decode_steps=steps, wall_s=wall,
-         gen_tokens_per_s=tps, gen_steps_per_s=tps / DECODE_BATCH,
-         steps_per_s=steps / wall,
-         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
-         launches=launches, scan_routes=routes,
-         first_tokens=toks[0, :8].tolist())
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, DECODE_PROMPT)
+    toks, run = served(cfg, params, device, prompt, DECODE_GEN)
+    launches, routes = run["launches"], run["scan_routes"]
+    n = HYMBA_LAYERS * run["decode_steps"]
+    want = _only(launches, rwkv6_scan=n)
+    want_routes = {r: n * (r == ops.scan_route(torch.bfloat16, 1))
+                   for r in routes}
+    emit("lm_decode", nvidia_smi=smi, **model_fields(cfg, params), **run)
     if launches != want or routes != want_routes:
         raise AssertionError(f"lm_decode launched {launches}, expected "
                              f"{want}; scan routes {routes}, expected "
@@ -4186,57 +4426,18 @@ def lm_decode_phase(cfg, params, device):
     return launches, routes
 
 
-def prefill_batch(cfg, device):
-    """The scoring pass's 2 x 4,096 random tokens (seeded) and targets."""
-    g = torch.Generator(device=device)
-    g.manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
-                         generator=g, device=device)
-    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
-
-
 def lm_prefill_phase(cfg, params, device):
     """``repro_torch.launch.steps.make_prefill_step`` at full width: 2 x
     4,096 tokens scored in one pass (past the 2,048 window, and 64 scan
     chunks of 64); exactly one flash launch (tensor-core route) and one
     scan launch (chunk route) per layer.  Returns the launches and the
     scan's launches by route."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch.steps import make_prefill_step
-
     smi = nvidia_smi()
-    step = make_prefill_step(cfg)
-    args = ({"model": params}, prefill_batch(cfg, device))
-    step(*args)                                             # warm
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    lp = step(*args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, routes, s_routes = read_launches(), flash_routes(), scan_routes()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(*args)
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    busy = sum(r[1] for r in rows)
-    flash_us = sum(t for n, t, _ in rows if FLASH_MATCH in n)
-    scan_us = sum(t for n, t, _ in rows if SCAN_MATCH in n)
-    finite = bool(torch.isfinite(lp).all())
-    mean_lp = float(lp.mean())
-    emit("lm_prefill", nvidia_smi=smi, model=cfg.name, batch=PREFILL_BATCH,
-         seq_len=PREFILL_LEN, window=cfg.sliding_window, wall_s=wall,
-         tokens_per_s=PREFILL_BATCH * PREFILL_LEN / wall,
-         device_busy_us=busy, device_idle_share=1 - busy / (wall * 1e6),
-         flash_us=flash_us, scan_us=scan_us,
-         flash_share_of_busy=flash_us / busy,
-         scan_share_of_busy=scan_us / busy,
-         device_top=[{"name": k[:70], "device_us": t, "calls": c}
-                     for k, t, c in rows[:8]],
-         logprob_shape=list(lp.shape), finite=finite, mean_logprob=mean_lp,
-         uniform_logprob=-math.log(cfg.vocab_size), launches=launches,
-         flash_routes=routes, scan_routes=s_routes)
+    lp, f = scored(cfg, params, device, PREFILL_BATCH, PREFILL_LEN)
+    emit("lm_prefill", nvidia_smi=smi, model=cfg.name,
+         window=cfg.sliding_window, **f)
+    launches, routes, s_routes = (f["launches"], f["flash_routes"],
+                                  f["scan_routes"])
     want = _only(launches, flash_attention=HYMBA_LAYERS,
                  rwkv6_scan=HYMBA_LAYERS)
     # Hymba's bf16 heads of 64 take the tensor-core route, its bf16 SSM
@@ -4244,16 +4445,15 @@ def lm_prefill_phase(cfg, params, device):
     want_routes = {"wgmma": HYMBA_LAYERS, "simt": 0}
     want_scan = {"chunk": HYMBA_LAYERS, "recurrence": 0}
     if launches != want or routes != want_routes or s_routes != want_scan \
-            or not flash_us > 0 or not scan_us > 0 \
-            or tuple(lp.shape) != (PREFILL_BATCH, PREFILL_LEN) \
-            or not finite or not float(lp.max()) <= 0.0:
+            or not f["flash_us"] > 0 or not f["scan_us"] > 0 \
+            or not scored_ok(f, PREFILL_BATCH, PREFILL_LEN):
         raise AssertionError(f"lm_prefill: launches {launches} (expected "
                              f"{want}), routes {routes} (expected "
                              f"{want_routes}), scan routes {s_routes} "
                              f"(expected {want_scan}), flash device time "
-                             f"{flash_us} us, scan {scan_us} us, log-probs "
-                             f"{tuple(lp.shape)}, finite {finite}, max "
-                             f"{float(lp.max())}")
+                             f"{f['flash_us']} us, scan {f['scan_us']} us, "
+                             f"log-probs {f['logprob_shape']}, finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
     return launches, s_routes
 
 
@@ -4334,65 +4534,7 @@ def scan_hold_phase(cfg, params, device) -> None:
                              f"routes {routes}, layers over the check {bad}")
 
 
-def lm_hold_phase(device) -> None:
-    """A 2-layer full-width Hymba in fp32 (TF32 off), the same weights on
-    the card (kernels) and the CPU (plain versions), with a 32-slot window:
-    one 512-token scoring pass, log-probs within 1e-3; then 40 greedy
-    decode steps, past the window, from the CPU's tokens: logits within
-    1e-3 and the same argmax except where the CPU's top two lie within
-    TIE_GAP."""
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import lm as LM
-
-    cfg = hymba_config(num_layers=HOLD_LAYERS, dtype="float32",
-                       sliding_window=HOLD_WINDOW)
-    cpu = torch.device("cpu")
-    p_c = LM.init_params(cfg, generator=torch.Generator().manual_seed(3),
-                         device=cpu)
-    p_g = LM.init_params(cfg, generator=torch.Generator().manual_seed(3),
-                         device=device)
-    g = torch.Generator().manual_seed(4)
-    toks = torch.randint(0, cfg.vocab_size, (1, HOLD_TOKENS), generator=g)
-    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
-    step = make_prefill_step(cfg)
-    lp_c = step({"model": p_c}, batch)
-    lp_g = step({"model": p_g}, {k: t.to(device) for k, t in batch.items()})
-    score_err = float((lp_g.cpu() - lp_c).abs().max())
-
-    B = 2
-    cache_c = LM.init_cache(cfg, B, HOLD_STEPS + 1, device=cpu)
-    cache_g = LM.init_cache(cfg, B, HOLD_STEPS + 1, device=device)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
-    logit_err, mismatched, near_ties = 0.0, 0, 0
-    with torch.no_grad():
-        for _ in range(HOLD_STEPS):
-            l_c, cache_c = LM.decode_step(p_c, cfg, tok, cache_c)
-            l_g, cache_g = LM.decode_step(p_g, cfg, tok.to(device), cache_g)
-            l_g = l_g.cpu()
-            logit_err = max(logit_err, float((l_g - l_c).abs().max()))
-            top2 = torch.topk(l_c, 2, dim=-1).values
-            tie = (top2[:, 0] - top2[:, 1]) < TIE_GAP
-            differ = torch.argmax(l_g, -1) != torch.argmax(l_c, -1)
-            mismatched += int((differ & ~tie).sum())
-            near_ties += int(tie.sum())
-            tok = torch.argmax(l_c, -1)[:, None]
-    ssm_err = float((cache_g["ssm"].cpu() - cache_c["ssm"]).abs().max())
-    pos_equal = torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
-    emit("lm_hold", model=cfg.name, layers=HOLD_LAYERS, dtype="float32",
-         tf32=torch.backends.cuda.matmul.allow_tf32, window=HOLD_WINDOW,
-         score_tokens=HOLD_TOKENS, score_max_abs_err=score_err,
-         decode_steps=HOLD_STEPS, batch=B, logits_max_abs_err=logit_err,
-         argmax_mismatches=mismatched, near_ties=near_ties,
-         ssm_state_max_abs_err=ssm_err, cache_positions_equal=pos_equal,
-         tol=HOLD_TOL)
-    if not (score_err <= HOLD_TOL and logit_err <= HOLD_TOL
-            and mismatched == 0 and pos_equal):
-        raise AssertionError(f"lm_hold: scoring error {score_err}, logits "
-                             f"error {logit_err}, {mismatched} argmax "
-                             f"mismatches, positions equal {pos_equal}")
-
-
-def lm_profile(cfg, params, device) -> None:
+def lm_profile(cfg, params, device, phase: str = "lm_profile") -> None:
     """One full-width decode step at batch 8 (:func:`profile_step`), after
     a few steps into the cache."""
     from repro_torch.models import lm as LM
@@ -4408,9 +4550,387 @@ def lm_profile(cfg, params, device) -> None:
 
     for _ in range(3):
         step()
-    profile_step("lm_profile", step, model=cfg.name, batch=DECODE_BATCH)
+    profile_step(phase, step, model=cfg.name, batch=DECODE_BATCH)
     if not bool(torch.isfinite(out["logits"]).all()):
-        raise AssertionError("lm_profile: decode logits not finite")
+        raise AssertionError(f"{phase}: decode logits not finite")
+
+
+# -- phase 11: the dense and RWKV6 families ---------------------------------------
+
+def dense_decode_phase(cfg, params, device) -> tuple:
+    """qwen2.5-32b whole (64 layers, bf16, 32.76 B seeded parameters) through
+    ``lm_decode.serve``: batch 8, 32 prompt tokens prefilled a decode step
+    at a time, 32 sampled; no kernel (single-token attention over the cache
+    is ``_decode_attention``'s einsums, as in JAX).  Returns the launches
+    and the run's whole token sequence (prompt and generated)."""
+    smi = nvidia_smi()
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, DECODE_PROMPT)
+    toks, run = served(cfg, params, device, prompt, DECODE_GEN)
+    fields = model_fields(cfg, params)
+    emit("dense_decode", nvidia_smi=smi, **fields, **run,
+         step_bound_ms=fields["weight_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3)
+    if run["launches"] != _only(run["launches"]):
+        raise AssertionError(f"dense_decode launched {run['launches']}, "
+                             "expected no kernel")
+    if tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"dense_decode tokens {tuple(toks.shape)} out "
+                             "of range")
+    return run["launches"], torch.cat([prompt, toks], dim=1)
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a cache's K/V and int8 scales (not the stored positions)."""
+    return sum(t.numel() * t.element_size()
+               for name, t in cache["kv"].items() if name != "pos")
+
+
+def teacher_forced_logprobs(cfg, params, seq) -> torch.Tensor:
+    """Decode-step log-probs (B, S, V) along ``seq`` (B, S)."""
+    from repro_torch.models import lm as LM
+
+    cache = LM.init_cache(cfg, seq.shape[0], seq.shape[1] + 1,
+                          device=seq.device)
+    out = []
+    with torch.no_grad():
+        for t in range(seq.shape[1]):
+            logits, cache = LM.decode_step(params, cfg, seq[:, t:t + 1],
+                                           cache)
+            out.append(torch.log_softmax(logits, -1))
+    return torch.stack(out, 1)
+
+
+def int8_drift(cfg, params, seq, steps: int) -> dict:
+    """The int8 cache against the float one, teacher-forced along ``seq``'s
+    first ``steps`` tokens: mean |d log p| and top-1 agreement (the bars of
+    ``tests/test_serving.py:28-43``)."""
+    import dataclasses
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    ref = teacher_forced_logprobs(cfg, params, seq[:, :steps])
+    quant = teacher_forced_logprobs(cfg8, params, seq[:, :steps])
+    return {"mean_abs_dlogp": float((ref - quant).abs().mean()),
+            "top1_agreement": float((ref.argmax(-1) == quant.argmax(-1))
+                                    .float().mean()),
+            "rows": int(ref.shape[0] * ref.shape[1])}
+
+
+def dense_int8_phase(cfg, params, device, seq) -> dict:
+    """The ``dense_decode`` run on an int8 KV cache
+    (``kv_cache_dtype="int8"``): rates, the cache's bytes against bf16's,
+    and the drift against the bf16 cache teacher-forced along the
+    dense_decode run's 32 prompt tokens (reported, not gated: at full
+    depth with random weights the top-1 margins are thin; the dense hold
+    gates it)."""
+    import dataclasses
+
+    from repro_torch.models import lm as LM
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    prompt = seq[:, :DECODE_PROMPT]
+    toks, run = served(cfg8, params, device, prompt, DECODE_GEN)
+    max_len = DECODE_PROMPT + DECODE_GEN + 1
+    nbytes = {c.kv_cache_dtype: cache_bytes(LM.init_cache(c, DECODE_BATCH,
+                                                          max_len, device))
+              for c in (cfg, cfg8)}
+    drift = int8_drift(cfg, params, seq, DECODE_PROMPT)
+    emit("dense_int8", nvidia_smi=nvidia_smi(), model=cfg.name, **run,
+         cache_bytes=nbytes, cache_bytes_ratio=nbytes["int8"]
+         / nbytes["bfloat16"], drift_vs_bf16_cache=drift, drift_gated=False,
+         tokens_equal_bf16_run=bool(torch.equal(toks, seq[:, DECODE_PROMPT:])))
+    if run["launches"] != _only(run["launches"]) \
+            or tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN):
+        raise AssertionError(f"dense_int8 launched {run['launches']}, "
+                             f"expected no kernel; tokens {tuple(toks.shape)}")
+    return run["launches"]
+
+
+def dense_prefill_phase(cfg, params, device) -> dict:
+    """qwen2.5-32b whole, ``make_prefill_step`` over 2 x 2,048 tokens:
+    exactly one flash launch a layer (64), all on the tensor cores at head
+    dim 128, causal, groups of 5; finite log-probs <= 0."""
+    lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                   DENSE_PREFILL_LEN)
+    L = cfg.num_layers
+    emit("dense_prefill", nvidia_smi=nvidia_smi(), model=cfg.name, **f)
+    if f["launches"] != _only(f["launches"], flash_attention=L) \
+            or f["flash_routes"] != {"wgmma": L, "simt": 0} \
+            or not f["flash_us"] > 0 \
+            or not scored_ok(f, DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN):
+        raise AssertionError(f"dense_prefill: launches {f['launches']}, "
+                             f"routes {f['flash_routes']} (expected {L} on "
+                             f"wgmma), log-probs {f['logprob_shape']}, finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
+    return f["launches"]
+
+
+def dense_cached_phase(cfg, params, device) -> dict:
+    """The cached S > 1 branch of ``attention_sublayer`` at full width: per
+    layer, 16 new tokens onto a 2,048-slot cache holding 1,024 (seeded K/V,
+    positions 0-1,023), one flash launch each with ``q_offset`` 1,024 and
+    ``kv_len`` 1,040 (read from the recorded call); the K/V and positions
+    written to slots 1,024-1,039."""
+    from repro_torch.models import lm as LM
+
+    L, B, C = cfg.num_layers, DENSE_PREFILL_BATCH, CACHED_SLOTS
+    N, S = CACHED_FILLED, CACHED_NEW
+    dt = LM._dtype(cfg)
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    cache = LM.init_cache(cfg, B, C, device=device)["kv"]
+    for name in ("k", "v"):
+        cache[name][:, :, :N] = torch.randn(cache[name][:, :, :N].shape,
+                                            generator=g, device=device).to(dt)
+    cache["pos"][:, :, :N] = torch.arange(N, dtype=torch.int32, device=device)
+    h = torch.randn(B, S, cfg.d_model, generator=g, device=device).to(dt)
+    positions = (N + torch.arange(S, device=device))[None].expand(B, S)
+    before = collections.Counter(PATH_SHAPES["flash_attention"])
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.no_grad():
+        for i in range(L):
+            out, _ = LM.attention_sublayer(
+                LM._layer(params["layers"], i)["attn"], h, cfg, positions,
+                cache={k: t[i] for k, t in cache.items()}, cache_index=N)
+    end.record()
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), flash_routes()
+    keys = PATH_SHAPES["flash_attention"] - before
+    want_key = flash_key(B, S, C, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, dt, True, 0, N, N + S)
+    written = bool((cache["pos"][:, :, N:N + S] == positions[None]
+                    .to(torch.int32)).all()
+                   and (cache["pos"][:, :, N + S:] == -1).all()
+                   and cache["k"][:, :, N:N + S].abs().sum() > 0)
+    emit("dense_cached", model=cfg.name, batch=B, slots=C, filled=N,
+         new_tokens=S, q_offset=N, kv_len=N + S, layers=L,
+         kernel_keys={json.dumps(list(k)): n for k, n in keys.items()},
+         launches=launches, flash_routes=routes,
+         wall_ms_all_layers=start.elapsed_time(end),
+         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+         out_finite=bool(torch.isfinite(out).all()), cache_written=written)
+    if launches != _only(launches, flash_attention=L) \
+            or routes != {"wgmma": L, "simt": 0} \
+            or dict(keys) != {want_key: L} or not written \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"dense_cached: launches {launches}, routes "
+                             f"{routes}, flash keys {dict(keys)} (expected "
+                             f"{want_key} x {L}), cache written {written}")
+    return launches
+
+
+def command_r_phase(device) -> dict:
+    """command-r-35b whole (40 layers, d_model 8,192, tied embeddings, no
+    QKV bias, GQA groups of 8): 8 decode steps at batch 8 (no kernel) and
+    one 2 x 2,048 scoring pass with one tensor-core flash launch a layer
+    (40).  The weights are freed after."""
+    cfg = lm_config("command-r-35b")
+    params = lm_params(cfg, device, seed=1)
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, COMMAND_R_PROMPT)
+    toks, run = served(cfg, params, device, prompt, COMMAND_R_GEN)
+    lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                   DENSE_PREFILL_LEN)
+    L = cfg.num_layers
+    emit("command_r", nvidia_smi=nvidia_smi(), **model_fields(cfg, params),
+         decode=run, scoring=f)
+    del params, lp
+    free_card(device)
+    if run["launches"] != _only(run["launches"]) \
+            or f["launches"] != _only(f["launches"], flash_attention=L) \
+            or f["flash_routes"] != {"wgmma": L, "simt": 0} \
+            or not scored_ok(f, DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN):
+        raise AssertionError(f"command_r: decode launched {run['launches']}, "
+                             f"scoring {f['launches']}, routes "
+                             f"{f['flash_routes']}, log-probs finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
+    return f["launches"]
+
+
+def dense_cut_phase(device) -> dict:
+    """qwen2-72b and command-r-plus-104b at full width and 8 layers (their
+    bf16 weights at full depth, 145 and 208 GB, do not fit the card): one
+    2 x 2,048 scoring pass (one flash launch a layer, GQA groups of 8 and
+    12 at d_model 8,192 and 12,288) and 4 decode steps each.  Returns the
+    scoring passes' launches, summed."""
+    total = {k: 0 for k in wrappers()}
+    for arch in CUT_ARCHS:
+        full = lm_config(arch)
+        cfg = lm_config(arch, num_layers=CUT_LAYERS)
+        params = lm_params(cfg, device, seed=2)
+        prompt = lm_prompt(cfg, device, DECODE_BATCH, CUT_PROMPT)
+        toks, run = served(cfg, params, device, prompt, CUT_GEN)
+        lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                       DENSE_PREFILL_LEN)
+        emit("dense_cut", nvidia_smi=nvidia_smi(),
+             **model_fields(cfg, params),
+             reduced=f"{CUT_LAYERS} of {full.num_layers} layers (full depth "
+                     f"{full.param_count() / 1e9:.1f} B parameters, "
+                     f"{2 * full.param_count() / 1e9:.0f} GB in bf16)",
+             decode=run, scoring=f)
+        del params, lp
+        free_card(device)
+        if run["launches"] != _only(run["launches"]) \
+                or f["launches"] != _only(f["launches"],
+                                          flash_attention=CUT_LAYERS) \
+                or f["flash_routes"] != {"wgmma": CUT_LAYERS, "simt": 0} \
+                or not scored_ok(f, DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN):
+            raise AssertionError(f"dense_cut {arch}: decode launched "
+                                 f"{run['launches']}, scoring "
+                                 f"{f['launches']}, routes "
+                                 f"{f['flash_routes']}")
+        _add(total, f["launches"])
+    return total
+
+
+def rwkv_decode_phase(cfg, params, device) -> tuple:
+    """rwkv6-1.6b whole (24 layers, d_model 2,048, 32 heads of 64) through
+    ``lm_decode.serve``: batch 8, 32 + 32 tokens; exactly one scan launch a
+    layer and step (24), all on the recurrence route, with the bonus ``u``
+    and the carried state; no flash."""
+    smi = nvidia_smi()
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, DECODE_PROMPT)
+    before = collections.Counter(PATH_SHAPES["rwkv6_scan"])
+    toks, run = served(cfg, params, device, prompt, DECODE_GEN)
+    keys = set(PATH_SHAPES["rwkv6_scan"] - before)
+    n = cfg.num_layers * run["decode_steps"]
+    emit("rwkv_decode", nvidia_smi=smi, **model_fields(cfg, params), **run,
+         kernel_keys=sorted(keys))
+    H, D = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    want_key = scan_key(DECODE_BATCH, 1, H, D, D, torch.bfloat16, True, True)
+    if run["launches"] != _only(run["launches"], rwkv6_scan=n) \
+            or run["scan_routes"] != {"chunk": 0, "recurrence": n} \
+            or keys != {want_key} \
+            or tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN):
+        raise AssertionError(f"rwkv_decode launched {run['launches']}, "
+                             f"routes {run['scan_routes']} (expected {n} "
+                             f"recurrence), scan keys {keys}")
+    return run["launches"], run["scan_routes"]
+
+
+def rwkv_prefill_phase(cfg, params, device) -> tuple:
+    """rwkv6-1.6b whole, ``make_prefill_step`` over 2 x 4,096 tokens:
+    exactly one scan launch a layer (24), all on the chunk route and all
+    with ``u``; finite log-probs <= 0."""
+    before = collections.Counter(PATH_SHAPES["rwkv6_scan"])
+    lp, f = scored(cfg, params, device, PREFILL_BATCH, RWKV_PREFILL_LEN)
+    keys = set(PATH_SHAPES["rwkv6_scan"] - before)
+    L = cfg.num_layers
+    emit("rwkv_prefill", nvidia_smi=nvidia_smi(), model=cfg.name, **f,
+         kernel_keys=sorted(keys))
+    H, D = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    want_key = scan_key(PREFILL_BATCH, RWKV_PREFILL_LEN, H, D, D,
+                        torch.bfloat16, True, False)
+    if f["launches"] != _only(f["launches"], rwkv6_scan=L) \
+            or f["scan_routes"] != {"chunk": L, "recurrence": 0} \
+            or keys != {want_key} or not f["scan_us"] > 0 \
+            or not scored_ok(f, PREFILL_BATCH, RWKV_PREFILL_LEN):
+        raise AssertionError(f"rwkv_prefill: launches {f['launches']}, "
+                             f"routes {f['scan_routes']} (expected {L} "
+                             f"chunk), scan keys {keys}, log-probs finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
+    return f["launches"], f["scan_routes"]
+
+
+def params_on(tree, device):
+    """A copy of a ParamTree on ``device``."""
+    from repro_torch.nn.core import ParamTree
+
+    def copy(t):
+        return {k: copy(t[k]) if isinstance(t[k], ParamTree)
+                else t[k].detach().to(device) for k in t}
+    return ParamTree(copy(tree))
+
+
+def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
+                   steps: int = LM_HOLD_STEPS, int8_steps: int = 0) -> None:
+    """A 2-layer full-width model in fp32 (TF32 off): the weights drawn on
+    the card and copied to the CPU, so the card runs the kernels and the
+    CPU their plain versions on the same values.  A ``tokens``-long
+    scoring pass, log-probs within 1e-3; ``steps`` greedy decode steps from
+    the CPU's tokens, logits within 1e-3 and the same argmax except where
+    the CPU's top two lie within TIE_GAP; then the carried state (rwkv:
+    shifts and wkv; hybrid: the SSM state) and the K/V cache within 1e-3,
+    its stored positions equal.  With ``int8_steps``, the first that many
+    of those tokens on the card over an int8 cache and over the float one:
+    mean |d log p| between them under INT8_DRIFT (gated), top-1 agreement
+    reported (:func:`int8_drift`)."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm as LM
+
+    cpu = torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats(device)
+    p_g = lm_params(cfg, device, seed=3)
+    p_c = params_on(p_g, cpu)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, tokens), generator=g)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    step = make_prefill_step(cfg)
+    reset_launches()
+    lp_c = step({"model": p_c}, batch)
+    lp_g = step({"model": p_g}, {k: t.to(device) for k, t in batch.items()})
+    score_launches = read_launches()
+    score_err = float((lp_g.cpu() - lp_c).abs().max())
+
+    B = 2
+    cache_c = LM.init_cache(cfg, B, steps + 1, device=cpu)
+    cache_g = LM.init_cache(cfg, B, steps + 1, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
+    fed = []
+    logit_err, mismatched, near_ties = 0.0, 0, 0
+    reset_launches()
+    with torch.no_grad():
+        for _ in range(steps):
+            fed.append(tok)
+            l_c, cache_c = LM.decode_step(p_c, cfg, tok, cache_c)
+            l_g, cache_g = LM.decode_step(p_g, cfg, tok.to(device), cache_g)
+            l_g = l_g.cpu()
+            logit_err = max(logit_err, float((l_g - l_c).abs().max()))
+            top2 = torch.topk(l_c, 2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) < TIE_GAP
+            differ = torch.argmax(l_g, -1) != torch.argmax(l_c, -1)
+            mismatched += int((differ & ~tie).sum())
+            near_ties += int(tie.sum())
+            tok = torch.argmax(l_c, -1)[:, None]
+    decode_launches = read_launches()
+    states = {"rwkv": ("shift", "cm_shift", "wkv"), "dense": ("kv",),
+              "hybrid": ("ssm", "kv")}[cfg.family]
+    flat = lambda c, n: (c[n] if n != "kv" else torch.cat(
+        [c["kv"]["k"].flatten(), c["kv"]["v"].flatten()]))
+    state_err = {n: float((flat(cache_g, n).cpu().float()
+                           - flat(cache_c, n).float()).abs().max())
+                 for n in states}
+    pos_equal = "kv" not in states or torch.equal(
+        cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
+    fields = {}
+    if int8_steps:
+        fields["int8"] = dict(int8_drift(cfg, p_g, torch.cat(fed, 1).to(
+            device), int8_steps), bar=INT8_DRIFT, top1_gated=False)
+    emit(phase, model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         tf32=torch.backends.cuda.matmul.allow_tf32, plain_on="cpu",
+         window=cfg.sliding_window,
+         score_tokens=tokens, score_max_abs_err=score_err,
+         score_launches=score_launches, decode_steps=steps, batch=B,
+         decode_launches=decode_launches, logits_max_abs_err=logit_err,
+         argmax_mismatches=mismatched, near_ties=near_ties,
+         state_max_abs_err=state_err, cache_positions_equal=pos_equal,
+         tol=HOLD_TOL,
+         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+         **fields)
+    del p_g
+    free_card(device)
+    if not (score_err <= HOLD_TOL and logit_err <= HOLD_TOL
+            and mismatched == 0 and max(state_err.values()) <= HOLD_TOL
+            and pos_equal) \
+            or ("int8" in fields
+                and not fields["int8"]["mean_abs_dlogp"] < INT8_DRIFT):
+        raise AssertionError(f"{phase}: scoring error {score_err}, logits "
+                             f"error {logit_err}, {mismatched} argmax "
+                             f"mismatches, state errors {state_err}, "
+                             f"positions equal {pos_equal}, int8 "
+                             f"{fields.get('int8')}")
 
 
 def single_nvcc_call_seconds(build) -> float:
@@ -4646,6 +5166,35 @@ def main() -> int:
             check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=True,
                              bf16=True, seed=6, device=device,
                              decay="strong")]
+    # the dense family (phase 11): head dim 128, causal, GQA groups of 5
+    # (qwen2.5-32b's scoring pass), 8 (command-r-35b, qwen2-72b) and 12
+    # (command-r-plus-104b) over 2 x 2,048 tokens in bf16; the cached S > 1
+    # call (16 queries at q_offset 1,024 over kv_len 1,040 of 2,048 slots);
+    # the dense hold's fp32 pass (the SIMT route)
+    flash += [check_flash_attention(2, 2048, 2048, H, 8, 128, causal=True,
+                                    window=0, bf16=True, seed=20 + H,
+                                    device=device) for H in (40, 64, 96)]
+    flash += [check_flash_attention(2, CACHED_NEW, CACHED_SLOTS, 40, 8, 128,
+                                    causal=True, window=0, bf16=True, seed=30,
+                                    device=device, q_offset=CACHED_FILLED,
+                                    kv_len=CACHED_FILLED + CACHED_NEW),
+              check_flash_attention(1, LM_HOLD_TOKENS, LM_HOLD_TOKENS, 40, 8,
+                                    128, causal=True, window=0, bf16=False,
+                                    seed=31, device=device)]
+    # Hymba's scoring pass starts from no state; RWKV6's 32 heads of 64 with
+    # u: the scoring pass (chunk route, no state), a decode step (state),
+    # and the rwkv hold's fp32 pass and decode step (recurrence)
+    scan += [check_rwkv6_scan(2, 4096, 25, 16, 64, bonus=False, state=False,
+                              bf16=True, seed=7, device=device),
+             check_rwkv6_scan(2, RWKV_PREFILL_LEN, 32, 64, 64, bonus=True,
+                              state=False, bf16=True, seed=8, device=device),
+             check_rwkv6_scan(DECODE_BATCH, 1, 32, 64, 64, bonus=True,
+                              state=True, bf16=True, seed=9, device=device),
+             check_rwkv6_scan(1, LM_HOLD_TOKENS, 32, 64, 64, bonus=True,
+                              state=False, bf16=False, seed=10,
+                              device=device),
+             check_rwkv6_scan(2, 1, 32, 64, 64, bonus=True, state=True,
+                              bf16=False, seed=11, device=device)]
 
     emit("build_single_call", single_nvcc_call_seconds=single.result(),
          beside="the kernel checks")
@@ -4683,19 +5232,51 @@ def main() -> int:
         replay = replay_train_phase(device)
         replay_conv = replay_converge(device)
         cli = cli_phase(device)
-    check_path_shapes(rows, attn, traj)
     replay_hold(device)
     box_hold(device)
     dag_converge(device)
     graph_train_phase(device)
-    hymba = hymba_config()
-    params = hymba_params(hymba, device)
-    decode, decode_scan = lm_decode_phase(hymba, params, device)
-    prefill, prefill_scan = lm_prefill_phase(hymba, params, device)
+    hymba = lm_config("hymba-1.5b")
+    params = lm_params(hymba, device)
+    with recording_path_shapes():
+        decode, decode_scan = lm_decode_phase(hymba, params, device)
+        prefill, prefill_scan = lm_prefill_phase(hymba, params, device)
     scan_hold_phase(hymba, params, device)
     lm_profile(hymba, params, device)
     del params
-    lm_hold_phase(device)
+    lm_family_hold("lm_hold", lm_config(
+        "hymba-1.5b", num_layers=LM_HOLD_LAYERS, dtype="float32",
+        sliding_window=HYMBA_HOLD_WINDOW), device, tokens=HYMBA_HOLD_TOKENS,
+        steps=HYMBA_HOLD_STEPS)
+    # the dense and RWKV6 families, each model freed before the next
+    free_card(device)
+    dense = lm_config(DENSE_ARCH)
+    params = lm_params(dense, device)
+    with recording_path_shapes():
+        _, seq = dense_decode_phase(dense, params, device)
+        dense_prefill = dense_prefill_phase(dense, params, device)
+        dense_cached = dense_cached_phase(dense, params, device)
+        dense_int8_phase(dense, params, device, seq)
+    lm_profile(dense, params, device, phase="dense_profile")
+    del params
+    free_card(device)
+    with recording_path_shapes():
+        command_r = command_r_phase(device)
+        dense_cut = dense_cut_phase(device)
+    rwkv = lm_config(RWKV_ARCH)
+    params = lm_params(rwkv, device)
+    with recording_path_shapes():
+        _, rwkv_decode_scan = rwkv_decode_phase(rwkv, params, device)
+        _, rwkv_prefill_scan = rwkv_prefill_phase(rwkv, params, device)
+    lm_profile(rwkv, params, device, phase="rwkv_profile")
+    del params
+    free_card(device)
+    lm_family_hold("dense_hold", lm_config(
+        DENSE_ARCH, num_layers=LM_HOLD_LAYERS, dtype="float32"), device,
+        int8_steps=INT8_HOLD_STEPS)
+    lm_family_hold("rwkv_hold", lm_config(
+        RWKV_ARCH, num_layers=LM_HOLD_LAYERS, dtype="float32"), device)
+    check_path_shapes(rows, attn, traj, flash, scan)
 
     def entry(name, source, replaces, launches, rows, main):
         return {"name": name, "route": "cuda", "source": source,
@@ -4745,20 +5326,29 @@ def main() -> int:
               "src/repro/core/objectives.py:253",
               hypergrid["subtb_loss_bwd"] + cli["subtb_loss_bwd"],
               [b for _, b in subtb], subtb[0][1]),
+        # Hymba's, qwen2.5-32b's, command-r-35b's and the cut models'
+        # scoring passes and the cached S > 1 calls
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
-              prefill["flash_attention"], flash, flash[0]),
+              sum(p["flash_attention"] for p in (
+                  prefill, dense_prefill, dense_cached, command_r,
+                  dense_cut)), flash, flash[0]),
         # the scan's two routes (ops.scan_route): the step recurrence, on
         # decode's path (its row: a decode step), and the chunk kernels, on
-        # the scoring pass's (its row: the scoring shape)
+        # the scoring pass's (its row: the scoring shape); Hymba's and
+        # rwkv6-1.6b's
         dict(entry("rwkv6_scan", csrc + "rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:73",
-                   decode_scan["recurrence"] + prefill_scan["recurrence"],
+                   sum(p["recurrence"] for p in (
+                       decode_scan, prefill_scan, rwkv_decode_scan,
+                       rwkv_prefill_scan)),
                    [r for r in scan if r["route"] == ["recurrence"]],
                    scan[1]), scan_route="recurrence"),
         dict(entry("rwkv6_chunk", csrc + "rwkv6_chunk.cu",
                    "src/repro/kernels/rwkv6_scan.py:73",
-                   decode_scan["chunk"] + prefill_scan["chunk"],
+                   sum(p["chunk"] for p in (
+                       decode_scan, prefill_scan, rwkv_decode_scan,
+                       rwkv_prefill_scan)),
                    [r for r in scan if r["route"] == ["chunk"]], scan[0]),
               scan_route="chunk"),
     ]}), flush=True)

@@ -1,16 +1,24 @@
 """Architecture registry: ``--arch <id>`` -> ``ModelConfig`` (port of
 ``repro.configs.registry``).
 
-Only the architectures whose family the port runs are registered; asking
-for any other raises ``NotImplementedError`` rather than handing back a
+Only the architectures whose family the port runs (dense, rwkv, hybrid)
+are registered; asking for any other (the VLM, the two MoE configs,
+Whisper) raises ``NotImplementedError`` rather than handing back a
 different model.
 """
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import hymba_1_5b
+from . import (command_r_35b, command_r_plus_104b, hymba_1_5b, qwen2_5_32b,
+               qwen2_72b, rwkv6_1_6b)
 
-_MODULES = {m.ARCH_ID: m for m in (hymba_1_5b,)}
+# JAX's order (``repro.configs.registry._MODULES``) with the unported
+# architectures left out: ARCH_IDS[0] is the LM entry point's default
+_MODULES = {
+    m.ARCH_ID: m for m in (
+        qwen2_5_32b, command_r_plus_104b, qwen2_72b, command_r_35b,
+        hymba_1_5b, rwkv6_1_6b)
+}
 
 ARCH_IDS = list(_MODULES)
 

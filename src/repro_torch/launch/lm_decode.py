@@ -3,8 +3,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch hymba-1.5b \
         --smoke --device cpu --batch 2 --prompt-len 8 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch hymba-1.5b \
+    PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch qwen2.5-32b \
         --batch 8 --prompt-len 32 --gen 32          # full width, on cuda
+
+``--arch`` takes every architecture the port registers (dense: qwen2.5-32b,
+command-r-plus-104b, qwen2-72b, command-r-35b; hybrid: hymba-1.5b; rwkv:
+rwkv6-1.6b) and defaults to JAX's default, qwen2.5-32b.  qwen2-72b and
+command-r-plus-104b do not fit one 80 GB card in bf16 at full depth.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  The model and the prompt are drawn from a seeded

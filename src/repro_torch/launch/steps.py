@@ -2,7 +2,7 @@
 ``repro.launch.steps``).
 
 ``make_serve_step``: one KV-cache decode step (greedy next token and the
-logits).  ``make_prefill_step``: full-prompt scoring (per-token target
+logits), or ``cfg.decode_steps`` of them fused into one call.  ``make_prefill_step``: full-prompt scoring (per-token target
 log-probs through ``forward_train``).  Both take ``params = {"model":
 <LM params>, ...}`` as in JAX and run without autograd.  Train steps,
 optimizers and sharding come with LM training (``ROADMAP.md``).
@@ -21,11 +21,11 @@ def make_serve_step(cfg: ModelConfig):
     """``step(params, tokens (B, 1), cache, extra=None) -> (next_tok (B,)
     int32, logits (B, V) float32, cache)``; the cache is updated in place.
     ``extra`` holds the VLM family's embeddings in JAX and must be empty
-    here.  Fused multi-token decode (``decode_steps > 1``) is not ported."""
-    if cfg.decode_steps > 1:
-        raise NotImplementedError(
-            f"decode_steps={cfg.decode_steps}: fused multi-token decode is "
-            "not ported yet (ROADMAP.md)")
+    here.  With ``cfg.decode_steps`` > 1 a call takes that many greedy
+    steps, each fed the token the one before chose, and returns the last
+    token and the last logits; ``cache["index"]`` advances by
+    ``decode_steps`` (JAX's ``lax.scan`` of the one-step function, a
+    Python loop here)."""
 
     @torch.no_grad()
     def one(params, tokens, cache, extra: Optional[Mapping[str, Any]] = None):
@@ -37,7 +37,17 @@ def make_serve_step(cfg: ModelConfig):
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, cache
 
-    return one
+    if cfg.decode_steps <= 1:
+        return one
+
+    def serve_step(params, tokens, cache,
+                   extra: Optional[Mapping[str, Any]] = None):
+        for _ in range(cfg.decode_steps):
+            next_tok, logits, cache = one(params, tokens, cache, extra)
+            tokens = next_tok[:, None]
+        return next_tok, logits, cache
+
+    return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig):

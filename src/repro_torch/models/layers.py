@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..nn.core import Params, normal_init
+from ..nn.core import Params
 
 # ---------------------------------------------------------------------------
 # Norms / MLP
@@ -32,18 +32,6 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
-
-
-def gated_mlp_init(d: int, ff: int, *, generator: torch.Generator,
-                   device: torch.device, dtype: torch.dtype = torch.float32,
-                   layers: int = 0) -> Params:
-    """``wi_gate``, ``wi_up`` (d, ff) and ``wo`` (ff, d), std 0.02; with
-    ``layers`` > 0 each leaf gets a leading axis of that many layers (the
-    JAX package's stacked layout)."""
-    lead = (layers,) if layers else ()
-    init = lambda *shape: normal_init(lead + shape, generator=generator,
-                                      device=device, std=0.02, dtype=dtype)
-    return {"wi_gate": init(d, ff), "wi_up": init(d, ff), "wo": init(ff, d)}
 
 
 def gated_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,31 +1,42 @@
-"""The causal LM of the LM tier, hybrid family (port of ``repro.models.lm``).
+"""The causal LM of the LM tier (port of ``repro.models.lm``): the dense,
+RWKV6 and hybrid families.
 
-Hymba blocks: attention heads and SSM heads run in parallel on the same
-input, each branch normalized, mean-fused (arXiv:2411.13676).  Parameters
-keep the JAX package's tree and its stacked layout -- every layer leaf has a
-leading ``num_layers`` axis (``layers/attn/wq`` is (L, d, q_dim)) -- so
-:func:`repro_torch.convert.params_from_jax` output loads by leaf name
-(:func:`load_params`).  A Python loop over the layers takes the place of
-``scan_or_unroll``.
+  dense  : GQA attention (RoPE, optional QKV bias) + gated-SiLU MLP
+           (qwen2 / qwen2.5, command-r)
+  rwkv   : RWKV6 time-mix (token shift, data-dependent decay, the wkv scan
+           with its bonus ``u``) + channel-mix
+  hybrid : Hymba: attention heads and SSM heads run in parallel on the same
+           input, each branch normalized, mean-fused (arXiv:2411.13676)
+
+Parameters keep the JAX package's tree and its stacked layout -- every
+layer leaf has a leading ``num_layers`` axis (``layers/attn/wq`` is (L, d,
+q_dim)) -- so :func:`repro_torch.convert.params_from_jax` output loads by
+leaf name (:func:`load_params`).  A Python loop over the layers takes the
+place of ``scan_or_unroll``.
 
 Entry points, as in JAX:
   forward_train(params, cfg, batch) -> per-token log-probs of the targets
       and the aux loss (0 here); the prompt-scoring pass.  Per layer it runs
-      the flash-attention kernel and the scan kernel over the whole sequence.
+      the flash-attention kernel (dense, hybrid) and the scan kernel
+      (rwkv, hybrid) over the whole sequence.
   init_cache(cfg, batch, max_len) / decode_step(params, cfg, tokens, cache)
-      -> (logits, cache); one token, the scan at T = 1 from the carried SSM
-      state and attention over the rotating window cache.
+      -> (logits, cache); one token.  Dense attends its full-length cache
+      in plain torch (``_decode_attention``, as in JAX: no kernel), the
+      hybrid family its rotating window cache; the scan runs at T = 1 from
+      the carried state (rwkv's wkv state, Hymba's SSM state).
 
 Unlike JAX's functional cache, :func:`decode_step` updates the cache in
-place (the new K/V slot, stored positions and SSM state) and returns the
-same dict; ``cache["index"]`` is a Python int.  The JAX layers'
-``attn_chunk`` and ``ssm_chunk`` are not taken: the flash kernel tiles the
-keys itself, and the SSM heads run the exact recurrence, where JAX's chunk
-form departs from it once a chunk's decay product falls below 1e-30
-(``ROADMAP.md``, queue 3).  Other
-families, the int8 cache and cached attention without a window (the
-``_decode_attention`` and S > 1 flash branches) raise
-``NotImplementedError``.
+place (the new K/V slot, stored positions, the int8 scales, the recurrent
+states) and returns the same dict; ``cache["index"]`` is a Python int.  The
+JAX layers' ``attn_chunk`` and ``ssm_chunk`` are not taken: the flash
+kernel tiles the keys itself, and the scan computes the exact recurrence,
+where JAX's chunk form departs from it once a chunk's decay product falls
+below 1e-30 (``ROADMAP.md``, queue 3).  The int8 KV cache
+(``kv_cache_dtype="int8"``: per-(token, head) scales, codes ``round(x /
+s)``) is read only where JAX dequantizes it, single-token decode without a
+window; the windowed and cached S > 1 branches raise (JAX attends the codes
+there without their scales: ``ROADMAP.md``, queue 3, reference item 11).
+The moe, vlm and encdec families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,23 +46,27 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..nn.core import ParamTree, Params, normal_init
+from ..nn.core import ParamTree, Params, normal_init_sliced
 # loads params_from_jax(jax.device_get(repro.models.lm.init_params(...)))
 from ..nn.core import load_flat as load_params  # noqa: F401
 from .config import ModelConfig
 from .layers import (apply_rope, chunked_linear_attention, flash_attention,
-                     gated_mlp, gated_mlp_init, rmsnorm, rmsnorm_init)
+                     gated_mlp, rmsnorm, rmsnorm_init)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _require_hybrid(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "hybrid":
+#: the families the port runs
+FAMILIES = ("dense", "rwkv", "hybrid")
+
+
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{what}: the {cfg.family!r} family is not ported to repro_torch "
-            "yet (only 'hybrid'; see ROADMAP.md)")
+            f"yet (ported: {', '.join(FAMILIES)}; see ROADMAP.md)")
 
 
 # ===========================================================================
@@ -62,10 +77,16 @@ def _stacked_ones(L: int, dim: int, dt, device) -> Params:
     return {"scale": torch.ones(L, dim, dtype=dt, device=device)}
 
 
-def _attn_init(cfg: ModelConfig, dt, *, generator, device) -> Params:
+def _stacked_init(cfg: ModelConfig, dt, generator, device):
+    """``init(*shape)``: an (L,) + shape leaf of std 0.02 normals, drawn a
+    layer at a time (:func:`normal_init_sliced`)."""
+    return lambda *shape: normal_init_sliced(
+        (cfg.num_layers,) + shape, generator=generator, device=device,
+        std=0.02, dtype=dt)
+
+
+def _attn_init(cfg: ModelConfig, dt, init, device) -> Params:
     L, d, qd, kvd = cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim
-    init = lambda *shape: normal_init((L,) + shape, generator=generator,
-                                      device=device, std=0.02, dtype=dt)
     p = {"wq": init(d, qd), "wk": init(d, kvd), "wv": init(d, kvd),
          "wo": init(qd, d)}
     if cfg.qkv_bias:
@@ -82,11 +103,10 @@ def hybrid_block_init(cfg: ModelConfig, *, generator: torch.Generator,
     dt = _dtype(cfg)
     L, d, qd, N = cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.ssm_state
     H = cfg.num_heads
-    init = lambda *shape: normal_init((L,) + shape, generator=generator,
-                                      device=device, std=0.02, dtype=dt)
+    init = _stacked_init(cfg, dt, generator, device)
     return {
         "ln1": _stacked_ones(L, d, dt, device),
-        "attn": _attn_init(cfg, dt, generator=generator, device=device),
+        "attn": _attn_init(cfg, dt, init, device),
         # SSM branch (mamba2-style scalar-decay heads)
         "ssm_in": init(d, qd),
         "ssm_gate": init(d, qd),
@@ -100,31 +120,93 @@ def hybrid_block_init(cfg: ModelConfig, *, generator: torch.Generator,
         "attn_norm": _stacked_ones(L, d, dt, device),
         "ssm_norm": _stacked_ones(L, d, dt, device),
         "ln2": _stacked_ones(L, d, dt, device),
-        "mlp": gated_mlp_init(d, cfg.d_ff, generator=generator,
-                              device=device, dtype=dt, layers=L),
+        "mlp": {"wi_gate": init(d, cfg.d_ff), "wi_up": init(d, cfg.d_ff),
+                "wo": init(cfg.d_ff, d)},
     }
+
+
+def dense_block_init(cfg: ModelConfig, *, generator: torch.Generator,
+                     device) -> Params:
+    """All ``num_layers`` dense blocks, stacked: ``ln1``, ``attn`` (``wq``,
+    ``wk``, ``wv``, ``wo``; ``bq``, ``bk``, ``bv`` with ``qkv_bias``),
+    ``ln2``, ``mlp`` (``wi_gate``, ``wi_up``, ``wo``), as JAX's
+    ``dense_block_init`` vmapped over the layers.  Each weight is drawn a
+    layer at a time (:func:`normal_init_sliced`): qwen2.5-32b's
+    ``mlp/wi_gate`` alone is 9.06e9 elements."""
+    dt = _dtype(cfg)
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    init = _stacked_init(cfg, dt, generator, device)
+    return {"ln1": _stacked_ones(L, d, dt, device),
+            "attn": _attn_init(cfg, dt, init, device),
+            "ln2": _stacked_ones(L, d, dt, device),
+            "mlp": {"wi_gate": init(d, ff), "wi_up": init(d, ff),
+                    "wo": init(ff, d)}}
+
+
+#: rank of RWKV6's decay LoRA (JAX's ``rwkv_block_init``)
+RWKV_LORA = 64
+
+
+def rwkv_block_init(cfg: ModelConfig, *, generator: torch.Generator,
+                    device) -> Params:
+    """All ``num_layers`` RWKV6 blocks, stacked, with JAX's names and
+    initial values: the time-mix factors ``mu`` (5, d) and ``cm_mu`` (2, d)
+    at 0.5, the decay base ``w0`` at -6, the norms at 1, the rest std 0.02
+    normals drawn a layer at a time."""
+    dt = _dtype(cfg)
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    H, D = d // cfg.rwkv_head_size, cfg.rwkv_head_size
+    init = _stacked_init(cfg, dt, generator, device)
+    full = lambda value, *shape: torch.full((L,) + shape, value, dtype=dt,
+                                            device=device)
+    return {
+        "ln1": _stacked_ones(L, d, dt, device),
+        "ln2": _stacked_ones(L, d, dt, device),
+        # time-mix interpolation factors per projection (r, k, v, g, w)
+        "mu": full(0.5, 5, d),
+        "wr": init(d, d), "wk": init(d, d), "wv": init(d, d),
+        "wg": init(d, d), "wo": init(d, d),
+        # data-dependent decay: w = exp(-exp(w0 + tanh(x W_a) W_b))
+        "w0": full(-6.0, d),
+        "w_lora_a": init(d, RWKV_LORA),
+        "w_lora_b": init(RWKV_LORA, d),
+        "bonus_u": init(H, D),
+        "ln_x": _stacked_ones(L, d, dt, device),
+        # channel mix
+        "cm_mu": full(0.5, 2, d),
+        "cm_k": init(d, ff), "cm_v": init(ff, d), "cm_r": init(d, d),
+    }
+
+
+BLOCK_INITS = {"dense": dense_block_init, "rwkv": rwkv_block_init,
+               "hybrid": hybrid_block_init}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None) -> ParamTree:
     """Random parameters, std 0.02 normals drawn from ``generator`` on its
-    own device (a CUDA generator for a full-width model: 1.39 B draws), in
-    the config's dtype, on ``device`` (default: the generator's).  The
-    values are not JAX's (another generator); parity runs load JAX's."""
-    _require_hybrid(cfg, "init_params")
+    own device (a CUDA generator for a full-width model: 1.39 B draws for
+    Hymba, 32.76 B for qwen2.5-32b), in the config's dtype, on ``device``
+    (default: the generator's).  Each leaf is drawn a layer (or a block of
+    embedding rows) at a time into a leaf of the config's dtype
+    (:func:`normal_init_sliced`), so a model that fills most of the card
+    never holds a float32 copy of a whole leaf.  The values are not JAX's
+    (another generator); parity runs load JAX's."""
+    _require_ported(cfg, "init_params")
     dt = _dtype(cfg)
     device = generator.device if device is None else device
     params: Dict[str, Any] = {
-        "embed": normal_init((cfg.vocab_size, cfg.d_model),
-                             generator=generator, device=device, dtype=dt),
+        "embed": normal_init_sliced((cfg.vocab_size, cfg.d_model),
+                                    generator=generator, device=device,
+                                    dtype=dt),
         "ln_f": rmsnorm_init(cfg.d_model, dt, device),
     }
     if not cfg.tie_embeddings:
-        params["head"] = normal_init((cfg.d_model, cfg.vocab_size),
-                                     generator=generator, device=device,
-                                     dtype=dt)
-    params["layers"] = hybrid_block_init(cfg, generator=generator,
-                                         device=device)
+        params["head"] = normal_init_sliced(
+            (cfg.d_model, cfg.vocab_size), generator=generator,
+            device=device, dtype=dt)
+    params["layers"] = BLOCK_INITS[cfg.family](cfg, generator=generator,
+                                               device=device)
     return ParamTree(params)
 
 
@@ -164,9 +246,19 @@ def attention_sublayer(p, x, cfg: ModelConfig, positions, cache=None,
                        cache_index: Optional[int] = None, window: int = 0):
     """Returns (attn_out, cache).  Without a cache: causal (windowed) flash
     attention over x.  With one -- dict(k, v, pos), (B, C, KVH, hd) and
-    (B, C), one layer's views of the stacked cache -- the new K/V and
-    positions are written in place at slots ``(cache_index + s) % C`` and
-    the queries attend the rotating window cache."""
+    (B, C), and with an int8 cache ``k_scale`` / ``v_scale`` (B, C, KVH):
+    one layer's views of the stacked cache -- the new K/V and positions are
+    written in place, then:
+      - with a ``window``: at slots ``(cache_index + s) % C``, the queries
+        attend the rotating window cache (``_windowed_cache_attention``);
+      - without one, at slots ``cache_index + s``: for S = 1 direct
+        attention over the first ``cache_index + 1`` slots in plain torch
+        (``_decode_attention``, JAX's einsums, the int8 scales folded in);
+        for S > 1 the flash kernel, causal from ``q_offset = cache_index``
+        over ``kv_len = cache_index + S`` slots.
+    An int8 cache takes the first two only where JAX dequantizes it: S = 1
+    without a window; the rest raises (``ROADMAP.md``, queue 3, reference
+    item 11)."""
     B, S = x.shape[:2]
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope_type != "none":
@@ -174,28 +266,76 @@ def attention_sublayer(p, x, cfg: ModelConfig, positions, cache=None,
         k = _rope(cfg, k, positions)
     if cache is None:
         out = flash_attention(q, k, v, causal=True, window=window)
+        return out.reshape(B, S, cfg.q_dim) @ p["wo"], None
+    quant = cache["k"].dtype == torch.int8
+    if quant and (window or S > 1):
+        raise NotImplementedError(
+            f"the int8 KV cache is read only by single-token decode without "
+            f"a window (here window {window}, {S} tokens): the reference "
+            "attends the int8 codes without their scales on the windowed "
+            "and cached S > 1 branches (ROADMAP.md, queue 3, reference item "
+            "11)")
+    C = cache["k"].shape[1]
+    if S > C or (not window and cache_index + S > C):
+        raise ValueError(f"{S} new tokens at index {cache_index} do not fit "
+                         f"a {C}-slot cache")
+    start = cache_index % C if window else cache_index
+    slot = (slice(start, start + S) if start + S <= C else
+            torch.tensor([(start + s) % C for s in range(S)],
+                         device=x.device))
+    if quant:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        cache["k"][:, slot], cache["k_scale"][:, slot] = kq, ks
+        cache["v"][:, slot], cache["v_scale"][:, slot] = vq, vs
     else:
-        if cache["k"].dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is not ported yet "
-                                      "(ROADMAP.md)")
-        if not window:
-            raise NotImplementedError(
-                "cached attention without a window (_decode_attention, and "
-                "flash attention with q_offset for S > 1) comes with the "
-                "dense family (ROADMAP.md)")
-        C = cache["k"].shape[1]
-        if S > C:
-            raise ValueError(f"{S} new tokens do not fit a {C}-slot cache")
-        start = cache_index % C
-        slot = (slice(start, start + S) if start + S <= C else
-                torch.tensor([(start + s) % C for s in range(S)],
-                             device=x.device))
         cache["k"][:, slot] = k.to(cache["k"].dtype)
         cache["v"][:, slot] = v.to(cache["v"].dtype)
-        cache["pos"][:, slot] = positions.expand(B, S).to(torch.int32)
+    cache["pos"][:, slot] = positions.expand(B, S).to(torch.int32)
+    if window:
         out = _windowed_cache_attention(q, cache["k"], cache["v"],
                                         cache["pos"], positions, window)
+    elif S == 1:
+        out = _decode_attention(q, cache["k"], cache["v"], cache_index + 1,
+                                cache.get("k_scale"), cache.get("v_scale"))
+    else:
+        out = flash_attention(q, cache["k"], cache["v"], causal=True,
+                              q_offset=cache_index, kv_len=cache_index + S)
     return out.reshape(B, S, cfg.q_dim) @ p["wo"], cache
+
+
+def _quantize(x: torch.Tensor):
+    """int8 codes and per-(token, head) scales of x (B, S, KVH, hd), as
+    JAX's cache write: ``s = max|x| / 127 + 1e-9`` in float32, codes
+    ``round(x / s)`` (half to even in both frameworks)."""
+    xf = x.to(torch.float32)
+    s = xf.abs().amax(-1) / 127.0 + 1e-9
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def _decode_attention(q, ck, cv, kv_len: int, k_scale=None, v_scale=None):
+    """Direct attention for S_q = 1 over the first ``kv_len`` slots of a
+    cache (plain torch in float32, as JAX's einsums: no Pallas kernel
+    there).  An int8 cache's per-(token, head) scales are folded into the
+    keys and values."""
+    B, S, H, D = q.shape
+    KVH = ck.shape[2]
+    G = H // KVH
+    f32 = torch.float32
+    qg = q.reshape(B, S, KVH, G, D).to(f32)
+    kf = ck.to(f32)
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+    logits = torch.einsum("bqngd,bcnd->bqngc", qg, kf) / math.sqrt(D)
+    valid = torch.arange(ck.shape[1], device=q.device) < kv_len
+    logits = torch.where(valid, logits,
+                         torch.tensor(-1e30, dtype=f32, device=q.device))
+    a = torch.softmax(logits, dim=-1)
+    vf = cv.to(f32)
+    if v_scale is not None:
+        vf = vf * v_scale[..., None]
+    out = torch.einsum("bqngc,bcnd->bqngd", a, vf)
+    return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def _windowed_cache_attention(q, ck, cv, cpos, positions, window: int):
@@ -215,6 +355,71 @@ def _windowed_cache_attention(q, ck, cv, cpos, positions, window: int):
     a = torch.softmax(logits, dim=-1)
     out = torch.einsum("bqngc,bcnd->bqngd", a, cv.to(f32))
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def dense_block_apply(p, x, cfg: ModelConfig, positions, cache=None,
+                      cache_index: Optional[int] = None, window: int = 0):
+    """Pre-norm attention then the gated MLP, each added to the residual.
+    ``cache``: one layer's dict(k, v, pos) (the int8 scales with them)."""
+    a, new_cache = attention_sublayer(p["attn"], rmsnorm(p["ln1"], x), cfg,
+                                      positions, cache, cache_index, window)
+    x = x + a
+    x = x + gated_mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    return x, new_cache
+
+
+def _shifted(h: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
+    """RWKV's token shift: h one step late, the carried ``last`` (B, d) (or
+    zeros) first."""
+    first = (last[:, None] if last is not None else
+             torch.zeros_like(h[:, :1]))
+    return torch.cat([first, h[:, :-1]], dim=1)
+
+
+def rwkv_block_apply(p, x, cfg: ModelConfig, state=None):
+    """RWKV6 (Finch): time-mix with data-dependent decay, then channel-mix,
+    op by op as JAX's ``rwkv_block_apply``.  The mixes, the projections,
+    the SiLU gate and the channel mix run in the config's dtype; the LoRA
+    decay ``w = exp(-exp(clip(w0 + tanh(x W_a) W_b, -8, 4)))`` in float32
+    and reaches the scan in float32 (in bf16 the initial decay
+    exp(-e^-6) ~ 0.9975 would round to 0.996 or 1).  ``state``: dict(shift
+    (B, d), wkv (B, H, D, D) float32, cm_shift (B, d)) or None (zeros).
+    Returns (x, new state)."""
+    B, S, d = x.shape
+    H, D = d // cfg.rwkv_head_size, cfg.rwkv_head_size
+    f32 = torch.float32
+
+    h = rmsnorm(p["ln1"], x)
+    prev = _shifted(h, state["shift"] if state is not None else None)
+
+    def mix(i):
+        mu = p["mu"][i]
+        return h * mu + prev * (1 - mu)
+
+    xr, xk, xv, xg, xw = (mix(i) for i in range(5))
+    r = (xr @ p["wr"]).reshape(B, S, H, D)
+    k = (xk @ p["wk"]).reshape(B, S, H, D)
+    v = (xv @ p["wv"]).reshape(B, S, H, D)
+    g = F.silu(xg @ p["wg"])
+    logw = -torch.exp(torch.clip(
+        p["w0"].to(f32)
+        + (torch.tanh(xw.to(f32) @ p["w_lora_a"].to(f32))
+           @ p["w_lora_b"].to(f32)), -8.0, 4.0))
+    w = torch.exp(logw).reshape(B, S, H, D)          # decay in (0, 1)
+    wkv_state = state["wkv"] if state is not None else None
+    o, new_wkv = chunked_linear_attention(r, k, v, w, p["bonus_u"],
+                                          state=wkv_state)
+    o = rmsnorm(p["ln_x"], o.reshape(B, S, d)) * g
+    x = x + o @ p["wo"]
+
+    # channel mix
+    h2 = rmsnorm(p["ln2"], x)
+    prev2 = _shifted(h2, state["cm_shift"] if state is not None else None)
+    mk = h2 * p["cm_mu"][0] + prev2 * (1 - p["cm_mu"][0])
+    mr = h2 * p["cm_mu"][1] + prev2 * (1 - p["cm_mu"][1])
+    kk = torch.square(torch.relu(mk @ p["cm_k"]))
+    x = x + torch.sigmoid(mr @ p["cm_r"]) * (kk @ p["cm_v"])
+    return x, {"shift": h[:, -1], "wkv": new_wkv, "cm_shift": h2[:, -1]}
 
 
 def hybrid_block_apply(p, x, cfg: ModelConfig, positions, cache=None,
@@ -264,10 +469,15 @@ def backbone(params, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """The decoder blocks, layer by layer (training / scoring path, no
     cache), then the final norm."""
-    _require_hybrid(cfg, "backbone")
+    _require_ported(cfg, "backbone")
     for i in range(cfg.num_layers):
-        x, _ = hybrid_block_apply(_layer(params["layers"], i), x, cfg,
-                                  positions)
+        p = _layer(params["layers"], i)
+        if cfg.family == "dense":
+            x, _ = dense_block_apply(p, x, cfg, positions)
+        elif cfg.family == "rwkv":
+            x, _ = rwkv_block_apply(p, x, cfg)
+        else:
+            x, _ = hybrid_block_apply(p, x, cfg, positions)
     return rmsnorm(params["ln_f"], x)
 
 
@@ -296,7 +506,7 @@ def forward_train(params, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(per-token target log-probs (B, S), aux loss) for
     ``batch = {"tokens", "targets"}``, both (B, S) integer."""
-    _require_hybrid(cfg, "forward_train")
+    _require_ported(cfg, "forward_train")
     tokens = batch["tokens"]
     x = params["embed"][tokens]
     B, S = tokens.shape
@@ -313,45 +523,81 @@ def forward_train(params, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Dict[str, Any]:
-    """The hybrid cache: a rotating window of min(sliding_window, max_len)
-    K/V slots per layer (stored positions -1 = empty) and the SSM state
-    (L, B, H, ssm_state, head_dim) float32; ``index`` 0."""
-    _require_hybrid(cfg, "init_cache")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP.md)")
+    """The decode cache, JAX's tree, ``index`` 0:
+      - dense: ``kv`` of ``max_len`` K/V slots per layer, (L, B, max_len,
+        KVH, hd), stored positions (L, B, max_len) at -1 (empty);
+      - rwkv: the token shifts ``shift`` and ``cm_shift`` (L, B, d) in the
+        config's dtype and the wkv state (L, B, H, D, D) float32;
+      - hybrid: ``kv`` over a rotating window of min(sliding_window,
+        max_len) slots and the SSM state (L, B, H, ssm_state, head_dim)
+        float32.
+    With ``kv_cache_dtype="int8"`` K/V are int8 codes beside float32
+    ``k_scale`` / ``v_scale`` (L, B, slots, KVH)."""
+    _require_ported(cfg, "init_cache")
     dt = _dtype(cfg)
     L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    length = min(cfg.sliding_window or max_len, max_len)
-    kv = {"k": torch.zeros(L, batch, length, KVH, hd, dtype=dt,
-                           device=device),
-          "v": torch.zeros(L, batch, length, KVH, hd, dtype=dt,
-                           device=device),
-          "pos": torch.full((L, batch, length), -1, dtype=torch.int32,
-                            device=device)}
-    ssm = torch.zeros(L, batch, cfg.num_heads, cfg.ssm_state, hd,
-                      dtype=torch.float32, device=device)
-    return {"kv": kv, "ssm": ssm, "index": 0}
+    f32 = torch.float32
+
+    def kv(length):
+        quant = cfg.kv_cache_dtype == "int8"
+        c = {name: torch.zeros(L, batch, length, KVH, hd,
+                               dtype=torch.int8 if quant else dt,
+                               device=device) for name in ("k", "v")}
+        c["pos"] = torch.full((L, batch, length), -1, dtype=torch.int32,
+                              device=device)
+        if quant:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.zeros(L, batch, length, KVH, dtype=f32,
+                                      device=device)
+        return c
+
+    if cfg.family == "dense":
+        cache: Dict[str, Any] = {"kv": kv(max_len)}
+    elif cfg.family == "rwkv":
+        H, D = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+        cache = {"shift": torch.zeros(L, batch, cfg.d_model, dtype=dt,
+                                      device=device),
+                 "cm_shift": torch.zeros(L, batch, cfg.d_model, dtype=dt,
+                                         device=device),
+                 "wkv": torch.zeros(L, batch, H, D, D, dtype=f32,
+                                    device=device)}
+    else:
+        cache = {"kv": kv(min(cfg.sliding_window or max_len, max_len)),
+                 "ssm": torch.zeros(L, batch, cfg.num_heads, cfg.ssm_state,
+                                    hd, dtype=f32, device=device)}
+    cache["index"] = 0
+    return cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B, 1) -> logits (B, V) float32; the cache
     is updated in place and returned."""
-    _require_hybrid(cfg, "decode_step")
+    _require_ported(cfg, "decode_step")
     idx = int(cache["index"])
     x = params["embed"][tokens]
     B = tokens.shape[0]
     positions = torch.full((B, 1), idx, dtype=torch.int32,
                            device=tokens.device)
-    kvs = cache["kv"]
     for i in range(cfg.num_layers):
-        lc = {"attn": {"k": kvs["k"][i], "v": kvs["v"][i],
-                       "pos": kvs["pos"][i]},
-              "ssm": cache["ssm"][i]}
-        x, nc = hybrid_block_apply(_layer(params["layers"], i), x, cfg,
-                                   positions, cache=lc, cache_index=idx)
-        cache["ssm"][i].copy_(nc["ssm"])
+        p = _layer(params["layers"], i)
+        if cfg.family == "rwkv":
+            state = {name: cache[name][i]
+                     for name in ("shift", "cm_shift", "wkv")}
+            x, new = rwkv_block_apply(p, x, cfg, state=state)
+            for name, t in state.items():
+                t.copy_(new[name])
+            continue
+        kv = {name: t[i] for name, t in cache["kv"].items()}
+        if cfg.family == "dense":
+            x, _ = dense_block_apply(p, x, cfg, positions, cache=kv,
+                                     cache_index=idx)
+        else:
+            x, new = hybrid_block_apply(p, x, cfg, positions,
+                                        cache={"attn": kv,
+                                               "ssm": cache["ssm"][i]},
+                                        cache_index=idx)
+            cache["ssm"][i].copy_(new["ssm"])
     cache["index"] = idx + 1
     x = rmsnorm(params["ln_f"], x)
     logits = (x[:, 0] @ _head_matrix(params, cfg)).to(torch.float32)

@@ -38,6 +38,30 @@ def normal_init(shape: Sequence[int], *, generator: torch.Generator,
     return (std * x).to(device=device, dtype=dtype)
 
 
+#: elements of one float32 draw of :func:`normal_init_sliced` (512 MiB)
+SLICE_ELEMENTS = 1 << 27
+
+
+def normal_init_sliced(shape: Sequence[int], *, generator: torch.Generator,
+                       device: torch.device, std: float = 0.02,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``std`` times standard normal draws, as :func:`normal_init`, into a
+    leaf of ``dtype`` allocated up front and filled a few leading-axis
+    slices at a time (one layer of a stacked leaf, or rows of an
+    embedding, at most :data:`SLICE_ELEMENTS` elements a draw): the float32
+    draw never holds more than one slice, so a 64-layer leaf of 9e9
+    elements costs its own bytes and one slice's.  Other values than
+    :func:`normal_init`'s from the same seed on a CUDA generator."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, SLICE_ELEMENTS // max(1, math.prod(shape[1:])))
+    for s in range(0, shape[0], step):
+        x = torch.randn((min(step, shape[0] - s),) + shape[1:],
+                        generator=generator, device=generator.device)
+        out[s:s + x.shape[0]].copy_(x.mul_(std))
+    return out
+
+
 def dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
                device: torch.device) -> Dict[str, Any]:
     return {"w": lecun_normal((in_dim, out_dim), generator=generator,

@@ -1478,3 +1478,124 @@ def test_hymba_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch):
             ops.rwkv6_scan.launches - s0) == (0, 20)
     _close(cache_g["ssm"].cpu(), cache_c["ssm"], 1e-4)
     assert torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "command-r-35b",
+                                  "rwkv6-1.6b"])
+def test_lm_family_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch, arch):
+    """The dense and RWKV6 smoke configs in fp32, the same parameters on
+    both devices: a 20-token scoring pass (dense: one flash launch a
+    layer; rwkv: one scan launch a layer) and 10 decode steps (dense:
+    ``_decode_attention`` in plain torch, no launch; rwkv: one scan launch
+    a layer and step) equal the CPU's plain versions, the cache and states
+    after them too; the dense models also on an int8 cache."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    rwkv = cfg.family == "rwkv"
+    cpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    want = steps.make_prefill_step(cfg)({"model": cpu}, batch)
+    configs = [cfg] if rwkv else [
+        cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")]
+    caches = [LM.init_cache(c, 2, 16) for c in configs]
+    want_logits = [[LM.decode_step(cpu, c, toks[:, t:t + 1], cache)[0]
+                    for t in range(10)] for c, cache in zip(configs, caches)]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "ref_flash_attention", refuse)
+    monkeypatch.setattr(ops, "ref_rwkv6", refuse)
+    f0, s0 = ops.flash_attention.launches, ops.rwkv6_scan.launches
+    got = steps.make_prefill_step(cfg)(
+        {"model": gpu}, {k: t.to(cuda) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - f0,
+            ops.rwkv6_scan.launches - s0) == ((0, 2) if rwkv else (2, 0))
+    _close(got.cpu(), want, 1e-4)
+    for c, cache_c, logits_c in zip(configs, caches, want_logits):
+        cache_g = LM.init_cache(c, 2, 16, device=cuda)
+        f0, s0 = ops.flash_attention.launches, ops.rwkv6_scan.launches
+        with torch.no_grad():
+            for t in range(10):
+                logits, cache_g = LM.decode_step(gpu, c,
+                                                 toks[:, t:t + 1].to(cuda),
+                                                 cache_g)
+                _close(logits.cpu(), logits_c[t], 1e-4)
+        torch.cuda.synchronize()
+        assert (ops.flash_attention.launches - f0,
+                ops.rwkv6_scan.launches - s0) == ((0, 20) if rwkv else (0, 0))
+        if rwkv:
+            for name in ("shift", "cm_shift", "wkv"):
+                _close(cache_g[name].cpu(), cache_c[name], 1e-4)
+            continue
+        assert torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
+        for name, t in cache_c["kv"].items():
+            if t.dtype == torch.int8:
+                off = (cache_g["kv"][name].cpu().int() - t.int()).abs()
+                assert int(off.max()) <= 1, name
+            else:
+                _close(cache_g["kv"][name].cpu(), t, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_cached_call_on_cuda_matches_the_cpu(cuda, monkeypatch, dtype):
+    """The cached S > 1 branch of ``attention_sublayer`` (qwen2.5-32b's
+    smoke layer): 8 new tokens onto a 64-slot cache holding 40 reach the
+    flash kernel with ``q_offset`` 40 and ``kv_len`` 48 (fp32 on the SIMT
+    route, bf16 on the tensor cores); the attention itself held against
+    the CPU's plain version, the stored positions exactly."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get_config("qwen2.5-32b", smoke=True),
+                              dtype=dtype)
+    dt = LM._dtype(cfg)
+    params = LM.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    p = LM._layer(params["layers"], 0)["attn"]
+    g = torch.Generator().manual_seed(1)
+    cache = LM.init_cache(cfg, 2, 64)
+    layer = {k: t[0] for k, t in cache["kv"].items()}
+    layer["k"][:, :40] = torch.randn(2, 40, 2, 16, generator=g).to(dt)
+    layer["v"][:, :40] = torch.randn(2, 40, 2, 16, generator=g).to(dt)
+    layer["pos"][:, :40] = torch.arange(40, dtype=torch.int32)
+    x = torch.randn(2, 8, cfg.d_model, generator=g).to(dt)
+    pos = torch.arange(40, 48)[None].expand(2, 8)
+    seen = []
+
+    class RecordingOps:
+        """``ops`` as the model's layers see it, recording flash's
+        arguments before the wrapper runs (and counts) as it would."""
+
+        def __getattr__(self, name):
+            return getattr(ops, name)
+
+        @staticmethod
+        def flash_attention(q, k, v, **kw):
+            seen.append(kw)
+            return ops.flash_attention(q, k, v, **kw)
+
+    want_c = {k: t.clone() for k, t in layer.items()}
+    want, _ = LM.attention_sublayer(p, x, cfg, pos, cache=want_c,
+                                    cache_index=40)
+    layer_g = {k: t.to(cuda) for k, t in layer.items()}
+    p_g = {k: t.to(cuda) for k, t in p.items()}
+    monkeypatch.setattr(model_layers, "ops", RecordingOps())
+    routes = dict(ops.flash_attention.route_launches)
+    got, _ = LM.attention_sublayer(p_g, x.to(cuda), cfg, pos.to(cuda),
+                                   cache=layer_g, cache_index=40)
+    torch.cuda.synchronize()
+    assert seen == [dict(causal=True, window=0, q_offset=40, kv_len=48)]
+    route = ops.flash_route(dt, 16)
+    assert ops.flash_attention.route_launches[route] == routes[route] + 1
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert torch.equal(layer_g["pos"].cpu(), want_c["pos"])
+    for name in ("k", "v"):
+        _close(layer_g[name].cpu(), want_c[name], tol)
+    _close(got.cpu(), want, tol)

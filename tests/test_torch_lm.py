@@ -26,7 +26,7 @@ from repro.configs import registry as jax_registry  # noqa: E402
 from repro.launch import lm_decode as jax_lm_decode  # noqa: E402
 from repro.models import config as jax_config  # noqa: E402
 from repro.models import lm as JLM  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch import lm_decode, steps  # noqa: E402
 from repro_torch.models import config as port_config  # noqa: E402
@@ -94,7 +94,7 @@ def test_model_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("arch", [a for a in jax_registry.ARCH_IDS
-                                  if a != ARCH])
+                                  if a not in ARCH_IDS])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config(arch, smoke=True)
@@ -221,19 +221,26 @@ def test_cli_on_the_cpu(capsys):
 
 
 def test_unported_paths_raise():
+    """The moe, vlm and encdec families raise at every entry point; the
+    int8 cache raises where the reference reads it without its scales
+    (the window, ROADMAP.md queue 3 reference item 11)."""
     cfg = get_config(ARCH, smoke=True)
-    dense = dataclasses.replace(cfg, family="dense")
-    with pytest.raises(NotImplementedError, match="dense"):
-        LM.init_params(dense, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="int8"):
-        LM.init_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"), B, 8)
-    with pytest.raises(NotImplementedError, match="decode_steps"):
-        steps.make_serve_step(dataclasses.replace(cfg, decode_steps=2))
     params = LM.init_params(cfg, generator=torch.Generator())
-    nowin = dataclasses.replace(cfg, sliding_window=0)
-    with pytest.raises(NotImplementedError, match="without a window"):
-        LM.decode_step(params, nowin, torch.zeros(B, 1, dtype=torch.int32),
-                       LM.init_cache(nowin, B, 8))
+    toks = torch.zeros(B, 4, dtype=torch.int64)
+    for family in ("moe", "vlm", "encdec"):
+        other = dataclasses.replace(cfg, family=family)
+        with pytest.raises(NotImplementedError, match=family):
+            LM.init_params(other, generator=torch.Generator())
+        with pytest.raises(NotImplementedError, match=family):
+            LM.init_cache(other, B, 8)
+        with pytest.raises(NotImplementedError, match=family):
+            LM.forward_train(params, other, {"tokens": toks, "targets": toks})
+        with pytest.raises(NotImplementedError, match=family):
+            LM.decode_step(params, other, toks[:, :1],
+                           LM.init_cache(cfg, B, 8))
+    q8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="reference item 11"):
+        LM.decode_step(params, q8, toks[:, :1], LM.init_cache(q8, B, 8))
 
 
 def _jax_gumbel_draws(seed, gen, shape):
