@@ -290,11 +290,37 @@ printing one JSON line:
              same argmax off near ties; the dense hold then 8 steps on an
              int8 cache, mean |d log p| against the float cache under 0.05
              (top-1 agreement reported);
+12. vlm_decode / vlm_prefill - qwen2-vl-72b at full width, 8 of its 80
+             layers: ``make_serve_step`` fed embeddings and M-RoPE ids
+             (batch 8, a prompt of 8 text tokens and a 4 x 6 image grid,
+             then 32 steps on the chosen tokens' embeddings, positions
+             after the grid), no kernel; a 2 x 2,048 scoring pass (16 text
+             tokens, a 32 x 32 grid, text) with 8 flash launches;
+   moe_decode / moe_prefill - qwen3-moe-30b-a3b whole (48 layers, 128
+             experts, top-8): decode at batch 8, 32 + 32 tokens (capacity
+             1), a 2 x 2,048 pass (8 groups of 512, capacity 40, 48 flash
+             launches), each with the share of (token, slot) pairs the
+             capacity drops; moe_a27 - qwen2-moe-a2.7b whole (60 -> 64
+             experts, top-4, shared experts): 8 decode steps and a pass;
+   encdec_decode / encdec_prefill - whisper-medium whole (24 + 24 layers)
+             over seeded (8, 1,500, 1,024) bf16 stub frames: the seconds
+             of ``build_cross_cache`` (24 causal encoder launches), decode
+             at batch 8, 32 + 32 tokens (24 cross-attention launches a
+             step, one query over 1,500 keys); a 2 x 448-token pass over
+             1,500 frames (72 launches: encoder, self, cross); each phase
+             line of this group has its rate, peak memory, flash launches
+             by route and the device's idle share;
+   vlm_hold / moe_hold / encdec_hold - ``lm_family_hold`` for each: 2
+             full-width fp32 layers (Whisper 2 + 2 over 1,500 frames, its
+             cross cache compared too), the VLM with distinct t / h / w,
+             the MoE's expert selections and kept masks equal on the card
+             and the CPU;
    path_shapes - every shape at which the counted phases (serve, the
              training, eval and replay phases, cli, and the LM phases
              above: lm_decode, lm_prefill, dense_*, command_r, dense_cut,
-             rwkv_*) launched decode_step, decode_attention, traj_logprob,
-             flash_attention or rwkv6_scan has a row of phase 3, held
+             rwkv_*, vlm_*, moe_*, encdec_*) launched decode_step,
+             decode_attention, traj_logprob, flash_attention or
+             rwkv6_scan has a row of phase 3, held
              against the plain version; the line prints each shape's
              launches;
 
@@ -584,6 +610,27 @@ RWKV_PREFILL_LEN = 4096
 #: cache (dense); the int8 cache's drift bar, tests/test_serving.py:28-43
 LM_HOLD_LAYERS, LM_HOLD_TOKENS, LM_HOLD_STEPS, INT8_HOLD_STEPS = 2, 128, 16, 8
 INT8_DRIFT = 0.05
+#: the VLM (phase 12): qwen2-vl-72b at full width and VLM_LAYERS of its 80
+#: layers (146 GB in bf16 whole: qwen2-72b's cut); the decode prompt is
+#: VLM_PROMPT_TEXT text tokens and a VLM_PROMPT_GRID (rows, cols) image
+#: grid, the scoring pass VLM_SCORE_TEXT tokens, a VLM_SCORE_GRID grid and
+#: text to the end; its hold decodes VLM_HOLD_STEPS steps (the CPU reads
+#: 17 GB of fp32 weights a step)
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8
+VLM_PROMPT_TEXT, VLM_PROMPT_GRID = 8, (4, 6)
+VLM_SCORE_TEXT, VLM_SCORE_GRID = 16, (32, 32)
+VLM_HOLD_STEPS = 8
+#: the MoEs whole: qwen3-moe-30b-a3b decodes DECODE_PROMPT + DECODE_GEN
+#: tokens, qwen2-moe-a2.7b MOE_A27_PROMPT + MOE_A27_GEN; both score 2 x
+#: DENSE_PREFILL_LEN tokens; the drop share is read over one instrumented
+#: serve call of MOE_DROP_STEPS decode steps and one instrumented pass
+MOE_ARCH, MOE_A27_ARCH = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
+MOE_A27_PROMPT, MOE_A27_GEN = 4, 4
+MOE_DROP_STEPS = 4
+#: whisper-medium whole over WHISPER_FRAMES stub frames (its 30 s window);
+#: scored over 2 x WHISPER_SCORE_LEN tokens
+WHISPER_ARCH = "whisper-medium"
+WHISPER_FRAMES, WHISPER_SCORE_LEN = 1500, 448
 #: in the device-kernel name of both flash routes (``ops.flash_route``:
 #: ``flash_attention_kernel``, ``flash_attention_wgmma_kernel``), so the
 #: profiler's flash time sums every kernel either route launches
@@ -4273,14 +4320,63 @@ def _only(launches: dict, **want) -> dict:
 
 
 def prefill_batch(cfg, device, batch: int = PREFILL_BATCH,
-                  seq_len: int = PREFILL_LEN):
+                  seq_len: int = PREFILL_LEN, params=None):
     """A scoring pass's random tokens (seeded; Hymba's 2 x 4,096 unless
-    given) and targets."""
+    given) and targets.  The VLM reads embeddings and M-RoPE ids in place
+    of the tokens (:func:`vlm_inputs`: VLM_SCORE_TEXT text tokens, a
+    VLM_SCORE_GRID image grid, text after; ``params``' embedding rows);
+    Whisper WHISPER_FRAMES stub frames too."""
     g = torch.Generator(device=device)
     g.manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=g,
                          device=device)
-    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    out = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.family == "vlm":
+        out = dict(vlm_inputs(params, toks, VLM_SCORE_TEXT, VLM_SCORE_GRID,
+                              g), targets=out["targets"])
+    elif cfg.family == "encdec":
+        out["frames"] = stub_frames(cfg, device, batch)
+    return out
+
+
+def grid_position_ids(text: int, grid, after: int, device) -> torch.Tensor:
+    """(3, S) M-RoPE ids, as qwen2-vl numbers them: ``text`` tokens at t =
+    h = w = 0, 1, ...; an image of ``grid`` = (rows, cols) patches at t =
+    the next index and h / w that index plus the patch's row / column;
+    ``after`` text tokens from the largest id so far + 1."""
+    rows, cols = grid
+    n = rows * cols
+    r = torch.arange(n) // cols
+    ids = [torch.cat([torch.arange(text), text + b])
+           for b in (torch.zeros(n, dtype=torch.int64), r, torch.arange(n)
+                     - r * cols)]
+    start = int(max(int(i.max()) for i in ids)) + 1
+    return torch.stack([torch.cat([i, start + torch.arange(after)])
+                        for i in ids]).to(device)
+
+
+def vlm_inputs(params, toks, text: int, grid, g) -> dict:
+    """The VLM's ``embeds`` and ``position_ids`` for ``toks`` (B, S): text
+    positions take the tokens' embedding rows, the image grid's patches
+    seeded standard normal draws (the stub frontend), in the rows' dtype;
+    (3, B, S) ids from :func:`grid_position_ids`, the rest of S text."""
+    B, S = toks.shape
+    rows, cols = grid
+    emb = params["embed"][toks]
+    emb[:, text:text + rows * cols] = torch.randn(
+        (B, rows * cols, emb.shape[-1]), generator=g,
+        device=g.device).to(emb.dtype).to(emb.device)
+    pos = grid_position_ids(text, grid, S - text - rows * cols, toks.device)
+    return {"embeds": emb, "position_ids": pos[:, None].expand(3, B, S)}
+
+
+def stub_frames(cfg, device, batch: int, frames: int = WHISPER_FRAMES):
+    """Whisper's stub frame embeddings: seeded standard normal (batch,
+    frames, d_model) in the config's dtype (its 30 s window by default)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(6)
+    x = torch.randn((batch, frames, cfg.d_model), generator=g, device=device)
+    return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
 
 def free_card(device) -> None:
@@ -4316,23 +4412,24 @@ def lm_prompt(cfg, device, batch: int, prompt_len: int) -> torch.Tensor:
                          device=device)
 
 
-def served(cfg, params, device, prompt, gen: int):
+def served(cfg, params, device, prompt, gen: int, **serve_kw):
     """``lm_decode.serve`` over ``prompt`` (prefilled a decode step at a
     time) and ``gen`` sampled tokens, after a short warm call (cuBLAS):
     the tokens and the line's fields (rates, peak memory since the warm
-    call, launches and routes)."""
+    call, launches and routes).  ``serve_kw`` (Whisper's ``frames``) goes
+    to both calls."""
     from repro_torch.launch import lm_decode
 
     batch, prompt_len = prompt.shape
     lm_decode.serve(cfg, batch=batch, prompt_len=2, gen=2, seed=1,
-                    device=device, params=params)
+                    device=device, params=params, **serve_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     t0 = time.perf_counter()
     toks, tps = lm_decode.serve(cfg, batch=batch, prompt_len=prompt_len,
                                 gen=gen, seed=0, device=device, params=params,
-                                prompt=prompt)
+                                prompt=prompt, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = prompt_len + gen
@@ -4356,7 +4453,8 @@ def scored(cfg, params, device, batch: int, seq_len: int):
     from repro_torch.launch.steps import make_prefill_step
 
     step = make_prefill_step(cfg)
-    args = ({"model": params}, prefill_batch(cfg, device, batch, seq_len))
+    args = ({"model": params}, prefill_batch(cfg, device, batch, seq_len,
+                                             params))
     step(*args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -4375,7 +4473,14 @@ def scored(cfg, params, device, batch: int, seq_len: int):
     flash_us = sum(t for n, t, _ in rows if FLASH_MATCH in n)
     scan_us = sum(t for n, t, _ in rows if SCAN_MATCH in n)
     tokens = batch * seq_len
-    model_flop = 2 * cfg.param_count() * tokens
+    # 2 FLOP a parameter and token: the MoEs' active parameters (the top-k
+    # experts' share, not every expert's), Whisper's encoder parameters
+    # over its frames
+    enc = (sum(p.numel() for p in params["encoder"].parameters())
+           if "encoder" in params else 0)
+    model_flop = 2 * ((cfg.active_param_count() - enc) * tokens
+                      + enc * math.prod(args[1]["frames"].shape[:2])
+                      if enc else cfg.active_param_count() * tokens)
     fields.update(
         batch=batch, seq_len=seq_len, wall_s=wall, tokens_per_s=tokens / wall,
         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
@@ -4534,22 +4639,34 @@ def scan_hold_phase(cfg, params, device) -> None:
                              f"routes {routes}, layers over the check {bad}")
 
 
-def lm_profile(cfg, params, device, phase: str = "lm_profile") -> None:
-    """One full-width decode step at batch 8 (:func:`profile_step`), after
-    a few steps into the cache."""
+def decoding(cfg, params, device, cross=None, extra=None):
+    """``(step, out)``: ``step()`` runs one full-width decode step at batch
+    8 on a cache of DECODE_PROMPT + DECODE_GEN + 1 slots, 3 steps in
+    already, and leaves its logits in ``out["logits"]``; Whisper's cache
+    holds ``cross``, the VLM's steps are fed ``extra``."""
     from repro_torch.models import lm as LM
 
     cache = LM.init_cache(cfg, DECODE_BATCH, DECODE_PROMPT + DECODE_GEN + 1,
                           device=device)
+    if cross is not None:
+        cache["cross"] = cross
     tok = torch.zeros(DECODE_BATCH, 1, dtype=torch.int64, device=device)
     out = {}
 
     def step():
         with torch.no_grad():
-            out["logits"], _ = LM.decode_step(params, cfg, tok, cache)
+            out["logits"], _ = LM.decode_step(params, cfg, tok, cache,
+                                              **(extra or {}))
 
     for _ in range(3):
         step()
+    return step, out
+
+
+def lm_profile(cfg, params, device, phase: str = "lm_profile") -> None:
+    """One full-width decode step at batch 8 (:func:`profile_step`), after
+    a few steps into the cache (:func:`decoding`)."""
+    step, out = decoding(cfg, params, device)
     profile_step(phase, step, model=cfg.name, batch=DECODE_BATCH)
     if not bool(torch.isfinite(out["logits"]).all()):
         raise AssertionError(f"{phase}: decode logits not finite")
@@ -4834,6 +4951,283 @@ def rwkv_prefill_phase(cfg, params, device) -> tuple:
     return f["launches"], f["scan_routes"]
 
 
+# -- phase 12: the VLM, MoE and Whisper families -----------------------------
+
+def decode_idle(cfg, params, device, cross=None, extra=None) -> dict:
+    """One full-width decode step at batch 8 a few steps into the cache
+    (:func:`decoding`, :func:`profiled_step`): the phase line's fields of
+    its wall, device busy, idle share, kernels and host top."""
+    f = profiled_step(decoding(cfg, params, device, cross, extra)[0])
+    return {"device_idle_share": f["device_idle_share"],
+            "step_wall_us": f["wall_us"], "step_busy_us": f["device_busy_us"],
+            "step_kernels": f["device_kernels"],
+            "step_host_top": f["host_top"][:6]}
+
+
+def vlm_decode_phase(cfg, params, device) -> dict:
+    """qwen2-vl-72b at full width (VLM_LAYERS layers) through
+    ``make_serve_step`` with its extras: batch 8, a prompt of
+    VLM_PROMPT_TEXT text tokens and a VLM_PROMPT_GRID image grid (32
+    positions, t / h / w apart), then DECODE_GEN greedy steps, each fed
+    the chosen token's embedding row and the next position after the grid
+    (t = h = w); no kernel (single-token attention in plain torch).  The
+    cache's stored positions are the temporal ids."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm as LM
+
+    smi = nvidia_smi()
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    B, G = DECODE_BATCH, DECODE_GEN
+    P = VLM_PROMPT_TEXT + VLM_PROMPT_GRID[0] * VLM_PROMPT_GRID[1]
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                         device=device)
+    prompt = vlm_inputs(params, toks, VLM_PROMPT_TEXT, VLM_PROMPT_GRID, g)
+    start = int(prompt["position_ids"].max()) + 1
+    pos = torch.cat([prompt["position_ids"],
+                     (start + torch.arange(G, device=device))[None, None]
+                     .expand(3, B, G)], dim=2)
+    step = make_serve_step(cfg)
+
+    def run(n_prompt, n_gen):
+        cache = LM.init_cache(cfg, B, n_prompt + n_gen + 8, device=device)
+        out = []
+        for t in range(n_prompt + n_gen):
+            if t < n_prompt:
+                tok, emb = toks[:, t:t + 1], prompt["embeds"][:, t:t + 1]
+            else:
+                tok = nxt[:, None].long()
+                out.append(tok)
+                emb = params["embed"][tok]
+            nxt, logits, cache = step({"model": params}, tok, cache, {
+                "embeds": emb, "position_ids": pos[:, :, t:t + 1]})
+        return torch.cat(out, dim=1), logits, cache
+
+    run(2, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    gen, logits, cache = run(P, G)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    fields = model_fields(cfg, params)
+    stored = cache["kv"]["pos"][:, :, :P + G]
+    pos_ok = bool((stored == pos[0].to(torch.int32)[None]).all())
+    idle = decode_idle(cfg, params, device, extra={
+        "embeds": params["embed"][gen[:, -1:]],
+        "position_ids": pos[:, :, -1:]})
+    emit("vlm_decode", nvidia_smi=smi, **fields,
+         reduced=f"{VLM_LAYERS} of 80 layers (full depth "
+                 f"{lm_config(VLM_ARCH).param_count() / 1e9:.1f} B "
+                 "parameters, 146 GB in bf16)",
+         batch=B, prompt=P, prompt_grid=list(VLM_PROMPT_GRID), gen=G,
+         decode_steps=P + G, wall_s=wall, steps_per_s=(P + G) / wall,
+         gen_tokens_per_s=B * G / wall,
+         peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+         launches=launches, flash_routes=flash_routes(),
+         cache_positions_temporal=pos_ok, first_tokens=gen[0, :8].tolist(),
+         step_bound_ms=fields["weight_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3,
+         **idle)
+    if launches != _only(launches) or not pos_ok \
+            or tuple(gen.shape) != (B, G) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vlm_decode launched {launches} (expected no "
+                             f"kernel), cache positions temporal {pos_ok}, "
+                             f"tokens {tuple(gen.shape)}")
+    return launches
+
+
+def vlm_prefill_phase(cfg, params, device) -> dict:
+    """The VLM's 2 x 2,048 scoring pass from embeddings: VLM_SCORE_TEXT
+    text tokens, a VLM_SCORE_GRID image grid, text; one tensor-core flash
+    launch a layer (64/8 heads of 128, causal)."""
+    lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                   DENSE_PREFILL_LEN)
+    L = cfg.num_layers
+    emit("vlm_prefill", nvidia_smi=nvidia_smi(), model=cfg.name,
+         grid=list(VLM_SCORE_GRID), text_before=VLM_SCORE_TEXT, **f)
+    if f["launches"] != _only(f["launches"], flash_attention=L) \
+            or f["flash_routes"] != {"wgmma": L, "simt": 0} \
+            or not scored_ok(f, DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN):
+        raise AssertionError(f"vlm_prefill: launches {f['launches']}, "
+                             f"routes {f['flash_routes']}, log-probs finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
+    return f["launches"]
+
+
+@contextlib.contextmanager
+def recorded_routes(routes: dict):
+    """``models.moe.moe_route`` wrapped for the block (here only): each
+    call's expert selections and kept mask, copied to the CPU (a host
+    read a call), and its groups and capacity, appended to ``routes``
+    under the device type of its input."""
+    from repro_torch.models import moe
+
+    real = moe.moe_route
+
+    def recording(p, x, cfg, group_size):
+        r = real(p, x, cfg, group_size)
+        routes.setdefault(x.device.type, []).append(
+            {"experts": r["experts"].cpu(), "keep": r["keep"].cpu(),
+             "groups": r["groups"], "capacity": r["capacity"]})
+        return r
+
+    moe.moe_route = recording
+    try:
+        yield
+    finally:
+        moe.moe_route = real
+
+
+def moe_drops(fn) -> dict:
+    """Run ``fn`` with its routes recorded (:func:`recorded_routes`; on the
+    card, apart from any timed run): the (token, slot) pairs routed and
+    those kept within the capacity over every call, the (groups,
+    capacity) of the calls, and with one layer's pairs per call at most
+    64 calls, each call's dropped share (a scoring pass: by layer)."""
+    routes: dict = {}
+    with recorded_routes(routes):
+        fn()
+    calls = [r for device_calls in routes.values() for r in device_calls]
+    pairs = sum(r["keep"].numel() for r in calls)
+    kept = sum(int(r["keep"].sum()) for r in calls)
+    shapes = collections.Counter((r["groups"], r["capacity"],
+                                  r["keep"].numel()) for r in calls)
+    out = {"pairs": pairs, "kept": kept, "dropped_share": 1 - kept / pairs,
+           "calls": [{"groups": g, "capacity": c, "pairs": n, "calls": m}
+                     for (g, c, n), m in sorted(shapes.items())]}
+    if len(calls) <= 64:
+        out["dropped_share_by_call"] = [
+            round(1 - int(r["keep"].sum()) / r["keep"].numel(), 4)
+            for r in calls]
+    return out
+
+
+def moe_phases(arch: str, device, prompt_len: int, gen: int, seed: int,
+               phases: tuple) -> dict:
+    """An MoE model whole: ``lm_decode.serve`` at batch 8 over
+    ``prompt_len`` + ``gen`` tokens (capacity 1 a layer and step: no
+    kernel) and a 2 x 2,048 scoring pass (groups of 512, one tensor-core
+    flash launch a layer); the share of (token, slot) pairs the capacity
+    drops in MOE_DROP_STEPS decode steps and in a pass, each instrumented
+    apart from the timed runs; one decode step's idle share.  ``phases``:
+    the decode and scoring lines' names, or one name for a line holding
+    both.  The weights are freed after.  Returns the scoring launches."""
+    from repro_torch.launch import lm_decode
+    from repro_torch.launch.steps import make_prefill_step
+
+    smi = nvidia_smi()
+    cfg = lm_config(arch)
+    params = lm_params(cfg, device, seed=seed)
+    fields = dict(model_fields(cfg, params),
+                  experts=[cfg.num_experts, cfg.padded_experts],
+                  top_k=cfg.num_experts_per_tok, moe_d_ff=cfg.moe_d_ff,
+                  shared_d_ff=cfg.shared_d_ff,
+                  active_params=cfg.active_param_count())
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, prompt_len)
+    toks, run = served(cfg, params, device, prompt, gen)
+    run["drops"] = moe_drops(lambda: lm_decode.serve(
+        cfg, batch=DECODE_BATCH, prompt_len=MOE_DROP_STEPS // 2,
+        gen=MOE_DROP_STEPS // 2, seed=1, device=device, params=params))
+    run.update(decode_idle(cfg, params, device),
+               step_bound_ms=fields["weight_gb"] * 1e9 / HBM_BYTES_PER_S
+               * 1e3)
+    lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                   DENSE_PREFILL_LEN)
+    f["drops"] = moe_drops(lambda: make_prefill_step(cfg)(
+        {"model": params}, prefill_batch(cfg, device, DENSE_PREFILL_BATCH,
+                                         DENSE_PREFILL_LEN)))
+    del params, lp
+    free_card(device)
+    if len(phases) == 2:
+        emit(phases[0], nvidia_smi=smi, **fields, **run)
+        emit(phases[1], nvidia_smi=smi, model=cfg.name, **f)
+    else:
+        emit(phases[0], nvidia_smi=smi, **fields, decode=run, scoring=f)
+    L = cfg.num_layers
+    want_caps = {(1, 1), (DENSE_PREFILL_BATCH * DENSE_PREFILL_LEN // 512,
+                          int(cfg.num_experts_per_tok * 512
+                              / cfg.padded_experts * cfg.capacity_factor))}
+    caps = {(c["groups"], c["capacity"]) for c in
+            run["drops"]["calls"] + f["drops"]["calls"]}
+    if run["launches"] != _only(run["launches"]) \
+            or tuple(toks.shape) != (DECODE_BATCH, gen) \
+            or f["launches"] != _only(f["launches"], flash_attention=L) \
+            or f["flash_routes"] != {"wgmma": L, "simt": 0} \
+            or caps != want_caps \
+            or not scored_ok(f, DENSE_PREFILL_BATCH, DENSE_PREFILL_LEN):
+        raise AssertionError(f"{arch}: decode launched {run['launches']}, "
+                             f"scoring {f['launches']}, routes "
+                             f"{f['flash_routes']}, (groups, capacity) "
+                             f"{caps} (expected {want_caps}), log-probs "
+                             f"finite {f['finite']}, max {f['max_logprob']}")
+    return f["launches"]
+
+
+def encdec_phases(device) -> tuple:
+    """whisper-medium whole over seeded (8, WHISPER_FRAMES, 1,024) bf16
+    stub frames: ``build_cross_cache`` timed (a warm call first; 24 causal
+    encoder launches), ``lm_decode.serve`` at batch 8 over DECODE_PROMPT +
+    DECODE_GEN tokens on those frames (the encoder's 24 launches, then 24
+    cross-attention launches a step: one query over the 1,500 keys,
+    non-causal), one decode step's idle share; a 2 x WHISPER_SCORE_LEN
+    scoring pass over 2 x WHISPER_FRAMES frames (24 encoder, 24 decoder
+    self- and 24 cross-attention launches).  All on the tensor cores.
+    Returns the decode and scoring launches."""
+    from repro_torch.models import lm as LM
+
+    smi = nvidia_smi()
+    cfg = lm_config(WHISPER_ARCH)
+    params = lm_params(cfg, device, seed=4)
+    fields = model_fields(cfg, params)
+    frames = stub_frames(cfg, device, DECODE_BATCH)
+    with torch.no_grad():
+        LM.build_cross_cache(params, cfg, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cross = LM.build_cross_cache(params, cfg, frames)
+        torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+    cross_gb = sum(t.numel() * t.element_size() for t in cross.values()) / 1e9
+    prompt = lm_prompt(cfg, device, DECODE_BATCH, DECODE_PROMPT)
+    before = collections.Counter(PATH_SHAPES["flash_attention"])
+    toks, run = served(cfg, params, device, prompt, DECODE_GEN,
+                       frames=frames)
+    idle = decode_idle(cfg, params, device, cross=cross)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    n = cfg.encoder_layers + L * run["decode_steps"]
+    emit("encdec_decode", nvidia_smi=smi, **fields,
+         encoder_layers=cfg.encoder_layers, frames=WHISPER_FRAMES,
+         build_cross_cache_s=cross_s, cross_cache_gb=cross_gb, **run,
+         **idle, step_bound_ms=(fields["weight_gb"] + cross_gb) * 1e9
+         / HBM_BYTES_PER_S * 1e3)
+    del cross
+    lp, f = scored(cfg, params, device, DENSE_PREFILL_BATCH,
+                   WHISPER_SCORE_LEN)
+    keys = PATH_SHAPES["flash_attention"] - before
+    emit("encdec_prefill", nvidia_smi=nvidia_smi(), model=cfg.name,
+         frames=WHISPER_FRAMES, **f,
+         kernel_keys={json.dumps(list(k)): c for k, c in keys.items()})
+    del params, lp
+    free_card(device)
+    m = 3 * L
+    if run["launches"] != _only(run["launches"], flash_attention=n) \
+            or run["flash_routes"] != {"wgmma": n, "simt": 0} \
+            or tuple(toks.shape) != (DECODE_BATCH, DECODE_GEN) \
+            or f["launches"] != _only(f["launches"], flash_attention=m) \
+            or f["flash_routes"] != {"wgmma": m, "simt": 0} \
+            or not scored_ok(f, DENSE_PREFILL_BATCH, WHISPER_SCORE_LEN):
+        raise AssertionError(f"encdec: decode launched {run['launches']} "
+                             f"(expected {n} flash), routes "
+                             f"{run['flash_routes']}; scoring "
+                             f"{f['launches']} (expected {m}), routes "
+                             f"{f['flash_routes']}, log-probs finite "
+                             f"{f['finite']}, max {f['max_logprob']}")
+    return run["launches"], f["launches"]
+
+
 def params_on(tree, device):
     """A copy of a ParamTree on ``device``."""
     from repro_torch.nn.core import ParamTree
@@ -4853,10 +5247,16 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
     the CPU's tokens, logits within 1e-3 and the same argmax except where
     the CPU's top two lie within TIE_GAP; then the carried state (rwkv:
     shifts and wkv; hybrid: the SSM state) and the K/V cache within 1e-3,
-    its stored positions equal.  With ``int8_steps``, the first that many
-    of those tokens on the card over an int8 cache and over the float one:
-    mean |d log p| between them under INT8_DRIFT (gated), top-1 agreement
-    reported (:func:`int8_drift`)."""
+    its stored positions equal.  The VLM scores and decodes from
+    embeddings at M-RoPE ids with t / h / w apart (text, an image grid,
+    text; each decode step the chosen token's embedding row); Whisper
+    encodes WHISPER_FRAMES seeded frames for the pass and builds each
+    device's cross cache from them for decode (compared too); the MoE's
+    expert selections and kept masks must be equal on both devices in
+    every call.  With ``int8_steps``, the first that many of those tokens
+    on the card over an int8 cache and over the float one: mean |d log p|
+    between them under INT8_DRIFT (gated), top-1 agreement reported
+    (:func:`int8_drift`)."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import lm as LM
 
@@ -4867,25 +5267,48 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
     g = torch.Generator().manual_seed(4)
     toks = torch.randint(0, cfg.vocab_size, (1, tokens), generator=g)
     batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.family == "vlm":
+        batch = dict(vlm_inputs(p_c, toks, 8, (8, 8), g),
+                     targets=batch["targets"])
+    elif cfg.family == "encdec":
+        batch["frames"] = torch.randn((1, WHISPER_FRAMES, cfg.d_model),
+                                      generator=g)
     step = make_prefill_step(cfg)
+    routes: dict = {}
     reset_launches()
-    lp_c = step({"model": p_c}, batch)
-    lp_g = step({"model": p_g}, {k: t.to(device) for k, t in batch.items()})
+    with recorded_routes(routes):
+        lp_c = step({"model": p_c}, batch)
+        lp_g = step({"model": p_g}, {k: t.to(device)
+                                     for k, t in batch.items()})
     score_launches = read_launches()
     score_err = float((lp_g.cpu() - lp_c).abs().max())
 
     B = 2
     cache_c = LM.init_cache(cfg, B, steps + 1, device=cpu)
     cache_g = LM.init_cache(cfg, B, steps + 1, device=device)
+    if cfg.family == "encdec":
+        frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=g)
+        with torch.no_grad():
+            cache_c["cross"] = LM.build_cross_cache(p_c, cfg, frames)
+            cache_g["cross"] = LM.build_cross_cache(p_g, cfg,
+                                                    frames.to(device))
+    pos = grid_position_ids(2, (2, 3), steps - 8, cpu)[:, None].expand(
+        3, B, steps)
     tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
     fed = []
     logit_err, mismatched, near_ties = 0.0, 0, 0
     reset_launches()
-    with torch.no_grad():
-        for _ in range(steps):
+    with torch.no_grad(), recorded_routes(routes):
+        for t in range(steps):
             fed.append(tok)
-            l_c, cache_c = LM.decode_step(p_c, cfg, tok, cache_c)
-            l_g, cache_g = LM.decode_step(p_g, cfg, tok.to(device), cache_g)
+            extra = {}
+            if cfg.family == "vlm":
+                extra = {"embeds": p_c["embed"][tok],
+                         "position_ids": pos[:, :, t:t + 1]}
+            l_c, cache_c = LM.decode_step(p_c, cfg, tok, cache_c, **extra)
+            l_g, cache_g = LM.decode_step(
+                p_g, cfg, tok.to(device), cache_g,
+                **{k: v.to(device) for k, v in extra.items()})
             l_g = l_g.cpu()
             logit_err = max(logit_err, float((l_g - l_c).abs().max()))
             top2 = torch.topk(l_c, 2, dim=-1).values
@@ -4896,9 +5319,11 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
             tok = torch.argmax(l_c, -1)[:, None]
     decode_launches = read_launches()
     states = {"rwkv": ("shift", "cm_shift", "wkv"), "dense": ("kv",),
+              "vlm": ("kv",), "moe": ("kv",), "encdec": ("kv", "cross"),
               "hybrid": ("ssm", "kv")}[cfg.family]
-    flat = lambda c, n: (c[n] if n != "kv" else torch.cat(
-        [c["kv"]["k"].flatten(), c["kv"]["v"].flatten()]))
+    kv_of = {"kv": lambda c: c["kv"], "cross": lambda c: c["cross"]}
+    flat = lambda c, n: (c[n] if n not in kv_of else torch.cat(
+        [kv_of[n](c)["k"].flatten(), kv_of[n](c)["v"].flatten()]))
     state_err = {n: float((flat(cache_g, n).cpu().float()
                            - flat(cache_c, n).float()).abs().max())
                  for n in states}
@@ -4908,6 +5333,17 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
     if int8_steps:
         fields["int8"] = dict(int8_drift(cfg, p_g, torch.cat(fed, 1).to(
             device), int8_steps), bar=INT8_DRIFT, top1_gated=False)
+    routes_equal = None
+    if cfg.family == "moe":
+        pairs = list(zip(routes.get("cpu", []), routes.get("cuda", [])))
+        routes_equal = len(pairs) == len(routes.get("cpu", [])) == len(
+            routes.get("cuda", [])) > 0 and all(
+            torch.equal(a[n], b[n]) for a, b in pairs
+            for n in ("experts", "keep"))
+        fields["routes"] = {"calls": len(pairs), "equal": routes_equal,
+                            "dropped_share_cpu": 1 - sum(
+                                int(r["keep"].sum()) for r in routes["cpu"])
+                            / sum(r["keep"].numel() for r in routes["cpu"])}
     emit(phase, model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
          tf32=torch.backends.cuda.matmul.allow_tf32, plain_on="cpu",
          window=cfg.sliding_window,
@@ -4919,18 +5355,18 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
          tol=HOLD_TOL,
          peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
          **fields)
-    del p_g
+    del p_g, cache_g
     free_card(device)
     if not (score_err <= HOLD_TOL and logit_err <= HOLD_TOL
             and mismatched == 0 and max(state_err.values()) <= HOLD_TOL
-            and pos_equal) \
+            and pos_equal and routes_equal is not False) \
             or ("int8" in fields
                 and not fields["int8"]["mean_abs_dlogp"] < INT8_DRIFT):
         raise AssertionError(f"{phase}: scoring error {score_err}, logits "
                              f"error {logit_err}, {mismatched} argmax "
                              f"mismatches, state errors {state_err}, "
-                             f"positions equal {pos_equal}, int8 "
-                             f"{fields.get('int8')}")
+                             f"positions equal {pos_equal}, routes equal "
+                             f"{routes_equal}, int8 {fields.get('int8')}")
 
 
 def single_nvcc_call_seconds(build) -> float:
@@ -5196,6 +5632,27 @@ def main() -> int:
              check_rwkv6_scan(2, 1, 32, 64, 64, bonus=True, state=True,
                               bf16=False, seed=11, device=device)]
 
+    # the VLM, MoE and Whisper families (phase 12): qwen2-moe's MHA (16/16
+    # heads of 128) and qwen3-moe's GQA groups of 8 (32/4) over 2 x 2,048
+    # (the VLM's 64/8 heads of 128 are the dense rows' H = 64); Whisper's
+    # 16/16 heads of 64: the encoder's causal pass over 1,500 frames (the
+    # last key tile ragged) at the decode batch and the scoring batch, the
+    # decoder's causal 448, its cross-attention from 448 queries and from
+    # one (a decode step) over the 1,500 keys, non-causal
+    flash += [check_flash_attention(2, 2048, 2048, H, KVH, 128, causal=True,
+                                    window=0, bf16=True, seed=40 + H,
+                                    device=device)
+              for H, KVH in ((16, 16), (32, 4))]
+    flash += [check_flash_attention(B, Sq, Skv, 16, 16, 64, causal=causal,
+                                    window=0, bf16=True, seed=50 + i,
+                                    device=device)
+              for i, (B, Sq, Skv, causal) in enumerate([
+                  (DECODE_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, True),
+                  (2, WHISPER_FRAMES, WHISPER_FRAMES, True),
+                  (2, WHISPER_SCORE_LEN, WHISPER_SCORE_LEN, True),
+                  (2, WHISPER_SCORE_LEN, WHISPER_FRAMES, False),
+                  (DECODE_BATCH, 1, WHISPER_FRAMES, False)])]
+
     emit("build_single_call", single_nvcc_call_seconds=single.result(),
          beside="the kernel checks")
 
@@ -5276,6 +5733,28 @@ def main() -> int:
         int8_steps=INT8_HOLD_STEPS)
     lm_family_hold("rwkv_hold", lm_config(
         RWKV_ARCH, num_layers=LM_HOLD_LAYERS, dtype="float32"), device)
+    # the VLM, MoE and Whisper families, each model freed before the next
+    vlm = lm_config(VLM_ARCH, num_layers=VLM_LAYERS)
+    params = lm_params(vlm, device, seed=2)
+    with recording_path_shapes():
+        vlm_decode_phase(vlm, params, device)
+        vlm_prefill = vlm_prefill_phase(vlm, params, device)
+    del params
+    free_card(device)
+    with recording_path_shapes():
+        moe_prefill = moe_phases(MOE_ARCH, device, DECODE_PROMPT, DECODE_GEN,
+                                 seed=5, phases=("moe_decode", "moe_prefill"))
+        moe_a27 = moe_phases(MOE_A27_ARCH, device, MOE_A27_PROMPT,
+                             MOE_A27_GEN, seed=6, phases=("moe_a27",))
+        encdec_decode, encdec_prefill = encdec_phases(device)
+    lm_family_hold("vlm_hold", lm_config(
+        VLM_ARCH, num_layers=LM_HOLD_LAYERS, dtype="float32"), device,
+        steps=VLM_HOLD_STEPS)
+    lm_family_hold("moe_hold", lm_config(
+        MOE_A27_ARCH, num_layers=LM_HOLD_LAYERS, dtype="float32"), device)
+    lm_family_hold("encdec_hold", lm_config(
+        WHISPER_ARCH, num_layers=LM_HOLD_LAYERS,
+        encoder_layers=LM_HOLD_LAYERS, dtype="float32"), device)
     check_path_shapes(rows, attn, traj, flash, scan)
 
     def entry(name, source, replaces, launches, rows, main):
@@ -5326,13 +5805,15 @@ def main() -> int:
               "src/repro/core/objectives.py:253",
               hypergrid["subtb_loss_bwd"] + cli["subtb_loss_bwd"],
               [b for _, b in subtb], subtb[0][1]),
-        # Hymba's, qwen2.5-32b's, command-r-35b's and the cut models'
-        # scoring passes and the cached S > 1 calls
+        # Hymba's, qwen2.5-32b's, command-r-35b's, the cut models', the
+        # VLM's and the MoEs' scoring passes, the cached S > 1 calls and
+        # Whisper's encoder, decoder and cross-attention (decode and pass)
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
               sum(p["flash_attention"] for p in (
                   prefill, dense_prefill, dense_cached, command_r,
-                  dense_cut)), flash, flash[0]),
+                  dense_cut, vlm_prefill, moe_prefill, moe_a27,
+                  encdec_decode, encdec_prefill)), flash, flash[0]),
         # the scan's two routes (ops.scan_route): the step recurrence, on
         # decode's path (its row: a decode step), and the chunk kernels, on
         # the scoring pass's (its row: the scoring shape); Hymba's and

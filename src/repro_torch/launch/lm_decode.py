@@ -6,10 +6,14 @@
     PYTHONPATH=src python -m repro_torch.launch.lm_decode --arch qwen2.5-32b \
         --batch 8 --prompt-len 32 --gen 32          # full width, on cuda
 
-``--arch`` takes every architecture the port registers (dense: qwen2.5-32b,
-command-r-plus-104b, qwen2-72b, command-r-35b; hybrid: hymba-1.5b; rwkv:
-rwkv6-1.6b) and defaults to JAX's default, qwen2.5-32b.  qwen2-72b and
-command-r-plus-104b do not fit one 80 GB card in bf16 at full depth.
+``--arch`` takes every architecture of the registry but the VLM and
+defaults to JAX's default, qwen2.5-32b.  qwen2-72b, command-r-plus-104b and
+qwen2-vl-72b do not fit one 80 GB card in bf16 at full depth.  Whisper
+(encdec) decodes over a cross-attention cache built from seeded stub
+frames, ``prompt_len`` of them, as JAX's ``serve`` draws them.  The VLM
+reads embeddings and M-RoPE position ids, which this entry point does not
+make (JAX's ``serve`` hands its ``decode_step`` none and fails there): it
+raises; serve it through ``launch.steps.make_serve_step`` with ``extra``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  The model and the prompt are drawn from a seeded
@@ -58,7 +62,8 @@ def _seeded_gumbel(dev: torch.device, seed: int,
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           greedy: bool = False, device: DeviceLike = None,
           params=None, prompt: Optional[torch.Tensor] = None,
-          noise: Optional[Noise] = None):
+          noise: Optional[Noise] = None,
+          frames: Optional[torch.Tensor] = None):
     """Prefill ``prompt_len`` tokens one decode step at a time, then
     generate ``gen`` tokens.  Returns ``(tokens (batch, gen) int64, tokens
     per second over the generation)``.  ``params`` (LM params, for example
@@ -67,7 +72,15 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     the noise cast to the logits' dtype and added there; ``noise`` is
     the (gen, batch, vocab) Gumbel draws, or a source ``noise(t) ->
     (batch, vocab)``, or None: draws from a generator seeded with
-    ``seed + 1``.  ``greedy`` ignores it."""
+    ``seed + 1``.  ``greedy`` ignores it.  Whisper: ``frames`` (batch, Se,
+    d_model), the stub frame embeddings the cross cache is built from
+    (default: ``prompt_len`` bfloat16 standard normal frames drawn after
+    the prompt, bfloat16 as JAX draws them).  The VLM raises
+    (module docstring)."""
+    if cfg.family == "vlm":
+        raise ValueError("lm_decode.serve: the VLM reads embeddings and "
+                         "M-RoPE position ids, not tokens; serve it through "
+                         "launch.steps.make_serve_step with extra")
     dev = resolve_device(device)
     g = _generator(dev, seed)
     if params is None:
@@ -78,6 +91,11 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     prompt = prompt.to(dev)
     max_len = prompt_len + gen + 1
     cache = LM.init_cache(cfg, batch, max_len, device=dev)
+    if cfg.family == "encdec":
+        if frames is None:
+            frames = torch.randn((batch, prompt_len, cfg.d_model),
+                                 generator=g, device=dev).to(torch.bfloat16)
+        cache["cross"] = LM.build_cross_cache(params, cfg, frames.to(dev))
     if noise is None:
         noise = _seeded_gumbel(dev, seed + 1, (batch, cfg.vocab_size))
     elif isinstance(noise, torch.Tensor):
@@ -114,7 +132,8 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.launch.lm_decode",
         description="Generate tokens with the PyTorch port's LM tier.")
     ap.add_argument("--arch", default=ARCH_IDS[0],
-                    help=f"architecture id (ported: {', '.join(ARCH_IDS)})")
+                    help=f"architecture id ({', '.join(ARCH_IDS)}; the VLM "
+                         "is served through launch.steps)")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke config")
     ap.add_argument("--batch", type=int, default=4)

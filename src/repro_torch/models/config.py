@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``ModelConfig`` -- the same fields, defaults
 and order, so a config built positionally means the same in both packages
--- with ``ShapeConfig``, ``SHAPES`` and ``cell_is_runnable``.  The ``dense``,
-``rwkv`` and ``hybrid`` families run in the port so far (``ROADMAP.md``).
+-- with ``ShapeConfig``, ``SHAPES`` and ``cell_is_runnable``.  The port runs
+every family.
 
 Families:
   dense   — GQA transformer (qwen2/2.5, command-r)

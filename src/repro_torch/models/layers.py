@@ -1,16 +1,17 @@
 """Shared model layers of the LM tier (port of ``repro.models.layers``):
-RMSNorm, the gated MLP, RoPE, attention and the chunked linear recurrence.
+RMSNorm, the gated MLP, RoPE and M-RoPE, attention and the chunked linear
+recurrence.
 
 ``flash_attention`` and ``chunked_linear_attention`` call the kernel
 wrappers of :mod:`repro_torch.kernels.ops`, which launch the hand-written
 CUDA kernels on a CUDA tensor and run their plain versions on a CPU tensor.
 Dtypes follow the JAX layers: norms and the attention / scan internals in
-float32, results in the input's dtype.  ``apply_mrope`` waits for the VLM
-family.
+float32, results in the input's dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +41,7 @@ def gated_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -57,6 +58,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     D = x.shape[-1]
     inv = rope_freqs(D, theta, x.device)                      # (D/2,)
     ang = positions[..., None].to(torch.float32) * inv        # (B, S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x2 * cos + x1 * sin
+    return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _mrope_bands(sections: Tuple[int, ...], half: int,
+                 device: torch.device) -> torch.Tensor:
+    """(half,) int64: the position component each frequency band reads.
+    ``sections`` in order, the last one cut or run on to fill ``half``
+    bands (JAX's ``jnp.repeat`` with ``total_repeat_length``)."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)]
+    return torch.tensor((ids + ids[-1:] * half)[:half], device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): x (B, S, H, D), positions (3, B, S) for (t, h,
+    w).  The D/2 frequency bands are split into ``sections``, each rotated
+    by its own position component; the pairs are interleaved as in
+    :func:`apply_rope`.  With t == h == w it is :func:`apply_rope`."""
+    D = x.shape[-1]
+    inv = rope_freqs(D, theta, x.device)                      # (D/2,)
+    pos = positions[_mrope_bands(tuple(sections), D // 2,
+                                 positions.device)]           # (D/2, B, S)
+    ang = pos.movedim(0, -1).to(torch.float32) * inv          # (B, S, D/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., ::2], x[..., 1::2]
     xr1 = x1 * cos - x2 * sin

@@ -1,29 +1,45 @@
-"""The causal LM of the LM tier (port of ``repro.models.lm``): the dense,
-RWKV6 and hybrid families.
+"""The causal LM of the LM tier (port of ``repro.models.lm``): all six
+families of the reference.
 
   dense  : GQA attention (RoPE, optional QKV bias) + gated-SiLU MLP
            (qwen2 / qwen2.5, command-r)
+  vlm    : the dense block with M-RoPE over (t, h, w) position ids; the
+           caller hands in the embeddings (stub vision frontend; qwen2-vl)
+  moe    : GQA attention + routed experts with GShard dispatch, the shared
+           experts and the Switch aux loss (``models/moe.py``; qwen2-moe,
+           qwen3-moe)
   rwkv   : RWKV6 time-mix (token shift, data-dependent decay, the wkv scan
            with its bonus ``u``) + channel-mix
   hybrid : Hymba: attention heads and SSM heads run in parallel on the same
            input, each branch normalized, mean-fused (arXiv:2411.13676)
+  encdec : Whisper: an encoder of dense blocks over stub frame embeddings
+           plus sinusoids, and a decoder block with cross-attention to it;
+           tied embeddings
 
 Parameters keep the JAX package's tree and its stacked layout -- every
 layer leaf has a leading ``num_layers`` axis (``layers/attn/wq`` is (L, d,
-q_dim)) -- so :func:`repro_torch.convert.params_from_jax` output loads by
-leaf name (:func:`load_params`).  A Python loop over the layers takes the
-place of ``scan_or_unroll``.
+q_dim); Whisper's ``encoder/*`` leaves lead with ``encoder_layers``) -- so
+:func:`repro_torch.convert.params_from_jax` output loads by leaf name
+(:func:`load_params`).  A Python loop over the layers takes the place of
+``scan_or_unroll``.
 
 Entry points, as in JAX:
   forward_train(params, cfg, batch) -> per-token log-probs of the targets
-      and the aux loss (0 here); the prompt-scoring pass.  Per layer it runs
-      the flash-attention kernel (dense, hybrid) and the scan kernel
-      (rwkv, hybrid) over the whole sequence.
+      and the aux loss (the MoE's summed load-balancing loss, else 0); the
+      prompt-scoring pass.  Per layer it runs the flash-attention kernel
+      (dense, vlm, moe, hybrid; encdec: causal self-attention in encoder
+      and decoder, non-causal cross-attention) and the scan kernel (rwkv,
+      hybrid) over the whole sequence.
   init_cache(cfg, batch, max_len) / decode_step(params, cfg, tokens, cache)
-      -> (logits, cache); one token.  Dense attends its full-length cache
-      in plain torch (``_decode_attention``, as in JAX: no kernel), the
-      hybrid family its rotating window cache; the scan runs at T = 1 from
-      the carried state (rwkv's wkv state, Hymba's SSM state).
+      -> (logits, cache); one token.  Dense, vlm, moe and encdec attend
+      their full-length cache in plain torch (``_decode_attention``, as in
+      JAX: no kernel), the hybrid family its rotating window cache; the
+      scan runs at T = 1 from the carried state (rwkv's wkv state, Hymba's
+      SSM state); Whisper's cross-attention runs the flash kernel with one
+      query over the encoder's keys.  The VLM takes ``embeds`` and
+      ``position_ids`` in place of tokens.
+  encode / build_cross_cache(params, cfg, frames): Whisper's encoder and
+      each decoder layer's cross-attention K/V, ``cache["cross"]``.
 
 Unlike JAX's functional cache, :func:`decode_step` updates the cache in
 place (the new K/V slot, stored positions, the int8 scales, the recurrent
@@ -36,7 +52,10 @@ below 1e-30 (``ROADMAP.md``, queue 3).  The int8 KV cache
 s)``) is read only where JAX dequantizes it, single-token decode without a
 window; the windowed and cached S > 1 branches raise (JAX attends the codes
 there without their scales: ``ROADMAP.md``, queue 3, reference item 11).
-The moe, vlm and encdec families raise ``NotImplementedError``.
+Two quirks of the reference are kept (queue 3, reference items 12 and
+13): Whisper's encoder self-attention is causal, and the VLM's fused
+multi-token decode feeds the same embeddings at every step
+(``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -50,23 +69,13 @@ from ..nn.core import ParamTree, Params, normal_init_sliced
 # loads params_from_jax(jax.device_get(repro.models.lm.init_params(...)))
 from ..nn.core import load_flat as load_params  # noqa: F401
 from .config import ModelConfig
-from .layers import (apply_rope, chunked_linear_attention, flash_attention,
-                     gated_mlp, rmsnorm, rmsnorm_init)
+from .layers import (apply_mrope, apply_rope, chunked_linear_attention,
+                     flash_attention, gated_mlp, rmsnorm, rmsnorm_init)
+from .moe import moe_block_apply, moe_block_init
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-#: the families the port runs
-FAMILIES = ("dense", "rwkv", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family is not ported to repro_torch "
-            f"yet (ported: {', '.join(FAMILIES)}; see ROADMAP.md)")
 
 
 # ===========================================================================
@@ -77,16 +86,16 @@ def _stacked_ones(L: int, dim: int, dt, device) -> Params:
     return {"scale": torch.ones(L, dim, dtype=dt, device=device)}
 
 
-def _stacked_init(cfg: ModelConfig, dt, generator, device):
-    """``init(*shape)``: an (L,) + shape leaf of std 0.02 normals, drawn a
-    layer at a time (:func:`normal_init_sliced`)."""
-    return lambda *shape: normal_init_sliced(
-        (cfg.num_layers,) + shape, generator=generator, device=device,
-        std=0.02, dtype=dt)
+def _stacked_init(L: int, dt, generator, device):
+    """``init(*shape, dtype=dt)``: an (L,) + shape leaf of std 0.02
+    normals, drawn a layer at a time (:func:`normal_init_sliced`)."""
+    return lambda *shape, dtype=dt: normal_init_sliced(
+        (L,) + shape, generator=generator, device=device, std=0.02,
+        dtype=dtype)
 
 
-def _attn_init(cfg: ModelConfig, dt, init, device) -> Params:
-    L, d, qd, kvd = cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim
+def _attn_init(cfg: ModelConfig, L: int, dt, init, device) -> Params:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {"wq": init(d, qd), "wk": init(d, kvd), "wv": init(d, kvd),
          "wo": init(qd, d)}
     if cfg.qkv_bias:
@@ -103,10 +112,10 @@ def hybrid_block_init(cfg: ModelConfig, *, generator: torch.Generator,
     dt = _dtype(cfg)
     L, d, qd, N = cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.ssm_state
     H = cfg.num_heads
-    init = _stacked_init(cfg, dt, generator, device)
+    init = _stacked_init(L, dt, generator, device)
     return {
         "ln1": _stacked_ones(L, d, dt, device),
-        "attn": _attn_init(cfg, dt, init, device),
+        "attn": _attn_init(cfg, L, dt, init, device),
         # SSM branch (mamba2-style scalar-decay heads)
         "ssm_in": init(d, qd),
         "ssm_gate": init(d, qd),
@@ -126,21 +135,50 @@ def hybrid_block_init(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def dense_block_init(cfg: ModelConfig, *, generator: torch.Generator,
-                     device) -> Params:
-    """All ``num_layers`` dense blocks, stacked: ``ln1``, ``attn`` (``wq``,
-    ``wk``, ``wv``, ``wo``; ``bq``, ``bk``, ``bv`` with ``qkv_bias``),
-    ``ln2``, ``mlp`` (``wi_gate``, ``wi_up``, ``wo``), as JAX's
-    ``dense_block_init`` vmapped over the layers.  Each weight is drawn a
+                     device, num_layers: Optional[int] = None) -> Params:
+    """``num_layers`` (default ``cfg.num_layers``) dense blocks, stacked:
+    ``ln1``, ``attn`` (``wq``, ``wk``, ``wv``, ``wo``; ``bq``, ``bk``,
+    ``bv`` with ``qkv_bias``), ``ln2``, ``mlp`` (``wi_gate``, ``wi_up``,
+    ``wo``), as JAX's ``dense_block_init`` vmapped over the layers (the
+    VLM's blocks and Whisper's encoder blocks too).  Each weight is drawn a
     layer at a time (:func:`normal_init_sliced`): qwen2.5-32b's
     ``mlp/wi_gate`` alone is 9.06e9 elements."""
     dt = _dtype(cfg)
-    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
-    init = _stacked_init(cfg, dt, generator, device)
+    L = cfg.num_layers if num_layers is None else num_layers
+    d, ff = cfg.d_model, cfg.d_ff
+    init = _stacked_init(L, dt, generator, device)
     return {"ln1": _stacked_ones(L, d, dt, device),
-            "attn": _attn_init(cfg, dt, init, device),
+            "attn": _attn_init(cfg, L, dt, init, device),
             "ln2": _stacked_ones(L, d, dt, device),
             "mlp": {"wi_gate": init(d, ff), "wi_up": init(d, ff),
                     "wo": init(ff, d)}}
+
+
+def encdec_dec_block_init(cfg: ModelConfig, *, generator: torch.Generator,
+                          device) -> Params:
+    """All ``num_layers`` Whisper decoder blocks, stacked: the dense
+    block's leaves plus the cross-attention ``xattn`` (the attention's
+    leaves) behind its norm ``ln_x``."""
+    dt = _dtype(cfg)
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    init = _stacked_init(L, dt, generator, device)
+    return {"ln1": _stacked_ones(L, d, dt, device),
+            "attn": _attn_init(cfg, L, dt, init, device),
+            "ln_x": _stacked_ones(L, d, dt, device),
+            "xattn": _attn_init(cfg, L, dt, init, device),
+            "ln2": _stacked_ones(L, d, dt, device),
+            "mlp": {"wi_gate": init(d, ff), "wi_up": init(d, ff),
+                    "wo": init(ff, d)}}
+
+
+def _moe_block_init(cfg: ModelConfig, *, generator: torch.Generator,
+                    device) -> Params:
+    """All ``num_layers`` MoE blocks, stacked (:func:`moe_block_init`)."""
+    dt = _dtype(cfg)
+    L = cfg.num_layers
+    init = _stacked_init(L, dt, generator, device)
+    return moe_block_init(cfg, _attn_init(cfg, L, dt, init, device), init,
+                          dt, device)
 
 
 #: rank of RWKV6's decay LoRA (JAX's ``rwkv_block_init``)
@@ -156,7 +194,7 @@ def rwkv_block_init(cfg: ModelConfig, *, generator: torch.Generator,
     dt = _dtype(cfg)
     L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
     H, D = d // cfg.rwkv_head_size, cfg.rwkv_head_size
-    init = _stacked_init(cfg, dt, generator, device)
+    init = _stacked_init(L, dt, generator, device)
     full = lambda value, *shape: torch.full((L,) + shape, value, dtype=dt,
                                             device=device)
     return {
@@ -178,8 +216,9 @@ def rwkv_block_init(cfg: ModelConfig, *, generator: torch.Generator,
     }
 
 
-BLOCK_INITS = {"dense": dense_block_init, "rwkv": rwkv_block_init,
-               "hybrid": hybrid_block_init}
+BLOCK_INITS = {"dense": dense_block_init, "vlm": dense_block_init,
+               "moe": _moe_block_init, "rwkv": rwkv_block_init,
+               "hybrid": hybrid_block_init, "encdec": encdec_dec_block_init}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -191,8 +230,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     embedding rows) at a time into a leaf of the config's dtype
     (:func:`normal_init_sliced`), so a model that fills most of the card
     never holds a float32 copy of a whole leaf.  The values are not JAX's
-    (another generator); parity runs load JAX's."""
-    _require_ported(cfg, "init_params")
+    (another generator); parity runs load JAX's.  Whisper (encdec) adds
+    its encoder's ``encoder_layers`` dense blocks under ``encoder`` and
+    their final norm ``enc_ln_f``."""
     dt = _dtype(cfg)
     device = generator.device if device is None else device
     params: Dict[str, Any] = {
@@ -205,6 +245,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         params["head"] = normal_init_sliced(
             (cfg.d_model, cfg.vocab_size), generator=generator,
             device=device, dtype=dt)
+    if cfg.family == "encdec":
+        params["encoder"] = dense_block_init(
+            cfg, generator=generator, device=device,
+            num_layers=cfg.encoder_layers)
+        params["enc_ln_f"] = rmsnorm_init(cfg.d_model, dt, device)
     params["layers"] = BLOCK_INITS[cfg.family](cfg, generator=generator,
                                                device=device)
     return ParamTree(params)
@@ -221,6 +266,9 @@ def _layer(stacked, i: int) -> Dict[str, Any]:
 # ===========================================================================
 
 def _project_qkv(p, h, cfg: ModelConfig):
+    # an input of another dtype than the weights (Whisper's bf16 frames in
+    # a float32 model) is promoted first, as JAX's matmul promotes it
+    h = h.to(torch.promote_types(h.dtype, p["wq"].dtype))
     q = h @ p["wq"]
     k = h @ p["wk"]
     v = h @ p["wv"]
@@ -237,18 +285,18 @@ def _rope(cfg: ModelConfig, x, positions):
     if cfg.rope_type == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
     if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE comes with the VLM family "
-                                  "(ROADMAP.md)")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return x
 
 
 def attention_sublayer(p, x, cfg: ModelConfig, positions, cache=None,
                        cache_index: Optional[int] = None, window: int = 0):
-    """Returns (attn_out, cache).  Without a cache: causal (windowed) flash
-    attention over x.  With one -- dict(k, v, pos), (B, C, KVH, hd) and
-    (B, C), and with an int8 cache ``k_scale`` / ``v_scale`` (B, C, KVH):
-    one layer's views of the stacked cache -- the new K/V and positions are
-    written in place, then:
+    """Returns (attn_out, cache).  ``positions``: (B, S), or (3, B, S) with
+    M-RoPE, whose temporal component is the position the cache stores.
+    Without a cache: causal (windowed) flash attention over x.  With one
+    -- dict(k, v, pos), (B, C, KVH, hd) and (B, C), and with an int8
+    cache ``k_scale`` / ``v_scale`` (B, C, KVH): one layer's views of the
+    stacked cache -- the new K/V and positions are written in place, then:
       - with a ``window``: at slots ``(cache_index + s) % C``, the queries
         attend the rotating window cache (``_windowed_cache_attention``);
       - without one, at slots ``cache_index + s``: for S = 1 direct
@@ -291,7 +339,8 @@ def attention_sublayer(p, x, cfg: ModelConfig, positions, cache=None,
     else:
         cache["k"][:, slot] = k.to(cache["k"].dtype)
         cache["v"][:, slot] = v.to(cache["v"].dtype)
-    cache["pos"][:, slot] = positions.expand(B, S).to(torch.int32)
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    cache["pos"][:, slot] = pos2d.expand(B, S).to(torch.int32)
     if window:
         out = _windowed_cache_attention(q, cache["k"], cache["v"],
                                         cache["pos"], positions, window)
@@ -364,6 +413,26 @@ def dense_block_apply(p, x, cfg: ModelConfig, positions, cache=None,
     a, new_cache = attention_sublayer(p["attn"], rmsnorm(p["ln1"], x), cfg,
                                       positions, cache, cache_index, window)
     x = x + a
+    x = x + gated_mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    return x, new_cache
+
+
+def encdec_dec_block_apply(p, x, cfg: ModelConfig, positions, enc_kv,
+                           cache=None, cache_index: Optional[int] = None):
+    """Whisper's decoder block: causal self-attention (``cache`` as the
+    dense block's), then cross-attention to the encoder's keys and values
+    ``enc_kv = dict(k, v)`` (B, Se, KVH, hd) -- the flash kernel,
+    non-causal, ``xattn``'s query and output projections without biases,
+    as in JAX -- then the gated MLP, each added to the residual."""
+    a, new_cache = attention_sublayer(p["attn"], rmsnorm(p["ln1"], x), cfg,
+                                      positions, cache, cache_index)
+    x = x + a
+    h = rmsnorm(p["ln_x"], x)
+    B, S = h.shape[:2]
+    q = (h @ p["xattn"]["wq"]).reshape(B, S, cfg.num_heads,
+                                       cfg.resolved_head_dim)
+    out = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    x = x + out.reshape(B, S, cfg.q_dim) @ p["xattn"]["wo"]
     x = x + gated_mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x, new_cache
 
@@ -465,20 +534,75 @@ def hybrid_block_apply(p, x, cfg: ModelConfig, positions, cache=None,
 # Whole-model passes
 # ===========================================================================
 
+def _cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict[str, Any]:
+    """One decoder layer's cross-attention keys and values over the encoder
+    output (B, Se, d): ``xattn``'s ``wk`` / ``wv``, no bias (as JAX)."""
+    B, Se = enc_out.shape[:2]
+    shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": (enc_out @ p["xattn"]["wk"]).reshape(shape),
+            "v": (enc_out @ p["xattn"]["wv"]).reshape(shape)}
+
+
 def backbone(params, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor) -> torch.Tensor:
+             positions: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
+             return_aux: bool = False):
     """The decoder blocks, layer by layer (training / scoring path, no
-    cache), then the final norm."""
-    _require_ported(cfg, "backbone")
+    cache), then the final norm.  ``enc_out``: Whisper's encoder output,
+    whose cross-attention K/V each layer projects.  With ``return_aux``
+    returns (x, aux): the MoE's load-balancing losses summed over the
+    layers in float32, 0 for the other families."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             x, _ = dense_block_apply(p, x, cfg, positions)
+        elif cfg.family == "moe":
+            x, _, aux_l = moe_block_apply(p, x, cfg, positions,
+                                          attention_sublayer, rmsnorm)
+            aux = aux + aux_l
         elif cfg.family == "rwkv":
             x, _ = rwkv_block_apply(p, x, cfg)
-        else:
+        elif cfg.family == "hybrid":
             x, _ = hybrid_block_apply(p, x, cfg, positions)
-    return rmsnorm(params["ln_f"], x)
+        elif cfg.family == "encdec":
+            x, _ = encdec_dec_block_apply(p, x, cfg, positions,
+                                          _cross_kv(p, cfg, enc_out))
+        else:
+            raise ValueError(cfg.family)
+    x = rmsnorm(params["ln_f"], x)
+    return (x, aux) if return_aux else x
+
+
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d) float32 sinusoids of ``positions`` (...), JAX's Whisper
+    form: the sines of every angle ``pos / 10000^(2i / d)``, then the
+    cosines (concatenated halves, not interleaved)."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
+    ang = positions.to(torch.float32)[..., None] / torch.pow(10000.0,
+                                                             dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoidal_pos(S: int, d: int, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+    """(S, d) sinusoidal position table in ``dtype``, computed on the host
+    in float32 (the same table whatever the device) and moved."""
+    return _sinusoid(torch.arange(S), d).to(dtype).to(device)
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, S, d): the frames
+    plus the sinusoid table in their dtype, ``encoder_layers`` dense blocks
+    and ``enc_ln_f``.  Its self-attention is causal: JAX's ``encode`` calls
+    ``attention_sublayer`` without a cache, whose flash call is causal
+    (``ROADMAP.md``, queue 3, reference item 12); the port keeps that."""
+    B, S, _ = frames.shape
+    x = frames + _sinusoidal_pos(S, cfg.d_model, frames.dtype, frames.device)
+    positions = torch.arange(S, device=frames.device)[None].expand(B, S)
+    for i in range(cfg.encoder_layers):
+        x, _ = dense_block_apply(_layer(params["encoder"], i), x, cfg,
+                                 positions)
+    return rmsnorm(params["enc_ln_f"], x)
 
 
 def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -504,17 +628,28 @@ def chunked_target_logprobs(x: torch.Tensor, head: torch.Tensor,
 def forward_train(params, cfg: ModelConfig,
                   batch: Mapping[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(per-token target log-probs (B, S), aux loss) for
-    ``batch = {"tokens", "targets"}``, both (B, S) integer."""
-    _require_ported(cfg, "forward_train")
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = backbone(params, cfg, x, positions)
-    lp = chunked_target_logprobs(x, _head_matrix(params, cfg),
-                                 batch["targets"])
-    return lp, torch.zeros((), dtype=torch.float32, device=lp.device)
+    """(per-token target log-probs (B, S) float32, aux loss) for ``batch``:
+    ``targets`` (B, S) integer and
+      - ``tokens`` (B, S) integer (every family but the VLM);
+      - the VLM: ``embeds`` (B, S, d) and ``position_ids`` (3, B, S) in
+        place of tokens;
+      - Whisper: ``frames`` (B, Se, d) too, encoded first.
+    The aux loss is the MoE's summed load-balancing loss, else 0."""
+    enc_out = None
+    if cfg.family == "vlm":
+        x, positions = batch["embeds"], batch["position_ids"]
+    else:
+        tokens = batch["tokens"]
+        x = params["embed"][tokens]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.family == "encdec":
+            enc_out = encode(params, cfg, batch["frames"])
+            x = x + _sinusoidal_pos(S, cfg.d_model, x.dtype, x.device)
+    x, aux = backbone(params, cfg, x, positions, enc_out=enc_out,
+                      return_aux=True)
+    return chunked_target_logprobs(x, _head_matrix(params, cfg),
+                                   batch["targets"]), aux
 
 
 # ===========================================================================
@@ -524,8 +659,10 @@ def forward_train(params, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Dict[str, Any]:
     """The decode cache, JAX's tree, ``index`` 0:
-      - dense: ``kv`` of ``max_len`` K/V slots per layer, (L, B, max_len,
-        KVH, hd), stored positions (L, B, max_len) at -1 (empty);
+      - dense, vlm, moe, encdec: ``kv`` of ``max_len`` K/V slots per layer,
+        (L, B, max_len, KVH, hd), stored positions (L, B, max_len) at -1
+        (empty); encdec also ``cross``, None until
+        :func:`build_cross_cache` fills it;
       - rwkv: the token shifts ``shift`` and ``cm_shift`` (L, B, d) in the
         config's dtype and the wkv state (L, B, H, D, D) float32;
       - hybrid: ``kv`` over a rotating window of min(sliding_window,
@@ -533,7 +670,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         float32.
     With ``kv_cache_dtype="int8"`` K/V are int8 codes beside float32
     ``k_scale`` / ``v_scale`` (L, B, slots, KVH)."""
-    _require_ported(cfg, "init_cache")
     dt = _dtype(cfg)
     L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     f32 = torch.float32
@@ -551,8 +687,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       device=device)
         return c
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "moe", "encdec"):
         cache: Dict[str, Any] = {"kv": kv(max_len)}
+        if cfg.family == "encdec":
+            cache["cross"] = None
     elif cfg.family == "rwkv":
         H, D = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
         cache = {"shift": torch.zeros(L, batch, cfg.d_model, dtype=dt,
@@ -561,24 +699,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                          device=device),
                  "wkv": torch.zeros(L, batch, H, D, D, dtype=f32,
                                     device=device)}
-    else:
+    elif cfg.family == "hybrid":
         cache = {"kv": kv(min(cfg.sliding_window or max_len, max_len)),
                  "ssm": torch.zeros(L, batch, cfg.num_heads, cfg.ssm_state,
                                     hd, dtype=f32, device=device)}
+    else:
+        raise ValueError(cfg.family)
     cache["index"] = 0
     return cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                cache: Dict[str, Any], embeds: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B, 1) -> logits (B, V) float32; the cache
-    is updated in place and returned."""
-    _require_ported(cfg, "decode_step")
+    is updated in place and returned.  The VLM reads ``embeds`` (B, 1, d)
+    and ``position_ids`` (3, B, 1) and not ``tokens`` (the cache stores the
+    temporal position); Whisper adds the sinusoid at ``cache["index"]`` to
+    the token's embedding and attends ``cache["cross"]``
+    (:func:`build_cross_cache`)."""
     idx = int(cache["index"])
-    x = params["embed"][tokens]
-    B = tokens.shape[0]
-    positions = torch.full((B, 1), idx, dtype=torch.int32,
-                           device=tokens.device)
+    if cfg.family == "vlm":
+        if embeds is None or position_ids is None:
+            raise ValueError("decode_step: the VLM takes embeds (B, 1, d) "
+                             "and position_ids (3, B, 1) in place of tokens")
+        x, positions = embeds, position_ids
+    else:
+        x = params["embed"][tokens]
+        positions = torch.full((tokens.shape[0], 1), idx, dtype=torch.int32,
+                               device=tokens.device)
+        if cfg.family == "encdec":
+            if cache.get("cross") is None:
+                raise ValueError("decode_step: Whisper's cache has no cross "
+                                 "K/V; fill cache['cross'] with "
+                                 "build_cross_cache first")
+            at = torch.full((), float(idx), device=x.device)
+            x = x + _sinusoid(at, cfg.d_model).to(x.dtype)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
         if cfg.family == "rwkv":
@@ -589,9 +746,17 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 t.copy_(new[name])
             continue
         kv = {name: t[i] for name, t in cache["kv"].items()}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             x, _ = dense_block_apply(p, x, cfg, positions, cache=kv,
                                      cache_index=idx)
+        elif cfg.family == "moe":
+            x, _, _ = moe_block_apply(p, x, cfg, positions,
+                                      attention_sublayer, rmsnorm, cache=kv,
+                                      cache_index=idx)
+        elif cfg.family == "encdec":
+            cross = {name: cache["cross"][name][i] for name in ("k", "v")}
+            x, _ = encdec_dec_block_apply(p, x, cfg, positions, cross,
+                                          cache=kv, cache_index=idx)
         else:
             x, new = hybrid_block_apply(p, x, cfg, positions,
                                         cache={"attn": kv,
@@ -602,3 +767,15 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = rmsnorm(params["ln_f"], x)
     logits = (x[:, 0] @ _head_matrix(params, cfg)).to(torch.float32)
     return logits, cache
+
+
+def build_cross_cache(params, cfg: ModelConfig,
+                      frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Whisper: encode ``frames`` (B, Se, d) once and project every
+    decoder layer's cross-attention K/V: ``{"k", "v"}`` (L, B, Se, KVH,
+    hd), for ``cache["cross"]``."""
+    enc_out = encode(params, cfg, frames)
+    per_layer = [_cross_kv(_layer(params["layers"], i), cfg, enc_out)
+                 for i in range(cfg.num_layers)]
+    return {name: torch.stack([c[name] for c in per_layer])
+            for name in ("k", "v")}

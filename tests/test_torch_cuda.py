@@ -1544,6 +1544,93 @@ def test_lm_family_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch, arch):
                 _close(cache_g["kv"][name].cpu(), t, 1e-4)
 
 
+def _family_inputs(cfg, S, device, seed=1):
+    """A scoring batch of S positions and per-step decode inputs for the
+    VLM (embeddings and (3, B, S) position ids: 2 text tokens, a 2 x 3
+    grid, text from 5) and Whisper (12 frames) as for the rest (tokens)."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.family == "vlm":
+        t = [0, 1] + [2] * 6 + list(range(5, S - 3))
+        h = [0, 1, 2, 2, 2, 3, 3, 3] + list(range(5, S - 3))
+        w = [0, 1, 2, 3, 4, 2, 3, 4] + list(range(5, S - 3))
+        pos = torch.tensor([t, h, w])[:, None].expand(3, 2, S).contiguous()
+        batch = {"embeds": torch.randn(2, S, cfg.d_model, generator=g),
+                 "position_ids": pos, "targets": batch["targets"]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 12, cfg.d_model, generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-30b-a3b", "whisper-medium"])
+def test_new_lm_family_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch,
+                                                     arch):
+    """The VLM, MoE and Whisper smoke configs in fp32, the same parameters
+    on both devices: a 16-position scoring pass (one flash launch a layer;
+    Whisper three: encoder, decoder self- and cross-attention) and 6
+    decode steps (no launch; Whisper one cross-attention launch a layer
+    and step, with Sq = 1) equal the CPU's plain versions; the MoE's
+    routing of the pass's first layer equal; the cache after them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    L = cfg.num_layers
+    cpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = LM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device=cuda)
+    bc, bg = (_family_inputs(cfg, 16, d) for d in ("cpu", cuda))
+    want = steps.make_prefill_step(cfg)({"model": cpu}, bc)
+
+    def decode(params, batch, device):
+        cache = LM.init_cache(cfg, 2, 8, device=device)
+        if cfg.family == "encdec":
+            cache["cross"] = LM.build_cross_cache(params, cfg,
+                                                  batch["frames"])
+        out = []
+        with torch.no_grad():
+            for t in range(6):
+                kw = ({"embeds": batch["embeds"][:, t:t + 1],
+                       "position_ids": batch["position_ids"][:, :, t:t + 1]}
+                      if cfg.family == "vlm" else {})
+                tok = batch["targets"][:, t:t + 1]
+                out.append(LM.decode_step(params, cfg, tok, cache, **kw)[0])
+        return out, cache
+
+    want_logits, cache_c = decode(cpu, bc, "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "ref_flash_attention", refuse)
+    f0 = ops.flash_attention.launches
+    got = steps.make_prefill_step(cfg)({"model": gpu}, bg)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches - f0 == \
+        (3 * L if cfg.family == "encdec" else L)
+    _close(got.cpu(), want, 1e-4)
+    f0 = ops.flash_attention.launches
+    logits, cache_g = decode(gpu, bg, cuda)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches - f0 == \
+        (L + 6 * L if cfg.family == "encdec" else 0)
+    for t in range(6):
+        _close(logits[t].cpu(), want_logits[t], 1e-4)
+    assert torch.equal(cache_g["kv"]["pos"].cpu(), cache_c["kv"]["pos"])
+    for name in ("k", "v"):
+        _close(cache_g["kv"][name].cpu(), cache_c["kv"][name], 1e-4)
+    if cfg.family == "moe":
+        x = torch.randn(32, cfg.d_model, generator=torch.Generator()
+                        .manual_seed(2))
+        rc = moe.moe_route(LM._layer(cpu["layers"], 0), x, cfg, 8)
+        rg = moe.moe_route(LM._layer(gpu["layers"], 0), x.to(cuda), cfg, 8)
+        for name in ("experts", "position", "keep"):
+            assert torch.equal(rg[name].cpu(), rc[name]), name
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_cached_call_on_cuda_matches_the_cpu(cuda, monkeypatch, dtype):
     """The cached S > 1 branch of ``attention_sublayer`` (qwen2.5-32b's

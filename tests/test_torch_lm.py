@@ -26,7 +26,7 @@ from repro.configs import registry as jax_registry  # noqa: E402
 from repro.launch import lm_decode as jax_lm_decode  # noqa: E402
 from repro.models import config as jax_config  # noqa: E402
 from repro.models import lm as JLM  # noqa: E402
-from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch import lm_decode, steps  # noqa: E402
 from repro_torch.models import config as port_config  # noqa: E402
@@ -93,11 +93,21 @@ def test_model_config_fields_match_jax():
     assert get_config(ARCH).param_count() == 1_392_030_400
 
 
-@pytest.mark.parametrize("arch", [a for a in jax_registry.ARCH_IDS
-                                  if a not in ARCH_IDS])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch, smoke=True)
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS)
+def test_port_config_equals_jax(arch):
+    """Every architecture of the reference, full and smoke: the port's
+    config equals JAX's field by field, with the same analytic parameter
+    counts and padded expert count (qwen2-moe's 60 -> 64)."""
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        jcfg = jax_registry.get_config(arch, smoke=smoke)
+        for f in dataclasses.fields(jcfg):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
+        assert cfg.padded_experts == jcfg.padded_experts
+    if arch == "qwen2-moe-a2.7b":
+        assert get_config(arch).padded_experts == 64
 
 
 def test_params_have_jax_names_shapes_and_dtypes():
@@ -221,23 +231,11 @@ def test_cli_on_the_cpu(capsys):
 
 
 def test_unported_paths_raise():
-    """The moe, vlm and encdec families raise at every entry point; the
-    int8 cache raises where the reference reads it without its scales
-    (the window, ROADMAP.md queue 3 reference item 11)."""
+    """The int8 cache raises where the reference reads it without its
+    scales (the window, ROADMAP.md queue 3 reference item 11)."""
     cfg = get_config(ARCH, smoke=True)
     params = LM.init_params(cfg, generator=torch.Generator())
     toks = torch.zeros(B, 4, dtype=torch.int64)
-    for family in ("moe", "vlm", "encdec"):
-        other = dataclasses.replace(cfg, family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            LM.init_params(other, generator=torch.Generator())
-        with pytest.raises(NotImplementedError, match=family):
-            LM.init_cache(other, B, 8)
-        with pytest.raises(NotImplementedError, match=family):
-            LM.forward_train(params, other, {"tokens": toks, "targets": toks})
-        with pytest.raises(NotImplementedError, match=family):
-            LM.decode_step(params, other, toks[:, :1],
-                           LM.init_cache(cfg, B, 8))
     q8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="reference item 11"):
         LM.decode_step(params, q8, toks[:, :1], LM.init_cache(q8, B, 8))

@@ -100,11 +100,13 @@ def np32(x):
     return np.asarray(x, np.float32)
 
 
+_JAX_INIT = jax.jit(JLM.init_params, static_argnums=1)
+
+
 def jax_init(jcfg, seed):
-    """JAX's ``init_params`` from ``PRNGKey(seed)``, jitted (eagerly each
-    op compiles alone, which costs seconds)."""
-    return jax.jit(JLM.init_params, static_argnums=1)(
-        jax.random.PRNGKey(seed), jcfg)
+    """JAX's ``init_params`` from ``PRNGKey(seed)``, jitted once per config
+    (eagerly each op compiles alone, which costs seconds)."""
+    return _JAX_INIT(jax.random.PRNGKey(seed), jcfg)
 
 
 def jax_decode(jcfg):
@@ -199,14 +201,14 @@ def test_configs_equal_jax(arch):
 
 
 def test_registry_order_and_default_arch():
-    """The six ported ids, JAX's first (its LM entry point's default)
-    first; the VLM, the MoE configs and Whisper still raise."""
-    assert ARCH_IDS == ["qwen2.5-32b", "command-r-plus-104b", "qwen2-72b",
-                        "command-r-35b", "hymba-1.5b", "rwkv6-1.6b"]
-    assert ARCH_IDS[0] == jax_registry.ARCH_IDS[0]
-    for arch in set(jax_registry.ARCH_IDS) - set(ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+    """All ten ids in JAX's order, JAX's first (its LM entry point's
+    default) first."""
+    assert ARCH_IDS == jax_registry.ARCH_IDS == [
+        "qwen2.5-32b", "command-r-plus-104b", "qwen2-72b", "command-r-35b",
+        "hymba-1.5b", "rwkv6-1.6b", "whisper-medium", "qwen2-moe-a2.7b",
+        "qwen3-moe-30b-a3b", "qwen2-vl-72b"]
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
 
 
 @pytest.mark.parametrize("arch", DENSE)
