@@ -212,6 +212,26 @@ printing one JSON line:
              restore seconds; a bitseq_tb checkpoint served through
              ``launch.serve --checkpoint``, its samples equal to
              ``forward_rollout`` of the trained policy;
+   plan_vmap_seeds - ``run_recipe(plan="vmap_seeds")`` at full width:
+             ``hypergrid_subtb`` at S = 8 and ``bitseq_tb`` at S = 4, 30
+             captured iterations each, every iteration launching each
+             kernel as often as the single plan (1 + 1 subtb; 45 / 2 / 1),
+             the folded shapes (subtb (128, 30), traj (64, 15, 3840 /
+             15), decode_attention (64, 16, 8, 8)) recorded where ``ops``
+             launches; it/s beside the single plan's at the same S x B
+             rows; seeds 0 and S - 1 held per iteration against single
+             runs of their seeds (JAX's plan tolerances);
+   plan_data_parallel - ``bitseq_tb`` and ``hypergrid_tb`` with the
+             prioritized replay sampler under ``data_parallel(1)`` over
+             NCCL (a group of one), the all-reduce captured in the graph:
+             20 iterations' rows, trained leaves and buffer bitwise the
+             single plan's, a replay's launches equal; ``auto`` on one
+             card resolves to single;
+   plan_serve - the serve phase's requests through
+             ``Scheduler(plan="data_parallel", devices=[cuda:0] * 2)``:
+             two shards of 32 lanes, each with its own decode_step launch;
+             samples and log-rewards bitwise the single pool's, samples/s
+             both ways;
    replay_hold - one iteration of each replay path on the card against
              the same iteration on the CPU at full size, after 1 that fills
              both buffers: fresh actions (near ties counted apart), the
@@ -316,11 +336,12 @@ printing one JSON line:
              the MoE's expert selections and kept masks equal on the card
              and the CPU;
    path_shapes - every shape at which the counted phases (serve, the
-             training, eval and replay phases, cli, and the LM phases
-             above: lm_decode, lm_prefill, dense_*, command_r, dense_cut,
-             rwkv_*, vlm_*, moe_*, encdec_*) launched decode_step,
-             decode_attention, traj_logprob, flash_attention or
-             rwkv6_scan has a row of phase 3, held
+             training, eval and replay phases, cli, the plan phases, and
+             the LM phases above: lm_decode, lm_prefill, dense_*,
+             command_r, dense_cut, rwkv_*, vlm_*, moe_*, encdec_*)
+             launched decode_step, decode_attention, traj_logprob,
+             subtb_loss, flash_attention or rwkv6_scan has a row of phase
+             3, held
              against the plain version; the line prints each shape's
              launches;
 
@@ -568,6 +589,30 @@ CLI_LAUNCHES_PER_ITER = {
 CLI_SERVE_TRAIN_ITERS = 3
 CLI_SERVE_SAMPLES = 16
 #: tests/test_training.py:19-43 on the card
+#: the execution plans (plan_*): the seed plan's recipes at full width
+#: with the seeds each trains at once, and its captured iterations; each
+#: iteration's launches are the single plan's (one launch a call site for
+#: all seeds)
+PLAN_SEEDS = {"hypergrid_subtb": 8, "bitseq_tb": 4}
+PLAN_ITERS = 30
+PLAN_LAUNCHES_PER_ITER = {"hypergrid_subtb": {"subtb_loss_fwd": 1,
+                                              "subtb_loss_bwd": 1},
+                          "bitseq_tb": {"decode_attention": 45,
+                                        "traj_logprob_fwd": 2,
+                                        "traj_logprob_bwd": 1}}
+#: JAX's plan tolerances (tests/test_plan.py:35-51): (rtol, atol)
+PLAN_LOSS_TOL = (2e-3, 1e-4)
+PLAN_REWARD_TOL = (1e-5, 1e-6)
+#: data_parallel(1) over NCCL against single, bitwise, after this many
+#: captured iterations; the runs and their sampler options
+PLAN_DP_ITERS = 20
+PLAN_DP_RUNS = {"bitseq_tb": {},
+                "hypergrid_tb": {"sampler": "replay", "sampler_kwargs": {
+                    "capacity": 4096, "replay_batch": REPLAY_BATCH,
+                    "prioritized": True}}}
+#: the sharded serving pool: shards of the serve phase's lanes, all on
+#: the one card
+PLAN_SERVE_SHARDS = 2
 CONVERGE_ITERS = 2500
 CONVERGE_TV = 0.12
 #: H100 SXM data sheet: dense bf16 tensor-core peak (the bound of a kernel
@@ -713,8 +758,8 @@ def run_launches(eager: dict, captured) -> dict:
 #: recorded while ``recording_path_shapes`` is on; each needs a row of its
 #: check
 PATH_SHAPES = {name: collections.Counter() for name in (
-    "decode_step", "decode_attention", "traj_logprob", "flash_attention",
-    "rwkv6_scan")}
+    "decode_step", "decode_attention", "traj_logprob", "subtb_loss",
+    "flash_attention", "rwkv6_scan")}
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -760,9 +805,13 @@ def recording_path_shapes():
              (transformer, "decode_attention", ops.decode_attention,
               lambda q, k, *a, **kw: (q, tuple(k.shape))),
              (objectives, "traj_logprob", ops.traj_logprob,
-              lambda logits, *a, **kw: (logits, tuple(logits.shape)))]
+              lambda logits, *a, **kw: (logits, tuple(logits.shape))),
+             (objectives, "subtb_kernel", ops.subtb_loss,
+              lambda phi, *a, **kw: (phi, tuple(phi.shape)))]
 
     def recorder(name, wrapper, shape):
+        name = {"subtb_kernel": "subtb_loss"}.get(name, name)
+
         def call(*args, **kwargs):
             t, key = shape(*args, **kwargs)
             if on_card(t):
@@ -807,7 +856,42 @@ def recording_path_shapes():
         model_layers.ops = ops
 
 
-def check_path_shapes(rows, attn, traj, flash, scan) -> None:
+@contextlib.contextmanager
+def recording_folded_shapes():
+    """Record the shapes a seed plan launches the kernels at.  Under its
+    ``torch.func.vmap`` the call sites see one seed's operands, and the
+    wrappers' batching rules fold the seeds into the batch axis before
+    the launch; so this records where ``ops`` reaches the launch with the
+    folded operands (``_decode_attention``, ``_traj_forward``,
+    ``_subtb_forward``; the backward kernels take the forwards' shapes).
+    The recorded call then runs, and counts, as it would."""
+    from repro_torch.kernels import ops
+    sites = {"_decode_attention": ("decode_attention",
+                                   lambda q, k, *a: k.shape),
+             "_traj_forward": ("traj_logprob", lambda logits, *a:
+                               logits.shape),
+             "_subtb_forward": ("subtb_loss", lambda phi, *a: phi.shape)}
+    real = {attr: getattr(ops, attr) for attr in sites}
+
+    def recorder(attr):
+        name, key = sites[attr]
+
+        def call(*args):
+            if on_card(args[0]):
+                PATH_SHAPES[name][tuple(int(d) for d in key(*args))] += 1
+            return real[attr](*args)
+        return call
+
+    for attr in sites:
+        setattr(ops, attr, recorder(attr))
+    try:
+        yield
+    finally:
+        for attr, fn in real.items():
+            setattr(ops, attr, fn)
+
+
+def check_path_shapes(rows, attn, traj, subtb, flash, scan) -> None:
     """Every shape the main path launched a kernel at has a row of that
     kernel's check (held against its plain version); fails otherwise.
     Prints each launched shape with its launches."""
@@ -815,6 +899,7 @@ def check_path_shapes(rows, attn, traj, flash, scan) -> None:
                "decode_attention": {(r["B"], r["S"], r["H"], r["hd"])
                                     for r in attn},
                "traj_logprob": {(f["B"], f["T"], f["A"]) for f, _ in traj},
+               "subtb_loss": {(f["B"], f["T1"]) for f, _ in subtb},
                "flash_attention": {flash_key(
                    r["B"], r["Sq"], r["Skv"], r["H"], r["KVH"], r["D"],
                    r["dtype"], r["causal"], r["window"], r["q_offset"],
@@ -5369,6 +5454,236 @@ def lm_family_hold(phase: str, cfg, device, *, tokens: int = LM_HOLD_TOKENS,
                              f"{routes_equal}, int8 {fields.get('int8')}")
 
 
+def _seed_loops(name: str, device):
+    """A factory of ``name``'s loops at full width on one env: ``make(plan,
+    seed)`` builds a TrainLoop whose policy is drawn from ``seed`` and
+    whose seed plan draws seed s's from ``seed_of(seed, s)``, as
+    ``run_recipe`` does."""
+    from repro_torch import recipes
+    from repro_torch.algo import TrainLoop
+
+    rec = recipes.get_train(name)
+    env = rec.make_env()
+    env_params = env.init(device)
+
+    def make(plan, seed):
+        pol = rec.make_policy(env, seed=seed, device=device,
+                              requires_grad=True)
+        return TrainLoop(env, env_params, pol,
+                         rec.make_config(env, rec.num_envs, PLAN_ITERS),
+                         plan=plan, seed_params=lambda sd: rec.make_policy(
+                             env, seed=sd, device=device).params.flat())
+    return make
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, tol) -> dict:
+    """``got`` against ``want`` at (rtol, atol): the largest error over
+    its allowance (pass <= 1), the largest absolute error, bitwise."""
+    rtol, atol = tol
+    err = (got - want).abs()
+    return {"excess": float((err / (atol + rtol * want.abs())).max()),
+            "max_abs_err": float(err.max()),
+            "bitwise": bool(torch.equal(got, want))}
+
+
+def plan_vmap_seeds_phase(device) -> dict:
+    """``vmap_seeds`` at full width: each recipe of PLAN_SEEDS with its S
+    seeds through ``run_recipe(plan="vmap_seeds")``, PLAN_ITERS captured
+    iterations whose every iteration launches each kernel as often as the
+    single plan's (one launch a call site for all S seeds, held exactly),
+    the folded shapes recorded for ``path_shapes``; the single plan at the
+    same S x B rows for its it/s; then, in scan mode from one env, seeds 0
+    and S - 1 held per iteration against the single runs of their seeds
+    (losses and log Z at PLAN_LOSS_TOL, mean log-rewards at
+    PLAN_REWARD_TOL).  Returns the vmapped runs' launches."""
+    from repro_torch.algo.plan import VmapSeedsPlan, seed_of
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    for name, S in PLAN_SEEDS.items():
+        per_iter = PLAN_LAUNCHES_PER_ITER[name]
+        with recording_folded_shapes():
+            fields, launches = counted_run(name, PLAN_ITERS, per_iter,
+                                           device, plan="vmap_seeds",
+                                           num_seeds=S)
+        _add(total, launches)
+        B = fields["num_envs"]
+        single, _ = counted_run(name, PLAN_ITERS, per_iter, device,
+                                num_envs=S * B)
+        make = _seed_loops(name, device)
+        _, (m, _) = make(VmapSeedsPlan(S), 0).run(0, PLAN_ITERS,
+                                                  mode="scan")
+        holds = {}
+        for s in (0, S - 1):
+            sd = seed_of(0, s)
+            _, (m1, _) = make(None, sd).run(sd, PLAN_ITERS, mode="scan")
+            holds[s] = {k: _within(m[k][:, s], m1[k],
+                                   PLAN_REWARD_TOL if k == "mean_log_reward"
+                                   else PLAN_LOSS_TOL) for k in m1}
+        ok = all(h["excess"] <= 1 for hs in holds.values()
+                 for h in hs.values())
+        emit("plan_vmap_seeds", nvidia_smi=smi, recipe=name, seeds=S,
+             num_envs_per_seed=B,
+             captured_iterations_per_s=fields["steady_iterations_per_s"],
+             seed_iterations_per_s=S * fields["steady_iterations_per_s"],
+             single_same_rows={"num_envs": S * B,
+                               "captured_iterations_per_s":
+                               single["steady_iterations_per_s"]},
+             vmapped_over_single=fields["steady_iterations_per_s"]
+             / single["steady_iterations_per_s"],
+             held_seeds=holds, **{k: v for k, v in fields.items()
+                                  if k != "num_envs"})
+        if not ok:
+            raise AssertionError(f"{name}: vmap_seeds seeds differ from "
+                                 f"their single runs: {holds}")
+    return total
+
+
+def _leaves_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def plan_data_parallel_phase(device) -> dict:
+    """``data_parallel(1)`` over NCCL (a group of one on the card, its
+    all-reduce captured inside the iteration's CUDA graph) against the
+    single plan: each run of PLAN_DP_RUNS for PLAN_DP_ITERS iterations
+    through ``run_recipe``, every loss, log Z and mean log-reward row,
+    trained leaf and buffer leaf bitwise equal; each replay's launches
+    the single plan's; one all-reduce an iteration, captured.  ``auto`` on
+    one card resolves to single.  Returns the data-parallel runs'
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.algo.plan import make_plan
+    from repro_torch.run import run_recipe
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in wrappers()}
+    reduces = {"captured": 0, "eager": 0}
+    real = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        key = ("captured" if torch.cuda.is_current_stream_capturing()
+               else "eager")
+        reduces[key] += 1
+        return real(*args, **kwargs)
+
+    def run(name, **kw):
+        reset_launches()
+        out = run_recipe(name, iterations=PLAN_DP_ITERS, seed=0,
+                         device=device, eval_every=0, log=lambda *_: None,
+                         **PLAN_DP_RUNS[name], **kw)
+        torch.cuda.synchronize()
+        hist = out["history"]
+        rate = (len(hist) - 1) / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+        return out, run_launches(read_launches(), out["loop"].captured), rate
+
+    for name in PLAN_DP_RUNS:
+        one, _, rate1 = run(name)
+        dist.all_reduce = counting
+        try:
+            dp, launches, rate = run(name, plan="data_parallel", devices=1)
+        finally:
+            dist.all_reduce = real
+            dp["loop"].plan.close()
+        _add(total, launches)
+        rows = all(a[k] == b[k] for a, b in zip(one["history"],
+                                                dp["history"])
+                   for k in ("loss", "log_z", "mean_log_reward"))
+        leaves = _leaves_equal(one["loop"].trained(one["state"]),
+                               dp["loop"].trained(dp["state"]))
+        buf1, buf = one["state"].sampler, dp["state"].sampler
+        buffers = buf1 is None and buf is None or (
+            _leaves_equal(buf1.data, buf.data)
+            and torch.equal(buf1.size, buf.size)
+            and torch.equal(buf1.insert_pos, buf.insert_pos))
+        c1, c = one["loop"].captured, dp["loop"].captured
+        emit("plan_data_parallel", nvidia_smi=smi, recipe=name,
+             sampler=PLAN_DP_RUNS[name].get("sampler", "on_policy"),
+             plan=dp["loop"].plan.describe(), backend="nccl",
+             iterations=PLAN_DP_ITERS, rows_bitwise=rows,
+             leaves_bitwise=leaves, buffers_bitwise=buffers,
+             all_reduces=dict(reduces), replays=c.replays,
+             graph_launches=c.launches, launches=launches,
+             captured_iterations_per_s=rate,
+             single_captured_iterations_per_s=rate1)
+        if not (rows and leaves and buffers) or c.launches != c1.launches \
+                or reduces["captured"] != 1 or c.replays != PLAN_DP_ITERS - 1:
+            raise AssertionError(f"{name}: data_parallel(1) is not the "
+                                 f"single plan: rows {rows}, leaves "
+                                 f"{leaves}, buffers {buffers}, launches "
+                                 f"{c.launches} / {c1.launches}, "
+                                 f"all-reduces {reduces}")
+        reduces.update(captured=0, eager=0)
+    auto = make_plan("auto", num_envs=16)
+    emit("plan_data_parallel", auto=auto.describe(),
+         visible=torch.cuda.device_count())
+    if auto.name != "single":
+        raise AssertionError(f"auto on one card resolved to {auto}")
+    return total
+
+
+def plan_serve_phase(device) -> dict:
+    """The serve phase's requests through ``Scheduler(plan="data_parallel",
+    devices=["cuda", "cuda:0"])`` against the single pool: every
+    sample and log-reward bitwise, the pool cut into shards of
+    SERVE_LANES / PLAN_SERVE_SHARDS lanes, each stepping with its own
+    ``decode_step`` launch at that lane count (recorded for
+    ``path_shapes``).  Returns the sharded pool's launches."""
+    import numpy as np
+
+    from repro_torch.serve import SampleRequest, Scheduler
+
+    smi = nvidia_smi()
+    reqs = [SampleRequest(env="bitseq", num_samples=16, seed=1),
+            SampleRequest(env="bitseq", num_samples=64, seed=2,
+                          logit_temp=0.8),
+            SampleRequest(env="bitseq", num_samples=7, seed=3,
+                          reward_beta=2.0),
+            SampleRequest(env="bitseq", num_samples=200, seed=4,
+                          logit_temp=0.8, reward_beta=2.0)]
+    out = {}
+    # the card spelled two ways: every shard shares the engine's policy
+    devices = ["cuda"] + [device] * (PLAN_SERVE_SHARDS - 1)
+    for kind, kw in (("single", {}), ("sharded", {
+            "plan": "data_parallel", "devices": devices})):
+        sched = Scheduler(num_lanes=SERVE_LANES, init_seed=0, device=device,
+                          **kw)
+        sched.submit(SampleRequest(env="bitseq", num_samples=SERVE_LANES,
+                                   seed=1000))
+        sched.run()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rids = [sched.submit(r) for r in reqs]
+        res = sched.run()
+        torch.cuda.synchronize()
+        out[kind] = ([res[r] for r in rids], time.perf_counter() - t0,
+                     read_launches(), sched.engine_for(reqs[0]))
+    (want, wall1, launches1, _), (got, wall, launches, eng) = \
+        out["single"], out["sharded"]
+    same = all(np.array_equal(a.samples, b.samples)
+               and np.array_equal(a.log_rewards, b.log_rewards)
+               for a, b in zip(want, got))
+    n = sum(r.num_samples for r in reqs)
+    shard_lanes = [lane.t.shape[0] for lane in eng.lanes]
+    shared = all(p is eng.policy and q is eng.inner_params
+                 for _, p, q in eng._shard_ctx)
+    emit("plan_serve", nvidia_smi=smi, env="bitseq n=120 k=8 (A=3840)",
+         lanes=eng.num_lanes, shard_lanes=shard_lanes,
+         plan=eng.plan.describe(), devices=[str(d) for d in devices],
+         shared_policy=shared, samples=n, bitwise=same,
+         samples_per_s=n / wall, single_samples_per_s=n / wall1,
+         launches=launches, single_launches=launches1)
+    if not same or not shared or shard_lanes != [
+            SERVE_LANES // PLAN_SERVE_SHARDS] * PLAN_SERVE_SHARDS \
+            or launches["decode_step"] == 0:
+        raise AssertionError(f"the sharded pool is not the single pool: "
+                             f"bitwise {same}, shared {shared}, shards "
+                             f"{shard_lanes}, launches {launches}")
+    return launches
+
+
 def single_nvcc_call_seconds(build) -> float:
     """The seconds of one ``nvcc -shared`` call over every kernel source
     (what the parallel build saves on)."""
@@ -5486,6 +5801,12 @@ def main() -> int:
                                     [1, 2, 6, 11, 61, 60, 33, 7, 61, 2, 45,
                                      19, 61, 30, 3, 58], seed=21,
                                     device=device, floor_us=floor_us)]
+    # bitseq_tb under vmap_seeds(4): 4 seeds' 16 rows folded into one
+    # launch, ragged lengths
+    attn.append(check_decode_attention(64, 16, 8, 8,
+                                       [(5 * i) % 16 + 1 for i in range(64)],
+                                       seed=24, device=device,
+                                       floor_us=floor_us))
     # the pop-only cached backward (cached_backward): 16 terminals whose
     # queries attend the whole sequence down to BOS alone
     attn += [check_decode_attention(16, 9, 8, 8, [9] * 8 + [5] * 4 + [1] * 4,
@@ -5512,6 +5833,9 @@ def main() -> int:
                  (16, 5, 2), (128, 15, 3840), (128, 15, 15), (256, 8, 4),
                  (256, 8, 1), (256, 5, 22), (256, 5, 2), (128, 61, 2),
                  (256, 29, 5)])]
+    # bitseq_tb under vmap_seeds(4): the folded P_F and P_B (64 x 15)
+    traj += [check_traj_logprob(64, 15, A, seed=60 + A, device=device,
+                                floor_us=floor_us) for A in (3840, 15)]
     # tfbind8_tb's replay loss over the 16 fresh and 16 replayed rows: P_F
     # and P_B (32 x 8)
     traj += [check_traj_logprob(32, 8, A, seed=50 + A, device=device,
@@ -5549,7 +5873,8 @@ def main() -> int:
                   (3, 7000, 0.999, "walk", 1e3),
                   (3, 7000, 1.0, "normal", 1e3),
                   (2, 9000, 0.999, "walk", 1e3),
-                  (16, 9, 0.9, "normal", 0.0)])]
+                  (16, 9, 0.9, "normal", 0.0),
+                  (128, 30, 0.9, "normal", 0.0)])]
     # the scoring pass's attention: Hymba's heads over 2 x 4,096 tokens in
     # bf16, window 2,048 (the tensor-core route), and the same geometry in
     # fp32 (the SIMT route; holds the skipping of key tiles outside the
@@ -5689,6 +6014,11 @@ def main() -> int:
         replay = replay_train_phase(device)
         replay_conv = replay_converge(device)
         cli = cli_phase(device)
+    # the execution plans: the seed plan records its folded shapes itself
+    plan_vmap = plan_vmap_seeds_phase(device)
+    with recording_path_shapes():
+        plan_dp = plan_data_parallel_phase(device)
+        plan_serve = plan_serve_phase(device)
     replay_hold(device)
     box_hold(device)
     dag_converge(device)
@@ -5755,7 +6085,7 @@ def main() -> int:
     lm_family_hold("encdec_hold", lm_config(
         WHISPER_ARCH, num_layers=LM_HOLD_LAYERS,
         encoder_layers=LM_HOLD_LAYERS, dtype="float32"), device)
-    check_path_shapes(rows, attn, traj, flash, scan)
+    check_path_shapes(rows, attn, traj, subtb, flash, scan)
 
     def entry(name, source, replaces, launches, rows, main):
         return {"name": name, "route": "cuda", "source": source,
@@ -5773,19 +6103,21 @@ def main() -> int:
     def main_launches(kernel):
         """A kernel's launches on bitseq_tb's, the hypergrid's, the
         sequence recipes', the graph recipes' (training and evals),
-        EB-GFN's, box_tb's (none), the replay paths' and the CLI's."""
+        EB-GFN's, box_tb's (none), the replay paths', the CLI's and the
+        execution plans' (vmap_seeds, data_parallel)."""
         return sum(p[kernel] for p in (train, hypergrid, seqs, seqs_evals,
                                        graph_env, graph_evals, ising,
                                        ising_conv, box_conv, replay,
-                                       replay_conv, cli))
+                                       replay_conv, cli, plan_vmap,
+                                       plan_dp))
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         entry("decode_step", csrc + "decode_step.cu",
               "src/repro/kernels/decode_attention.py:239",
               serve["decode_step"] + serve_tier["decode_step"]
-              + seqs_evals["decode_step"] + cli["decode_step"], rows,
-              main_row),
+              + seqs_evals["decode_step"] + cli["decode_step"]
+              + plan_serve["decode_step"], rows, main_row),
         entry("decode_attention", csrc + "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:98",
               main_launches("decode_attention"), attn, attn[0]),
@@ -5799,12 +6131,12 @@ def main() -> int:
               traj[0][1]),
         entry("subtb_loss_fwd", csrc + "subtb_loss.cu",
               "src/repro/kernels/subtb_loss.py:58",
-              hypergrid["subtb_loss_fwd"] + cli["subtb_loss_fwd"],
-              [f for f, _ in subtb], subtb[0][0]),
+              main_launches("subtb_loss_fwd"), [f for f, _ in subtb],
+              subtb[0][0]),
         entry("subtb_loss_bwd", csrc + "subtb_loss.cu",
               "src/repro/core/objectives.py:253",
-              hypergrid["subtb_loss_bwd"] + cli["subtb_loss_bwd"],
-              [b for _, b in subtb], subtb[0][1]),
+              main_launches("subtb_loss_bwd"), [b for _, b in subtb],
+              subtb[0][1]),
         # Hymba's, qwen2.5-32b's, command-r-35b's, the cut models', the
         # VLM's and the MoEs' scoring passes, the cached S > 1 calls and
         # Whisper's encoder, decoder and cross-attention (decode and pass)

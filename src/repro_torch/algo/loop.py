@@ -1,5 +1,5 @@
 """What every training loop shares, and the on-policy loop (port of
-``repro.algo.loop.TrainLoop``, single-device plan).
+``repro.algo.loop.TrainLoop``).
 
 A loop is an object with the :class:`CapturableLoop` contract: ``init(seed)``
 makes a fresh carry (a :class:`repro_torch.core.types.TrainState`, whose
@@ -27,18 +27,34 @@ JAX's jitted step) and replay it for every iteration after: the
 iteration's thousands of kernel launches go out without the Python host.
 On the CPU both run the loop's ``iteration`` in a loop; it is the same
 Python function the graph captures.
+
+Where the iteration runs is the loop's execution plan
+(:mod:`repro_torch.algo.plan`, JAX's ``plan``): ``single``;
+``vmap_seeds(S)``, S runs whose stacked parameters the iteration takes
+under ``torch.func.vmap`` over ``functional_call`` (each kernel call site
+launches once for all S: the wrappers' batching rules fold the seed axis
+into the batch axis); ``data_parallel(D)``, one rank a shard, the
+``(num, den)`` sums and gradients all-reduced before the division and the
+Adam step (on CUDA inside the captured iteration, over NCCL); and
+``seeds_x_data(S, D)``, the vmap inside each rank.
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
+import torch.distributed as dist
 
 from ..core.rollout import RolloutBatch
 from ..core.trainer import GFNConfig, make_loss_parts_fn, make_optimizer
 from ..core.types import TrainState, train_seed
 from ..kernels import ops
+from ..nn.core import ParamTree
+from .plan import ExecutionPlan, VmapSeedsPlan, make_plan, seed_of
 from .samplers import make_sampler
 
 class ScanLog(NamedTuple):
@@ -107,25 +123,34 @@ class CapturedIteration:
         return self.outputs
 
 
-def loss_and_grads(params: torch.nn.Module, num: torch.Tensor,
-                   den: torch.Tensor) -> torch.Tensor:
-    """Set every parameter's ``.grad`` to the gradient of the loss given
-    as additive parts ``(num, den)`` and return the loss,
-    ``num / max(den, 1)``: ``num`` differentiated, the gradients divided,
-    as JAX's loop does.  A parameter the loss does not reach gets a zero
-    gradient, so Adam moves it on its momentum, as the JAX optimizer
-    does.  The gradients are made anew at each call; under capture that
-    makes them the graph's static buffers, which every replay rewrites."""
+def _grads_of(params: torch.nn.Module, num: torch.Tensor
+              ) -> List[torch.Tensor]:
+    """Differentiate ``num`` into fresh ``.grad``s of ``params`` and
+    return them in parameter order.  A parameter ``num`` does not reach
+    gets a zero gradient, so Adam moves it on its momentum, as the JAX
+    optimizer does.  Made anew at each call; under capture that makes
+    them the graph's static buffers, which every replay rewrites."""
     params = list(params.parameters())
     for p in params:
         p.grad = None
     num.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def loss_and_grads(params: torch.nn.Module, num: torch.Tensor,
+                   den: torch.Tensor) -> torch.Tensor:
+    """Set every parameter's ``.grad`` to the gradient of the loss given
+    as additive parts ``(num, den)`` and return the loss,
+    ``num / max(den, 1)``: ``num`` differentiated (:func:`_grads_of`),
+    the gradients divided, as JAX's loop does."""
+    grads = _grads_of(params, num)
     den = torch.clamp(den, min=1.0)
     with torch.no_grad():
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            p.grad.div_(den)
+        for g in grads:
+            g.div_(den)
     return num.detach() / den
 
 
@@ -141,6 +166,8 @@ class CapturableLoop:
 
     METRICS: Tuple[str, ...] = ()
     captured: Optional[CapturedIteration] = None
+    #: the shape every metric of an iteration has: () or a seed plan's (S,)
+    metric_shape: Tuple[int, ...] = ()
 
     @property
     def num_envs(self) -> int:
@@ -161,7 +188,7 @@ class CapturableLoop:
             return
         row = state.counter.view(1)
         for k, buf in log.metrics.items():
-            buf.index_copy_(0, row, metrics[k].view(1))
+            buf.index_copy_(0, row, metrics[k][None])
         log.log_rewards.index_copy_(0, row, batch.log_reward[None])
 
     def step(self, state: TrainState
@@ -170,6 +197,14 @@ class CapturableLoop:
         ``(state, metrics, batch)``; metrics read without a host sync."""
         metrics, batch = self.iteration(state)
         return state, metrics, batch
+
+    def save_checkpoint(self, checkpoint, step: int, state: TrainState,
+                        suite=None, num_iterations: Optional[int] = None,
+                        blocking: bool = True) -> None:
+        """Write :meth:`checkpoint_tree` as step ``step``."""
+        checkpoint.save(step, self.checkpoint_tree(state, suite,
+                                                   num_iterations),
+                        blocking=blocking)
 
     def capture(self, state: TrainState,
                 log: Optional[ScanLog] = None) -> CapturedIteration:
@@ -237,9 +272,9 @@ class CapturableLoop:
         log = None
         if mode == "scan":
             f32 = dict(dtype=torch.float32, device=dev)
-            log = ScanLog({k: torch.zeros(num_iterations, **f32)
-                           for k in self.METRICS},
-                          torch.zeros(num_iterations, self.num_envs, **f32))
+            n = (num_iterations,) + tuple(self.metric_shape)
+            log = ScanLog({k: torch.zeros(n, **f32) for k in self.METRICS},
+                          torch.zeros(n + (self.num_envs,), **f32))
         self.captured = None
         history = []
         for it in range(start, num_iterations):
@@ -259,21 +294,60 @@ class CapturableLoop:
                     and it + 1 < num_iterations:
                 # save() copies to the host before it returns, so the next
                 # replay may overwrite the state at once
-                checkpoint.save(it + 1, self.checkpoint_tree(
-                    state, suite, num_iterations), blocking=False)
+                self.save_checkpoint(checkpoint, it + 1, state, suite,
+                                     num_iterations, blocking=False)
         if state.counter.is_cuda:
             ops.check_device_errors(dev)
         if checkpoint is not None and num_iterations > start:
-            checkpoint.save(num_iterations, self.checkpoint_tree(
-                state, suite, num_iterations))
+            self.save_checkpoint(checkpoint, num_iterations, state, suite,
+                                 num_iterations)
             checkpoint.wait()
         if mode == "scan":
             return state, (log.metrics, log.log_rewards)
         return state, history
 
 
+def _batch_fields(batch: RolloutBatch) -> Dict[str, torch.Tensor]:
+    return {f.name: getattr(batch, f.name)
+            for f in dataclasses.fields(RolloutBatch)}
+
+
+def _sampler_leaves(state) -> Dict[str, torch.Tensor]:
+    """A sampler state's tensors by name (a replay buffer's data, insert
+    position and size; nothing for a stateless sampler)."""
+    if state is None:
+        return {}
+    return {**{f"data/{k}": t for k, t in state.data.items()},
+            "insert_pos": state.insert_pos, "size": state.size}
+
+
+def _sampler_of(leaves: Mapping[str, torch.Tensor], like):
+    """The sampler state ``like`` over ``leaves`` (inverse of
+    :func:`_sampler_leaves`)."""
+    if like is None:
+        return None
+    return dataclasses.replace(
+        like, data={k[5:]: t for k, t in leaves.items()
+                    if k.startswith("data/")},
+        insert_pos=leaves["insert_pos"], size=leaves["size"])
+
+
+def _stacked_tree(flats) -> ParamTree:
+    """A trainable :class:`ParamTree` whose every leaf stacks the leaves of
+    the ``/``-keyed parameter mappings ``flats`` along a new leading axis
+    (a seed plan's parameters)."""
+    tree: Dict = {}
+    for name in flats[0]:
+        *path, leaf = name.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = torch.stack([f[name].detach() for f in flats])
+    return ParamTree(tree, requires_grad=True)
+
+
 class TrainLoop(CapturableLoop):
-    """Environment x policy x objective x sampler, on the policy's device.
+    """Environment x policy x objective x sampler x plan.
 
     ``policy`` is a :class:`repro_torch.core.policies.TransformerPolicy` or
     :class:`repro_torch.core.policies.MLPPolicy` whose parameters require
@@ -283,37 +357,108 @@ class TrainLoop(CapturableLoop):
     ``seed`` draws its noise from ``train_seed(seed, i)``.  The sampler's
     state (a replay buffer) rides in ``TrainState.sampler``, made by
     :meth:`init` before any capture, as JAX's ``LoopState.sampler``: a
-    captured iteration adds to it and draws from it on the device."""
+    captured iteration adds to it and draws from it on the device.
+
+    ``plan`` is an :class:`repro_torch.algo.plan.ExecutionPlan` or a name
+    (``"single"``, the default, ``"vmap_seeds"``, ``"data_parallel"``,
+    ``"seeds_x_data"``, ``"auto"``).  Under a seed plan, seed s of a run
+    seeded ``seed`` is the single run seeded ``seed_of(seed, s)``: its
+    noise is that run's, and its initial parameters are
+    ``seed_params(seed_of(seed, s))`` (a ``/``-keyed mapping; the policy's
+    own parameters for every seed when ``seed_params`` is None).
+    ``state.params`` then stacks the S runs' leaves, and every metric is
+    (S,).  Under a data-parallel plan this process is one rank: it draws
+    its shard's rows (:class:`repro_torch.algo.plan.ShardInfo`) and the
+    group sums the loss parts and gradients; a sampler whose ``build``
+    takes no ``shard`` is refused on more than one shard, as in JAX."""
 
     #: the metrics of an iteration, in the order of JAX's metrics dict
     METRICS = ("loss", "log_z", "mean_log_reward")
 
     def __init__(self, env, env_params, policy, cfg: GFNConfig,
-                 sampler=None):
+                 sampler=None, plan=None,
+                 seed_params: Optional[Callable[[int], Mapping]] = None):
         if not all(p.requires_grad for p in policy.params.parameters()):
             raise ValueError("TrainLoop needs a policy whose parameters "
                              "require grad (requires_grad=True)")
         self.env, self.env_params = env, env_params
         self.policy, self.cfg = policy, cfg
         self.sampler = make_sampler(sampler or "on_policy")
-        self._init_sampler, self._sample = self.sampler.build(
-            env, env_params, policy, cfg)
+        self.plan = make_plan(plan, num_envs=cfg.num_envs)
+        self.shard = self.plan.shard_info()
+        self.seed_params = seed_params
+        sig = inspect.signature(self.sampler.build).parameters
+        shard_aware = "shard" in sig or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.values())
+        if shard_aware:
+            self._init_sampler, self._sample = self.sampler.build(
+                env, env_params, policy, cfg, shard=self.shard)
+        else:
+            if self.shard.num_shards > 1:
+                raise TypeError(
+                    f"sampler {type(self.sampler).__name__} does not accept "
+                    "the 'shard' argument and cannot run under a sharded "
+                    "plan; add shard=None to its build() signature (see "
+                    "repro_torch.algo.samplers)")
+            self._init_sampler, self._sample = self.sampler.build(
+                env, env_params, policy, cfg)
         self.parts_fn = make_loss_parts_fn(env, policy, cfg)
+        self.metric_shape = (self.plan.seeds,) if self.plan.seeds else ()
+        self._seed_hi: Optional[torch.Tensor] = None
+        self.plan.join(next(policy.params.parameters()).device)
 
     @property
     def num_envs(self) -> int:
-        return self.sampler.batch_size(self.cfg)
+        """The rows of this process's batch (its shard's, on a sharded
+        plan)."""
+        return self.shard.split_batch(self.sampler.batch_size(self.cfg))
+
+    @property
+    def rank(self) -> int:
+        return self.shard.rank
 
     def init(self, seed: int) -> TrainState:
-        train_seed(seed, 0)                   # the seed's range check
         params = self.policy.params
         dev = next(params.parameters()).device
-        return TrainState(params=params,
-                          optimizer=make_optimizer(self.cfg, params),
+        S = self.plan.seeds
+        if not S:
+            train_seed(seed, 0)               # the seed's range check
+            return TrainState(params=params,
+                              optimizer=make_optimizer(self.cfg, params),
+                              seed=int(seed),
+                              counter=torch.zeros((), dtype=torch.int64,
+                                                  device=dev),
+                              sampler=self._init_sampler())
+        seeds = [seed_of(seed, s) for s in range(S)]
+        for sd in seeds:
+            train_seed(sd, 0)
+        flats = [params.flat() if self.seed_params is None
+                 else self.seed_params(sd) for sd in seeds]
+        stacked = _stacked_tree([{n: f[n].to(dev) for n in params.flat()}
+                                 for f in flats])
+        self._seed_hi = torch.tensor([sd << 32 for sd in seeds],
+                                     dtype=torch.int64, device=dev)
+        one = self._init_sampler()
+        sampler = _sampler_of({k: t.expand((S,) + t.shape).clone()
+                               for k, t in _sampler_leaves(one).items()},
+                              one)
+        return TrainState(params=stacked,
+                          optimizer=make_optimizer(self.cfg, stacked,
+                                                   seeds=S),
                           seed=int(seed),
                           counter=torch.zeros((), dtype=torch.int64,
                                               device=dev),
-                          sampler=self._init_sampler())
+                          sampler=sampler)
+
+    def trained(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        return state.params.flat()
+
+    def noise_seeds(self, state: TrainState) -> torch.Tensor:
+        """The iteration's noise seed, on the device: 0-dim, or (S,) under a
+        seed plan (``train_seed(seed_of(seed, s), counter)``)."""
+        if self.plan.seeds:
+            return state.counter + self._seed_hi
+        return state.noise_seed()
 
     def sample(self, state: TrainState) -> RolloutBatch:
         """The batch of the iteration ``state`` is at; the sampler's state
@@ -332,17 +477,120 @@ class TrainLoop(CapturableLoop):
         body that :meth:`step` runs and that :class:`CapturedIteration`
         captures.  Writes its metrics into ``log``'s row ``counter``, then
         advances the counter.  Returns ``(metrics, batch)``; metrics are
-        0-dim tensors on the device (``loss``, ``log_z`` after the update,
-        ``mean_log_reward``)."""
-        batch = self.sample(state)
-        loss = self.loss_and_grads(batch)
-        state.optimizer.step()
+        device tensors (``loss``, ``log_z`` after the update,
+        ``mean_log_reward``), 0-dim or (S,) under a seed plan."""
+        if self.plan.seeds:
+            grads, num, den, mlr, batch = self._seed_parts(state)
+        else:
+            batch = self.sample(state)
+            num, den = self.parts_fn(batch)
+            grads = _grads_of(self.policy.params, num)
+            num, mlr = num.detach(), batch.log_reward.mean()
+        loss, mlr = self._reduce_and_step(state, grads, num, den, mlr)
         metrics = {"loss": loss,
-                   "log_z": self.policy.params["log_z"].detach().clone(),
-                   "mean_log_reward": batch.log_reward.mean()}
+                   "log_z": state.params["log_z"].detach().clone(),
+                   "mean_log_reward": mlr}
         self.log_row(state, log, metrics, batch)
         state.counter.add_(1)
         return metrics, batch
+
+    def run(self, seed: int, num_iterations: int, *, mode: str = "python",
+            num_seeds: Optional[int] = None, **kwargs):
+        """:meth:`CapturableLoop.run`, and JAX's ``mode="vmap_seeds"``: the
+        legacy alias of a ``vmap_seeds(num_seeds)`` plan's scan run, on the
+        single plan only, returning ``(state, metrics)`` with the seed axis
+        leading every metric.  Under a sharded plan the eval suite records
+        on rank 0 only, from its replicated parameters."""
+        if mode == "vmap_seeds":
+            return self._run_legacy_vmap_seeds(seed, num_iterations,
+                                               num_seeds, kwargs)
+        if self.rank != 0:
+            kwargs["suite"] = None
+        return super().run(seed, num_iterations, mode=mode, **kwargs)
+
+    def _run_legacy_vmap_seeds(self, seed, num_iterations, num_seeds,
+                               kwargs):
+        if kwargs.get("checkpoint") is not None:
+            raise ValueError(
+                "checkpointing needs the python driver (mode='python'); "
+                "compiled modes cannot call host code mid-run")
+        if kwargs.get("callback") is not None:
+            raise ValueError(
+                "callback is only supported in mode='python' (got "
+                "mode='vmap_seeds'); compiled modes cannot call host code")
+        if type(self.plan) is not ExecutionPlan:
+            raise ValueError(
+                f"mode='vmap_seeds' composes only with the single-device "
+                f"plan (got plan={self.plan.name!r}); use "
+                f"plan=make_plan('seeds_x_data', num_seeds=...) or "
+                f"make_plan('vmap_seeds', num_seeds=...) instead")
+        if num_seeds is None:
+            raise ValueError("mode='vmap_seeds' requires num_seeds")
+        loop = TrainLoop(self.env, self.env_params, self.policy, self.cfg,
+                         sampler=self.sampler,
+                         plan=VmapSeedsPlan(num_seeds),
+                         seed_params=self.seed_params)
+        state, (metrics, _) = loop.run(seed, num_iterations, mode="scan")
+        return state, {k: v.transpose(0, 1) for k, v in metrics.items()}
+
+    def _seed_parts(self, state: TrainState):
+        """Sample and differentiate every seed's batch at once: the
+        iteration of one seed under ``torch.func.vmap`` over the stacked
+        parameters (``functional_call`` of the policy's tree), its
+        gradient by ``torch.func.grad_and_value`` of ``num``.  Returns the
+        stacked gradients (in parameter order), ``num``, ``den`` and the
+        batch's mean log-reward, each (S,), and the (S, ...) batch."""
+        tree = self.policy.params
+        names = [n for n, _ in tree.named_parameters()]
+        counter = state.counter
+        like = state.sampler
+
+        def one(params, noise_seed, leaves):
+            p = dict(zip(names, params))
+            sampler_state = _sampler_of(leaves, like)
+            batch = torch.func.functional_call(tree, p, (
+                lambda: self._sample(sampler_state, noise_seed,
+                                     counter)[1],))
+
+            def num_of(q):
+                return torch.func.functional_call(tree, q, (self.parts_fn,
+                                                            batch))
+
+            grads, (num, den) = torch.func.grad_and_value(
+                num_of, has_aux=True)(p)
+            return ([grads[n] for n in names], num, den,
+                    batch.log_reward.mean(), _batch_fields(batch))
+
+        stacked = [t.detach() for t in state.params.parameters()]
+        grads, num, den, mlr, fields = torch.func.vmap(one)(
+            stacked, self.noise_seeds(state), _sampler_leaves(like))
+        return grads, num, den, mlr, RolloutBatch(**fields)
+
+    def _reduce_and_step(self, state: TrainState, grads, num, den, mlr):
+        """Sum ``(grads, num, den, mlr)`` over the plan's group (one
+        all-reduce of one flat buffer; nothing off a sharded plan), set
+        every parameter's gradient to its sum over ``max(den, 1)`` (per
+        seed under a seed plan), take the optimizer step, and return the
+        loss and the mean log-reward (the shards' mean)."""
+        with torch.no_grad():
+            if self.shard.axis is not None:
+                parts = [g.reshape(-1) for g in grads] + [
+                    t.reshape(-1).to(torch.float32) for t in (num, den, mlr)]
+                flat = self.shard.psum(torch.cat(parts))
+                out, o = [], 0
+                for t in parts:
+                    out.append(flat[o:o + t.numel()])
+                    o += t.numel()
+                grads = [f.view(g.shape) for f, g in zip(out, grads)]
+                num, den, mlr = (f.view(t.shape) for f, t
+                                 in zip(out[-3:], (num, den, mlr)))
+                mlr = mlr / self.shard.num_shards
+            den = torch.clamp(den, min=1.0)
+            for p, g in zip(state.params.parameters(), grads):
+                p.grad = g.div_(den.view(den.shape + (1,) * (g.dim()
+                                                             - den.dim())))
+        state.optimizer.step()
+        return num / den, mlr
 
     # -- checkpoints in the JAX package's layout -------------------------------
     def _adam_prefix(self) -> str:
@@ -407,14 +655,43 @@ class TrainLoop(CapturableLoop):
         rows under ``.metrics`` (sized for ``num_iterations``).  JAX's
         threefry ``.train/.key`` has no counterpart: iteration i draws
         from ``(seed, i)`` here."""
-        tree = {n: t.to(torch.int32) if t.dtype == torch.int64 else t
-                for n, t in self._state_leaves(state).items()}
+        leaves = self._state_leaves(state)
         p0 = next(iter(state.params.flat().values()))
-        count = self._adam_state(state.optimizer, p0)["step"]
-        tree[f"{self._adam_prefix()}/.count"] = count.to(torch.int32)
+        leaves[f"{self._adam_prefix()}/.count"] = self._adam_state(
+            state.optimizer, p0)["step"].to(torch.int32)
+        S = self.plan.seeds
+        if S:
+            # JAX's seed layout: every leaf carries the seed axis
+            for n in (".train/.step", f"{self._adam_prefix()}/.count"):
+                leaves[n] = leaves[n].expand(S)
+        if self.shard.axis is not None:
+            # JAX's sharded layout: the sampler's leaves carry a leading
+            # shard axis, gathered here for rank 0 to write
+            for n, t in leaves.items():
+                if n.startswith(".sampler"):
+                    leaves[n] = self._gathered(t)
+        tree = {n: t.to(torch.int32) if t.dtype == torch.int64 else t
+                for n, t in leaves.items()}
         if suite is not None:
             tree.update(suite.metrics_state(num_iterations))
         return tree
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked in rank order (a collective: every
+        rank calls it)."""
+        x = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.shard.num_shards)]
+        dist.all_gather(parts, x)
+        return torch.stack(parts).to(t.dtype)
+
+    def save_checkpoint(self, checkpoint, step: int, state: TrainState,
+                        suite=None, num_iterations: Optional[int] = None,
+                        blocking: bool = True) -> None:
+        """Every rank builds the tree (the sampler leaves' gather is a
+        collective); rank 0 writes it."""
+        tree = self.checkpoint_tree(state, suite, num_iterations)
+        if self.rank == 0:
+            checkpoint.save(step, tree, blocking=blocking)
 
     def restore_state(self, state: TrainState, checkpoint,
                       step: Optional[int] = None, suite=None,
@@ -434,12 +711,30 @@ class TrainLoop(CapturableLoop):
         if at is None:
             return None
         target = self._state_leaves(state)
-        count = torch.zeros((), dtype=torch.float32)
+        S = self.plan.seeds
+        lead = (S,) if S else ()
+        count = torch.zeros(lead, dtype=torch.float32)
         target[f"{self._adam_prefix()}/.count"] = count
+        counter = state.counter
+        if S:
+            target[".train/.step"] = torch.zeros(S, dtype=torch.int64)
+        # a sharded plan reads every shard's sampler leaves and keeps its own
+        local = {}
+        if self.shard.axis is not None:
+            for n, t in list(target.items()):
+                if n.startswith(".sampler"):
+                    local[n] = t
+                    target[n] = torch.zeros((self.shard.num_shards,)
+                                            + t.shape, dtype=t.dtype)
         checkpoint.restore(at, target)
         with torch.no_grad():
+            if S:
+                counter.copy_(target[".train/.step"][0])
+            for n, t in local.items():
+                t.copy_(target[n][self.rank])
             for p in state.params.flat().values():
-                self._adam_state(state.optimizer, p)["step"].copy_(count)
+                self._adam_state(state.optimizer, p)["step"].copy_(
+                    count[0] if S else count)
         if suite is not None:
             suite.load_metrics_state(checkpoint.load(at, ".metrics"),
                                      num_iterations)

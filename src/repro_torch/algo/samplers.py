@@ -1,8 +1,7 @@
-"""Trajectory samplers (port of ``repro.algo.samplers``, single-device
-plan).
+"""Trajectory samplers (port of ``repro.algo.samplers``).
 
-``sampler.build(env, env_params, policy, cfg)`` returns ``(init_fn,
-sample_fn)``, as in JAX:
+``sampler.build(env, env_params, policy, cfg, shard=None)`` returns
+``(init_fn, sample_fn)``, as in JAX:
 
 - ``init_fn()`` makes the sampler's carried state (None for the stateless
   samplers, a :class:`repro_torch.buffer.fifo.BufferState` for the replay
@@ -23,6 +22,14 @@ are read in place, so ``sample_fn`` takes none.  JAX splits its key into
 streams of their own (the rollout's step noise, the selection noise and
 the backward rollout's Gumbels), each a noise source the caller may
 replace.
+
+``shard`` is the plan's :class:`repro_torch.algo.plan.ShardInfo`: under a
+``data_parallel`` plan ``sample_fn`` runs in one rank and draws only that
+shard's rows of the global batch, as JAX's do: the batch, the replay
+batch and the buffer's capacity divided by ``shard.num_shards``, every
+rollout keyed on ``shard.env_offset`` (global env ids), and the replay's
+selection and backward rollout on ``shard.fold_shard`` of the seed, so
+no two shards replay the same slots.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..core.trainer import GFNConfig, current_eps_tensor
 from ..core.types import (FlowNoiseSource, NoiseSource, StepNoiseSource,
                           hash_select_noise)
 from ..envs.transforms import has_scheduled_reward
+from .plan import ShardInfo
 
 
 class OnPolicySampler:
@@ -67,14 +75,17 @@ class OnPolicySampler:
     def _eps(self, cfg: GFNConfig, step: torch.Tensor) -> torch.Tensor:
         return current_eps_tensor(cfg, step)
 
-    def build(self, env, env_params, policy, cfg: GFNConfig):
-        B = self.num_envs or cfg.num_envs
+    def build(self, env, env_params, policy, cfg: GFNConfig,
+              shard: Optional[ShardInfo] = None):
+        shard = shard or ShardInfo()
+        B = shard.split_batch(self.num_envs or cfg.num_envs)
 
         def sample_fn(state, noise_seed: torch.Tensor, step: torch.Tensor):
             ep = env.update_params(env_params, step)
             return state, forward_rollout(
                 noise_seed, env, ep, policy, B, noise=self.noise,
-                exploration_eps=self._eps(cfg, step))
+                exploration_eps=self._eps(cfg, step),
+                env_offset=shard.env_offset(B))
 
         return (lambda: None), sample_fn
 
@@ -158,9 +169,12 @@ class ReplaySampler:
         """The rows of a batch: the fresh ones and the replayed ones."""
         return sum(self._sizes(cfg))
 
-    def build(self, env, env_params, policy, cfg: GFNConfig):
-        B, R = self._sizes(cfg)
-        buf = FIFOBuffer.per_shard(self.capacity, 1, min_batch=B)
+    def build(self, env, env_params, policy, cfg: GFNConfig,
+              shard: Optional[ShardInfo] = None):
+        shard = shard or ShardInfo()
+        B, R = (shard.split_batch(n) for n in self._sizes(cfg))
+        buf = FIFOBuffer.per_shard(self.capacity, shard.num_shards,
+                                   min_batch=B)
         # a scheduled reward makes stored log-rewards stale; a constant one
         # is reused and the (possibly proxy-model) reward is not rerun
         reuse_stored_log_r = not has_scheduled_reward(env)
@@ -184,14 +198,16 @@ class ReplaySampler:
             fresh, final = forward_rollout(
                 noise_seed, env, ep, policy, B, noise=self.noise,
                 exploration_eps=current_eps_tensor(cfg, step),
-                return_final_state=True)
+                return_final_state=True, env_offset=shard.env_offset(B))
+            # the shard's own selection and backward streams
+            local_seed = shard.fold_shard(noise_seed)
             items: Dict[str, torch.Tensor] = {
                 f.name: getattr(final, f.name)
                 for f in dataclasses.fields(final)}
             items["log_reward"] = fresh.log_reward
             buf.add_batch(buf_state, items)
             index = torch.arange(R, dtype=torch.int64, device=dev)
-            sel = self.select_noise(noise_seed.expand(R), index,
+            sel = self.select_noise(local_seed.expand(R), index,
                                     buf.capacity, self.prioritized)
             if self.prioritized:
                 temp = torch.full((), float(self.temperature),
@@ -202,7 +218,7 @@ class ReplaySampler:
                 got = buf.sample(buf_state, sel)
             log_r = got.pop("log_reward")
             replayed = backward_rollout(
-                noise_seed, env, ep, policy,
+                local_seed, env, ep, policy,
                 state_cls(**got), noise=self.backward_noise,
                 collect=True, backward_policy=self.backward_policy,
                 known_log_reward=log_r if reuse_stored_log_r else None,

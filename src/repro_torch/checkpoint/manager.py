@@ -208,8 +208,9 @@ def copy_into(target: Mapping[str, torch.Tensor],
                 f"{where}: checkpointed {part} state does not match this "
                 f"run's shapes (first mismatch: {name!r} restored "
                 f"{tuple(arrays[name].shape)} vs expected {tuple(t.shape)}"
-                "); resume with the configuration the checkpoint was saved "
-                "under (the same num_envs, sampler and policy)")
+                "); resume with the same plan, num_envs, and sampler "
+                "configuration the checkpoint was saved under (and the "
+                "same policy)")
     with torch.no_grad():
         for name, t in target.items():
             t.copy_(arrays[name].to(t.dtype))

@@ -176,7 +176,7 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
                                  FlowNoiseSource, None] = None,
                     logit_temp: Optional[float] = None,
                     exploration_eps: Union[float, torch.Tensor, None] = None,
-                    return_final_state: bool = False):
+                    return_final_state: bool = False, env_offset: int = 0):
     """Sample ``num_envs`` trajectories of ``env.max_steps`` steps on the
     device of ``env_params``.  Row i's noise at step t is
     ``noise(seed, i, t, A)``: a :class:`StepNoise` when exploring
@@ -190,8 +190,11 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     host).  ``logit_temp`` scales the
     forward logits (a tempered policy, as the serving engine's per-lane
     temperature); only the fused branch takes it, as only serving uses
-    it.  Returns the batch, or
-    ``(batch, final_state)`` with ``return_final_state``."""
+    it.  ``env_offset`` is the global id of row 0 (JAX's
+    ``env_offset``): row i draws the noise of env ``env_offset + i``, so a
+    shard of a data-parallel plan samples its rows of the single-device
+    batch, on every branch.  Returns the batch, or ``(batch,
+    final_state)`` with ``return_final_state``."""
     explore = exploration_eps is not None
     continuous = _continuous(env, policy)
     cached = not continuous and _cache_engaged(env, policy)
@@ -205,7 +208,8 @@ def forward_rollout(seed: Union[int, torch.Tensor], env: Environment,
     obs0, state = env.reset(num_envs, env_params)
     dev = obs0.device
     A = policy.noise_dims if continuous else env.action_dim
-    ids = torch.arange(num_envs, dtype=torch.int64, device=dev)
+    ids = torch.arange(int(env_offset), int(env_offset) + num_envs,
+                       dtype=torch.int64, device=dev)
     seeds = (seed.to(device=dev, dtype=torch.int64).expand(num_envs)
              if isinstance(seed, torch.Tensor)
              else torch.full((num_envs,), int(seed), dtype=torch.int64,

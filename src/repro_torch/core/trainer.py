@@ -27,8 +27,8 @@ class GFNConfig(NamedTuple):
     stop_action: Optional[int] = None
 
 
-def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
-                   ) -> torch.optim.Optimizer:
+def make_optimizer(cfg: GFNConfig, params: torch.nn.Module,
+                   seeds: Optional[int] = None) -> torch.optim.Optimizer:
     """Adam with its own lr for the ``log_z`` leaves (paper Tables 3-7),
     with the JAX package's gradient clip and weight decay.
 
@@ -45,7 +45,13 @@ def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
     is built ``capturable`` (its step count and bias corrections stay on
     the device), so that an eager step and a step captured in a CUDA graph
     run the same update arithmetic.  Learning-rate schedules are not
-    ported: no ``GFNConfig`` field reaches them."""
+    ported: no ``GFNConfig`` field reaches them.
+
+    ``seeds`` S: every leaf of ``params`` stacks S independent runs' leaves
+    along axis 0 (a seed plan).  Adam and the decay are elementwise, so one
+    optimizer over the stacked leaves is S optimizers; the clip takes each
+    seed's own global norm (:func:`clip_by_global_norm_`); ``log_z`` stays
+    its own group."""
     named = list(params.named_parameters())
     log_z = [p for n, p in named if "log_z" in n]
     rest = [p for n, p in named if "log_z" not in n]
@@ -62,27 +68,36 @@ def make_optimizer(cfg: GFNConfig, params: torch.nn.Module
         max_norm = float(cfg.max_grad_norm)
         leaves = [p for _, p in named]
         opt.register_step_pre_hook(
-            lambda *_: clip_by_global_norm_(leaves, max_norm))
+            lambda *_: clip_by_global_norm_(leaves, max_norm, seeds=seeds))
     return opt
 
 
-def clip_by_global_norm_(params, max_norm: float) -> None:
+def clip_by_global_norm_(params, max_norm: float,
+                         seeds: Optional[int] = None) -> None:
     """Scale every gradient by ``min(1, max_norm / (gn + 1e-9))``, ``gn``
     the global norm over all of them (``repro/optim/adamw.py:46-55``), in
     place and on the device: no host read, so it runs inside a captured
     iteration.  ``max_norm`` is divided as a tensor (CUDA turns a Python
     number divided by a tensor into a product with the tensor's
-    reciprocal)."""
+    reciprocal).  With ``seeds`` S the leaves are seed-stacked: each
+    seed's norm reduces every axis but the leading one, and scales that
+    seed's rows."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     with torch.no_grad():
-        gn = torch.sqrt(torch.stack(
-            [g.float().square().sum() for g in grads]).sum())
+        if seeds:
+            gn = torch.sqrt(torch.stack(
+                [g.float().square().reshape(seeds, -1).sum(1)
+                 for g in grads]).sum(0))
+        else:
+            gn = torch.sqrt(torch.stack(
+                [g.float().square().sum() for g in grads]).sum())
         num = torch.full((), max_norm, dtype=torch.float32, device=gn.device)
         scale = torch.clamp(num / (gn + 1e-9), max=1.0)
         for g in grads:
-            g.mul_(scale.to(g.dtype))
+            g.mul_(scale.view(scale.shape + (1,) * (g.dim() - scale.dim()))
+                   .to(g.dtype))
 
 
 def current_eps(cfg: GFNConfig, step: int) -> float:

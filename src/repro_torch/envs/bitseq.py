@@ -72,17 +72,18 @@ class BitSeqEnvironment(Environment):
                  params: BitSeqParams) -> BitSeqState:
         action = action.long()
         rows = torch.arange(action.shape[0], device=action.device)
-        tokens = state.tokens.clone()
-        tokens[rows, action // self.m] = (action % self.m).to(torch.int32)
+        # out of place: under a seed plan's vmap the written values carry
+        # the seed axis while the reset state does not
+        tokens = state.tokens.index_put(
+            (rows, action // self.m), (action % self.m).to(torch.int32))
         return BitSeqState(tokens=tokens, steps=state.steps + 1)
 
     def _backward(self, state: BitSeqState, action: torch.Tensor,
                   params: BitSeqParams) -> BitSeqState:
         rows = torch.arange(action.shape[0], device=action.device)
-        tokens = state.tokens.clone()
         # a device tensor: a Python number is copied from the host
-        tokens[rows, action.long()] = torch.full_like(state.steps,
-                                                      self.empty)
+        tokens = state.tokens.index_put(
+            (rows, action.long()), torch.full_like(state.steps, self.empty))
         return BitSeqState(tokens=tokens,
                            steps=torch.clamp(state.steps - 1, min=0))
 

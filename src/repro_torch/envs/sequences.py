@@ -125,21 +125,23 @@ class AutoregressiveEnvironment(_SeqEnvironment):
 
     def _forward(self, state: SeqState, action: torch.Tensor,
                  params: SeqParams) -> SeqState:
-        tokens = state.tokens.clone()
-        tokens[_rows(action), state.length.long().clamp(max=self.length - 1)
-               ] = action.to(torch.int32)
+        # out of place: under a seed plan's vmap the written values carry
+        # the seed axis while the reset state does not
+        tokens = state.tokens.index_put(
+            (_rows(action), state.length.long().clamp(max=self.length - 1)),
+            action.to(torch.int32))
         return SeqState(tokens=tokens, length=state.length + 1,
                         steps=state.steps + 1, stopped=state.stopped)
 
     def _backward(self, state: SeqState, action: torch.Tensor,
                   params: SeqParams) -> SeqState:
-        tokens = state.tokens.clone()
         # at length 0 this writes the last slot, as JAX's index -1 does;
         # backward_step keeps the initial state there.  The pad goes in as
         # a device tensor: a Python number is copied from the host, a sync
         # a captured iteration refuses
-        tokens[_rows(action), state.length.long() - 1] = torch.full_like(
-            state.length, self.pad)
+        tokens = state.tokens.index_put(
+            (_rows(action), state.length.long() - 1),
+            torch.full_like(state.length, self.pad))
         return SeqState(tokens=tokens,
                         length=torch.clamp(state.length - 1, min=0),
                         steps=torch.clamp(state.steps - 1, min=0),
@@ -230,8 +232,8 @@ class VariableLengthSeqEnvironment(_SeqEnvironment):
         write = torch.where(is_stop, self.pad,
                             torch.clamp(action, max=self.vocab - 1))
         pos = torch.clamp(state.length.long(), max=self.max_len - 1)
-        new_tokens = state.tokens.clone()
-        new_tokens[_rows(action), pos] = write.to(torch.int32)
+        new_tokens = state.tokens.index_put((_rows(action), pos),
+                                            write.to(torch.int32))
         return SeqState(
             tokens=torch.where(is_stop[:, None], state.tokens, new_tokens),
             length=torch.where(is_stop, state.length, state.length + 1),
@@ -241,9 +243,8 @@ class VariableLengthSeqEnvironment(_SeqEnvironment):
                   params: SeqParams) -> SeqState:
         is_unstop = action == 1
         pos = torch.clamp(state.length.long() - 1, min=0)
-        removed = state.tokens.clone()
-        removed[_rows(action), pos] = torch.full_like(state.length,
-                                                      self.pad)
+        removed = state.tokens.index_put(
+            (_rows(action), pos), torch.full_like(state.length, self.pad))
         return SeqState(
             tokens=torch.where(is_unstop[:, None], state.tokens, removed),
             length=torch.where(is_unstop, state.length,
@@ -358,8 +359,8 @@ class PrependAppendEnvironment(_SeqEnvironment):
         W = state.buf.shape[1]
         front = torch.clamp(state.start - 1, min=0)
         pos = torch.where(prepend, front, torch.clamp(state.end, max=W - 1))
-        buf = state.buf.clone()
-        buf[_rows(action), pos.long()] = word.to(torch.int32)
+        buf = state.buf.index_put((_rows(action), pos.long()),
+                                  word.to(torch.int32))
         return PrependAppendState(
             buf=buf, start=torch.where(prepend, front, state.start),
             end=torch.where(prepend, state.end,
@@ -371,9 +372,9 @@ class PrependAppendEnvironment(_SeqEnvironment):
         front = action == 0
         back = torch.clamp(state.end - 1, min=0)
         pos = torch.where(front, state.start, back)
-        buf = state.buf.clone()
-        buf[_rows(action), pos.long().clamp(max=buf.shape[1] - 1)] = \
-            torch.full_like(state.steps, self.pad)
+        buf = state.buf.index_put(
+            (_rows(action), pos.long().clamp(max=state.buf.shape[1] - 1)),
+            torch.full_like(state.steps, self.pad))
         return PrependAppendState(
             buf=buf, start=torch.where(front, state.start + 1, state.start),
             end=torch.where(front, state.end, back),

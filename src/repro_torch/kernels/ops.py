@@ -8,6 +8,14 @@ launches in a plain integer attribute, ``<wrapper>.launches``, and the
 launches a CUDA graph being captured recorded instead in
 ``<wrapper>.captured`` (:func:`captured_launches`): a replay runs them
 again without Python, so no count moves then.
+
+Under ``torch.func.vmap`` (a seed plan's stacked runs), ``decode_attention``,
+``traj_logprob`` (forward and backward) and ``subtb_loss`` (forward and
+backward) batch by a rule that folds the vmapped axis into the batch axis:
+(S, B, ...) becomes (S*B, ...), the wrapper is called **once** (one kernel
+launch on CUDA, the plain version on the CPU), and the result is cut back
+to (S, B, ...).  Each produces one output row per input row, so the fold
+needs no kernel change.  ``decode_step`` has no rule and raises there.
 """
 from __future__ import annotations
 
@@ -27,6 +35,59 @@ DECODE_STEP_WEIGHTS = (
     "ln1_scale", "ln1_bias", "q_w", "q_b", "kv_w", "kv_b", "proj_w",
     "proj_b", "ln2_scale", "ln2_bias", "ff1_w", "ff1_b", "ff2_w", "ff2_b",
     "ln_f_scale", "ln_f_bias", "q0")
+
+
+def _functorch_wrapped(*tensors) -> bool:
+    """Whether any operand is a ``torch.func`` transform's wrapper (a
+    vmapped or grad-tracked tensor)."""
+    return any(isinstance(t, torch.Tensor)
+               and torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+class _Function(torch.autograd.Function):
+    """An ``autograd.Function`` in the ``setup_context`` form, which
+    ``torch.func`` transforms need for a ``vmap`` rule.  Torch's ``apply``
+    binds a call of that form through ``inspect.signature`` every time;
+    every ``forward`` here takes its operands positionally, with no
+    defaults, so outside a transform the binding is skipped (the rest of
+    torch's path is kept).  It cost 30-60 us a call on the card's host
+    (``scripts/eager_wrappers_ab.py``)."""
+
+    @classmethod
+    def apply(cls, *args):
+        if torch._C._are_functorch_transforms_active():
+            return super().apply(*args)
+        return super(torch.autograd.Function, cls).apply(
+            *torch._functorch.utils.unwrap_dead_wrappers(args))
+
+
+def _fold(batch_size: int, in_dims, args) -> list:
+    """A batching rule's operands with the vmapped axis folded into the
+    leading (batch) axis: an operand with the axis has it moved to the
+    front, one without it is expanded, and (S, B, ...) becomes
+    (S*B, ...).  The fold of an expanded operand is a copy, S times its
+    size (a stride-0 axis cannot merge with the batch axis; the kernels
+    take dense operands).  Non-tensors pass through."""
+    out = []
+    for a, d in zip(args, in_dims):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+            continue
+        a = (a.expand(batch_size, *a.shape) if d is None
+             else a.movedim(d, 0))
+        out.append(a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]))
+    return out
+
+
+def _unfold(batch_size: int, out):
+    """Undo :func:`_fold` on a result (a tensor or a tuple of them):
+    (S*B, ...) back to (S, B, ...), with the vmapped axis at 0."""
+    if isinstance(out, tuple):
+        return (tuple(_unfold(batch_size, o)[0] for o in out),
+                (0,) * len(out))
+    return out.view((batch_size, out.shape[0] // batch_size)
+                    + out.shape[1:]), 0
 
 
 def _device_index(dev: torch.device) -> int:
@@ -118,7 +179,15 @@ def decode_step(w: Mapping[str, torch.Tensor], x_new: torch.Tensor,
     forward-logit readout; ``logit_temp`` an optional (B,) float32 scale.
     Every tensor must be contiguous and on ``x_new``'s device.
     Returns ``(action (B,) int32, log_pf (B,), y (B, D), cache)``.
+    It has no batching rule: under ``torch.func.vmap`` (a seed axis) it
+    raises.
     """
+    if torch._C._are_functorch_transforms_active() and _functorch_wrapped(
+            x_new, cache["k"], gumbel, *w.values()):
+        raise RuntimeError(
+            "decode_step has no batching rule: the fused step does not run "
+            "under torch.func transforms (a seed plan's vmap); seed plans "
+            "train through the exploring rollout, which never calls it")
     dev = x_new.device
     f32 = torch.float32
     L, B, C, H, hd = cache["k"].shape
@@ -202,6 +271,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward replay)."""
     op = "decode_attention"
     _refuse_grad(op, q, k, v)
+    return _DecodeAttention.apply(q, k, v, kv_valid)
+
+
+def _decode_attention(q, k, v, kv_valid):
+    """:func:`decode_attention` on unwrapped operands: the checks, then
+    the kernel or its plain version."""
+    op = "decode_attention"
     dev = q.device
     f32 = torch.float32
     _require("q", op, q, f32, dev, 3)
@@ -241,6 +317,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = decode_attention.captured = 0
+
+
+class _DecodeAttention(_Function):
+    """:func:`decode_attention` with its batching rule (forward only)."""
+
+    @staticmethod
+    def forward(q, k, v, kv_valid):
+        return _decode_attention(q, k, v, kv_valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, kv_valid):
+        S = info.batch_size
+        return _unfold(S, _DecodeAttention.apply(
+            *_fold(S, in_dims, (q, k, v, kv_valid))))
 
 
 def _traj_operands(op: str, logits, actions, mask, valid) -> None:
@@ -340,6 +434,15 @@ def traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
     if tuple(g_total.shape) != (B,) or tuple(g_step.shape) != (B, T):
         raise ValueError(f"{op}: cotangents of shapes "
                          f"{tuple(g_total.shape)}, {tuple(g_step.shape)}")
+    return _TrajLogprobBackward.apply(logits, actions, mask, valid, g_total,
+                                      g_step)
+
+
+def _traj_backward(logits, actions, mask, valid, g_total, g_step):
+    """:func:`traj_logprob_backward` on unwrapped, checked operands."""
+    op = "traj_logprob_backward"
+    dev = logits.device
+    B, T, A = logits.shape
     if dev.type == "cpu":
         return ref_traj_logprob_backward(logits, actions, mask, valid,
                                          g_total, g_step)
@@ -361,17 +464,45 @@ def traj_logprob_backward(logits: torch.Tensor, actions: torch.Tensor,
 traj_logprob_backward.launches = traj_logprob_backward.captured = 0
 
 
-class _TrajLogprob(torch.autograd.Function):
+class _TrajLogprobBackward(_Function):
+    """The backward kernel with its batching rule (not differentiated
+    again)."""
+
     @staticmethod
-    def forward(ctx, logits, actions, mask, valid):
-        ctx.save_for_backward(logits, actions, mask, valid)
+    def forward(logits, actions, mask, valid, g_total, g_step):
+        return _traj_backward(logits, actions, mask, valid, g_total, g_step)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        S = info.batch_size
+        return _unfold(S, _TrajLogprobBackward.apply(
+            *_fold(S, in_dims, args)))
+
+
+class _TrajLogprob(_Function):
+    @staticmethod
+    def forward(logits, actions, mask, valid):
         return _traj_forward(logits, actions, mask, valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g_total, g_step):
         logits, actions, mask, valid = ctx.saved_tensors
         return (traj_logprob_backward(logits, actions, mask, valid, g_total,
                                       g_step), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, logits, actions, mask, valid):
+        S = info.batch_size
+        return _unfold(S, _TrajLogprob.apply(
+            *_fold(S, in_dims, (logits, actions, mask, valid))))
 
 
 def traj_logprob(logits: torch.Tensor, actions: torch.Tensor,
@@ -429,7 +560,9 @@ def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
                     lam: float) -> torch.Tensor:
     """Check phi (B, T+1) float32, length (B,) integer on phi's device with
     0 <= length <= T, and 0 < lam <= 1; return length as int32.  The range
-    check reads the lengths on the host, except where a host read is
+    check (:func:`_subtb_range`, made where the operands are unwrapped, so
+    inside a batching rule on the folded lengths) reads the lengths on the
+    host, except where a host read is
     forbidden: while the stream is being captured into a CUDA graph, and
     under ``torch.cuda.set_sync_debug_mode("error")`` (a capture's
     warm-up).  There it counts the bad calls in
@@ -448,6 +581,15 @@ def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
                          f"{tuple(length.shape)} do not agree")
     if not 0.0 < float(lam) <= 1.0:
         raise ValueError(f"{op}: lam must lie in (0, 1], got {lam}")
+    return length.to(torch.int32)
+
+
+def _subtb_range(op: str, phi: torch.Tensor,
+                 length: torch.Tensor) -> torch.Tensor:
+    """The lengths' range check of :func:`_subtb_operands`, on unwrapped
+    operands (a batching rule's folded ones); returns them contiguous."""
+    dev = phi.device
+    B, T1 = phi.shape
     if B and dev.type == "cuda" and (
             torch.cuda.is_current_stream_capturing()
             or torch.cuda.get_sync_debug_mode() == 2):
@@ -458,7 +600,7 @@ def _subtb_operands(op: str, phi: torch.Tensor, length: torch.Tensor,
         if lo < 0 or hi > T1 - 1:
             raise ValueError(f"{op}: lengths must lie in [0, {T1 - 1}], got "
                              f"[{lo}, {hi}]")
-    return length.to(torch.int32).contiguous()
+    return length.contiguous()
 
 
 def _subtb_args(phi, length, lam, **ptrs):
@@ -473,6 +615,7 @@ def _subtb_args(phi, length, lam, **ptrs):
 
 def _subtb_forward(phi: torch.Tensor, length: torch.Tensor,
                    lam: float) -> torch.Tensor:
+    length = _subtb_range("subtb_loss", phi, length)
     dev = phi.device
     if dev.type == "cpu":
         return ref_subtb(phi, length, lam)
@@ -502,6 +645,13 @@ def subtb_loss_backward(phi: torch.Tensor, length: torch.Tensor,
     _require("g", op, g, torch.float32, phi.device, 1)
     if tuple(g.shape) != (phi.shape[0],):
         raise ValueError(f"{op}: cotangent of shape {tuple(g.shape)}")
+    return _SubtbLossBackward.apply(phi, length, g, float(lam))
+
+
+def _subtb_backward(phi, length, g, lam):
+    """:func:`subtb_loss_backward` on unwrapped, checked operands."""
+    op = "subtb_loss_backward"
+    length = _subtb_range(op, phi, length)
     dev = phi.device
     if dev.type == "cpu":
         return ref_subtb_backward(phi, length, lam, g)
@@ -522,17 +672,46 @@ def subtb_loss_backward(phi: torch.Tensor, length: torch.Tensor,
 subtb_loss_backward.launches = subtb_loss_backward.captured = 0
 
 
-class _SubtbLoss(torch.autograd.Function):
+class _SubtbLossBackward(_Function):
+    """The backward kernel with its batching rule (not differentiated
+    again)."""
+
     @staticmethod
-    def forward(ctx, phi, length, lam):
+    def forward(phi, length, g, lam):
+        return _subtb_backward(phi, length, g, lam)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, phi, length, g, lam):
+        S = info.batch_size
+        return _unfold(S, _SubtbLossBackward.apply(
+            *_fold(S, in_dims, (phi, length, g, lam))))
+
+
+class _SubtbLoss(_Function):
+    @staticmethod
+    def forward(phi, length, lam):
+        return _subtb_forward(phi, length, lam)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        phi, length, lam = inputs
         ctx.save_for_backward(phi, length)
         ctx.lam = lam
-        return _subtb_forward(phi, length, lam)
 
     @staticmethod
     def backward(ctx, g):
         phi, length = ctx.saved_tensors
         return subtb_loss_backward(phi, length, g, ctx.lam), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, phi, length, lam):
+        S = info.batch_size
+        return _unfold(S, _SubtbLoss.apply(
+            *_fold(S, in_dims, (phi, length, lam))))
 
 
 def subtb_loss(phi: torch.Tensor, length: torch.Tensor,

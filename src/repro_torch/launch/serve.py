@@ -20,8 +20,10 @@ Runs on ``cuda`` unless ``--device cpu`` is given, and fails on a machine
 without a GPU otherwise.  The policy is freshly initialised from seed 0,
 or read from a training checkpoint of either package (``--checkpoint
 DIR``, at ``--step N`` or the latest complete step, which the front
-follows as training writes newer ones).  ``--plan`` / ``--devices`` take
-only ``single`` and 1: sharded lane pools are not ported.
+follows as training writes newer ones).  ``--plan data_parallel
+--devices D`` shards every engine's lane pool over ``cuda:0 .. cuda:D-1``
+(defaults ``REPRO_SERVE_PLAN`` / ``REPRO_SERVE_DEVICES``); the samples are
+bitwise the single pool's.
 """
 from __future__ import annotations
 
@@ -64,12 +66,14 @@ def main(argv=None) -> int:
                     help="engine lane-pool size")
     ap.add_argument("--plan", default=None, choices=("single",
                                                      "data_parallel"),
-                    help="execution plan of every engine's lane pool "
-                         "(default: REPRO_SERVE_PLAN, else single); only "
-                         "single is ported")
+                    help="execution plan for every engine's lane pool: "
+                         "data_parallel shards lanes over the devices, "
+                         "bitwise-identical samples (default: "
+                         "REPRO_SERVE_PLAN env var, else single)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="device count of the plan (default: "
-                         "REPRO_SERVE_DEVICES); only 1 is ported")
+                    help="device count for --plan data_parallel (default: "
+                         "REPRO_SERVE_DEVICES env var, else all visible "
+                         "devices)")
     ap.add_argument("--dedup-cache", type=int, default=64, metavar="N",
                     help="per-engine LRU of recent results served to "
                          "identical requests (env, transforms, checkpoint "
@@ -130,7 +134,7 @@ def main(argv=None) -> int:
                           max_step_retries=args.retries, plan=args.plan,
                           devices=args.devices,
                           dedup_cache_size=args.dedup_cache)
-    except ValueError as e:       # a plan or device count not ported
+    except ValueError as e:       # a plan or device count this box lacks
         ap.error(str(e))
     if args.http:
         return _serve_http(args, sched, ServeFront, serve_http)

@@ -160,6 +160,13 @@ class ParamTree(nn.Module):
     def __iter__(self) -> Iterator[str]:
         return iter(self._keys)
 
+    def forward(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)``: with
+        ``torch.func.functional_call(tree, params, (fn, *args))`` it runs
+        on ``params`` in place of the tree's own leaves (a seed plan's
+        per-seed parameters under ``torch.func.vmap``)."""
+        return fn(*args, **kwargs)
+
     def flat(self) -> Dict[str, torch.Tensor]:
         """Parameters keyed by ``/``-joined path (the checkpoint names)."""
         return {name.replace(".", "/"): p

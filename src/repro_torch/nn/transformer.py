@@ -148,8 +148,10 @@ def cache_init(p: Params, x0: torch.Tensor, capacity: int, *,
     B, D = x0.shape
     k0, v0 = _kv_heads_stacked(p, x0, num_heads)        # (Lyr, B, H, hd)
     shape = (num_layers_of(p), B, capacity, num_heads, D // num_heads)
-    k = torch.zeros(shape, dtype=x0.dtype, device=x0.device)
-    v = torch.zeros(shape, dtype=x0.dtype, device=x0.device)
+    # new_zeros: a cache of a seed plan's vmapped policy carries the seed
+    # axis of x0, so the in-place writes below and later stay per seed
+    k = x0.new_zeros(shape)
+    v = x0.new_zeros(shape)
     k[:, :, 0] = k0
     v[:, :, 0] = v0
     return {"k": k, "v": v}

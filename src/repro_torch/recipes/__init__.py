@@ -51,10 +51,11 @@ class TrainRecipe(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class RunOptions:
     """A run's settings, resolved from the caller and the recipe's
-    defaults (port of ``repro.recipes.base.RunOptions``, without the
-    execution-plan fields: the port runs one device).  ``eval_batch`` is
-    the sample count of the sampling evals; ``transforms`` the env
-    transform stack, innermost first
+    defaults (port of ``repro.recipes.base.RunOptions``; the execution
+    plan, which no recipe reads, is ``run_recipe``'s own argument).
+    ``num_envs`` is the global batch, which a data-parallel plan shards;
+    ``eval_batch`` is the sample count of the sampling evals;
+    ``transforms`` the env transform stack, innermost first
     (:func:`repro_torch.envs.transforms.parse_transform` specs);
     ``eval_every == 0`` turns evals off."""
     seed: int = 0

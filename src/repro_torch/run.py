@@ -45,18 +45,36 @@ from there on the port draws its own noise, iteration i from ``(seed,
 i)``), a port resume is bitwise the uninterrupted port run, and JAX's
 serving loader (``restore_subtree``) reads a port checkpoint's policy
 params.  JAX's full ``restore`` of a port checkpoint is not possible: the
-port writes no ``.train/.key``.  JAX's execution-plan flags (``--plan``,
-``--devices``, ``--num-seeds``) are not ported: the port trains on one
-device.
+port writes no ``.train/.key``.
+
+Execution plans, with JAX's flags (:mod:`repro_torch.algo.plan`)::
+
+    # 8 independent seeds on one card, each kernel launched once for all 8
+    python -m repro_torch.run --recipe hypergrid_subtb --plan vmap_seeds \
+        --num-seeds 8
+    # the batch over D ranks: started here as D processes (rank r on
+    # cuda:r, or all on the CPU over gloo with --device cpu) unless
+    # torchrun started this one
+    python -m repro_torch.run --recipe hypergrid_tb --plan data_parallel \
+        --devices 4 --device cpu
+
+Seed s of a seed plan seeded ``--seed k`` is the single run ``--seed
+k+s`` (:func:`repro_torch.algo.plan.seed_of`); its rows print the mean over
+the seeds, and seed plans run no evals.  ``data_parallel`` over two or more
+ranks needs a card per rank (NCCL refuses two ranks on one device), or
+``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
 import inspect
 import json
+import os
 import sys
 import time
 from typing import Callable, Dict, Optional
+
+import torch
 
 from .device import DeviceLike, resolve_device
 
@@ -100,6 +118,8 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
                metrics_json: Optional[str] = None,
                checkpoint_dir: Optional[str] = None,
                checkpoint_every: int = 0, restore: bool = False,
+               plan="single", devices=None,
+               num_seeds: Optional[int] = None,
                log: Callable[[str], None] = print) -> dict:
     """Train recipe ``name``, or the default recipe of the registered env
     ``env_name`` (:mod:`repro_torch.envs.registry`), whose factory then
@@ -118,9 +138,17 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
     saves the state into ``checkpoint_dir`` (default
     ``checkpoints/<recipe>``) on that cadence and at the end;
     ``restore=True`` resumes from the newest complete checkpoint there.
+    ``plan`` / ``devices`` / ``num_seeds`` pick the execution plan
+    (:func:`repro_torch.algo.plan.make_plan`): under a seed plan seed s is
+    the single run seeded ``seed + s``, the rows hold the mean over the
+    seeds and no evals run (a metrics JSON is refused with JAX's warning);
+    under a data-parallel plan this process is one rank of a running
+    group, or of a group of one that it starts (``python -m
+    repro_torch.run`` starts D ranks), on ``cuda:<rank>`` unless ``device``
+    names one, and only rank 0 records evals and writes checkpoints.
     A recipe with a run function of its own (``run_override``) refuses a
-    foreign env, a sampler and the checkpoint flags, and warns that it
-    writes no metrics JSON, as in JAX.  Returns ``{recipe, state,
+    foreign env, a sampler, any plan but single and the checkpoint flags,
+    and warns that it writes no metrics JSON, as in JAX.  Returns ``{recipe, state,
     history, rows, device, policy, loop, suite}``: each history row holds the
     iteration's metrics and ``wall_s``, the seconds since the loop
     started; ``rows`` are the eval rows, ``[{"step": it, metric: value,
@@ -128,6 +156,7 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
     (its launches per replay and its replays)."""
     from . import recipes
     from .algo import TrainLoop, make_sampler
+    from .algo.plan import make_plan
     from .checkpoint import CheckpointManager
     from .envs.registry import get_env
     from .envs.transforms import apply_transforms, transform_stack
@@ -142,6 +171,11 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
         raise ValueError("run_recipe needs a recipe name or an env_name "
                          "whose registry entry supplies one")
     recipe = recipes.get_train(name)
+    exec_plan = make_plan(plan, devices=devices, num_seeds=num_seeds,
+                          num_envs=num_envs or recipe.num_envs)
+    if exec_plan.shard_info().axis is not None and \
+            torch.device(device or "cuda") == torch.device("cuda"):
+        device = f"cuda:{exec_plan.rank}"       # rank r takes cuda:r
     dev = resolve_device(device)
     opts = recipes.RunOptions(
         seed=seed,
@@ -166,6 +200,11 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
             raise ValueError(
                 f"recipe {recipe.name!r} runs a training loop of its own; "
                 "--sampler is not supported for it")
+        if exec_plan.name != "single":
+            raise ValueError(
+                f"recipe {recipe.name!r} uses a custom training driver; "
+                "--plan/--checkpoint-every/--restore are not supported "
+                "for it")
         if checkpoint_every or restore:
             raise ValueError(
                 f"recipe {recipe.name!r} runs a training loop of its own; "
@@ -193,15 +232,30 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
     cfg = recipe.make_config(environment, opts.num_envs, opts.iterations)
     if config:
         cfg = cfg._replace(**config)
+    if exec_plan.name != "single":
+        log(f"plan: {exec_plan.name} over {exec_plan.device_count} "
+            f"device(s), mesh_shape={exec_plan.mesh_shape}, "
+            f"num_seeds={exec_plan.seeds}")
+    seed_params = None
+    if exec_plan.seeds:
+        seed_params = (lambda sd: recipe.make_policy(
+            environment, seed=sd, device=dev).params.flat())
     loop = TrainLoop(environment, env_params, policy, cfg,
                      sampler=make_sampler(sampler or "on_policy",
-                                          **(sampler_kwargs or {})))
+                                          **(sampler_kwargs or {})),
+                     plan=exec_plan, seed_params=seed_params)
     suite = None
-    if opts.eval_every > 0:
+    # seed plans carry a per-seed metric axis the rows do not flatten:
+    # evals run on the unseeded plans only, as in JAX
+    if opts.eval_every > 0 and not exec_plan.seeds:
         suite = EvalSuite(recipe.make_evals(environment, env_params, policy,
                                             seed=seed,
                                             eval_batch=opts.eval_batch),
                           every=opts.eval_every, seed=seed)
+    elif exec_plan.seeds and metrics_json is not None:
+        log(f"warning: plan {exec_plan.name!r} carries a per-seed metric "
+            "axis the eval suite does not flatten; --metrics-json is "
+            "ignored")
     manager = None
     if checkpoint_every > 0 or restore:
         manager = CheckpointManager(checkpoint_dir
@@ -209,7 +263,8 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
     t0 = time.perf_counter()
 
     def callback(it, state, metrics, batch):
-        row = {"it": it, **{k: float(v) for k, v in metrics.items()}}
+        # seed plans report per-seed metrics; the row takes their mean
+        row = {"it": it, **{k: float(v.mean()) for k, v in metrics.items()}}
         row["wall_s"] = time.perf_counter() - t0
         log(f"it {it:6d} " + " ".join(
             f"{k} {row[k]:9.4f}" for k in ("loss", "log_z",
@@ -221,11 +276,11 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
                               suite=suite, checkpoint=manager,
                               checkpoint_every=checkpoint_every,
                               restore=restore)
-    rows = [] if suite is None else suite.rows()
+    rows = [] if suite is None or loop.rank != 0 else suite.rows()
     for row in rows:
         log(f"eval it {row['step']:6d} " + " ".join(
             f"{k} {v:9.4f}" for k, v in row.items() if k != "step"))
-    if suite is not None and metrics_json is not None:
+    if suite is not None and loop.rank == 0 and metrics_json is not None:
         dump_metrics_json(metrics_json, recipe=recipe.name, opts=opts,
                           suite=suite, rows=rows)
         log(f"wrote metrics JSON -> {metrics_json}")
@@ -234,13 +289,10 @@ def run_recipe(name: Optional[str] = None, *, seed: int = 0,
             "suite": suite}
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.run",
-        description="Train a GFlowNet recipe with the PyTorch port.",
-        epilog="JAX's execution-plan flags (--plan, --devices, "
-               "--num-seeds) are not ported yet: they wait for the port's "
-               "execution plans; the port trains on one device.")
+        description="Train a GFlowNet recipe with the PyTorch port.")
     ap.add_argument("--recipe", help="recipe name (see --list)")
     ap.add_argument("--env", dest="env_name", default=None, metavar="NAME",
                     help="registered environment (see --list-envs); its "
@@ -269,6 +321,21 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the eval-suite metric rows as JSON "
                          "(consumed by benchmarks/quality.py)")
+    ap.add_argument("--plan", default="single",
+                    choices=["auto", "single", "data_parallel",
+                             "vmap_seeds", "seeds_x_data"],
+                    help="execution plan: 'data_parallel' shards rollouts "
+                         "and objectives over --devices ranks (started "
+                         "here, rank r on cuda:r, or on the CPU over gloo "
+                         "with --device cpu, unless torchrun started this "
+                         "process); 'auto' does so whenever >1 device is "
+                         "visible and the batch divides evenly; "
+                         "'vmap_seeds' trains --num-seeds runs at once")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks for data_parallel/seeds_x_data (default: "
+                         "all visible devices)")
+    ap.add_argument("--num-seeds", type=int, default=None,
+                    help="seed-axis size for vmap_seeds/seeds_x_data plans")
     ap.add_argument("--checkpoint-dir", default=None, metavar="PATH",
                     help="checkpoint directory "
                          "(default checkpoints/<recipe>)")
@@ -296,6 +363,11 @@ def main(argv=None) -> int:
                     help="GFNConfig override (e.g. lr=3e-4)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
 
     from . import recipes
@@ -352,6 +424,58 @@ def main(argv=None) -> int:
                   "see the registry", file=sys.stderr)
             return 2
 
+    from .algo.plan import make_plan
+    from .launch import mesh
+    try:
+        plan = make_plan(args.plan, devices=args.devices,
+                         num_seeds=args.num_seeds,
+                         num_envs=args.num_envs
+                         or recipes.get_train(args.recipe
+                                              or get_env(args.env_name).recipe
+                                              ).num_envs)
+    except (KeyError, ValueError) as e:
+        ap.error(str(e))
+    world = plan.num_shards
+    if plan.shard_info().axis is not None and world > 1 \
+            and not mesh.under_launcher():
+        if torch.device(args.device or "cuda").type == "cuda" and \
+                torch.cuda.device_count() < world:
+            ap.error(f"--plan {plan.name} --devices {world} puts rank r on "
+                     f"cuda:r and needs {world} CUDA devices; this machine "
+                     f"has {torch.cuda.device_count()} (pass --device cpu "
+                     "to run the ranks on the CPU over gloo)")
+        # start the ranks, as JAX's command line runs the whole mesh
+        import torch.multiprocessing as mp
+        mp.start_processes(_rank_main, args=(list(sys.argv[1:] if argv is None
+                                                  else argv),
+                                             world, mesh.store_file()),
+                           nprocs=world, start_method="spawn")
+        return 0
+    return _train(args, ap)
+
+
+def _rank_main(rank: int, argv, world: int, store_path: str) -> None:
+    """Rank ``rank`` of a ``--plan data_parallel`` run that
+    :func:`main` started: join the group on its device, train, leave."""
+    from .launch import mesh
+    ap = _parser()
+    args = ap.parse_args(argv)
+    device = (torch.device("cpu") if args.device
+              and torch.device(args.device).type == "cpu"
+              else torch.device("cuda", rank))
+    mesh.init_group(world, rank, device, store_path=store_path)
+    try:
+        _train(args, ap, device=device, quiet=rank != 0)
+    finally:
+        mesh.destroy_group()
+
+
+def _train(args, ap, device=None, quiet: bool = False) -> int:
+    """Train as the parsed ``args`` say (in this process: a single run, a
+    seed plan, or one rank of a data-parallel group)."""
+    from . import recipes
+    if device is None and args.device is None and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{os.environ['LOCAL_RANK']}"    # a torchrun rank
     sampler_kwargs = {}
     if args.sampler in ("replay", "backward_replay"):
         sampler_kwargs = {"capacity": args.replay_capacity,
@@ -364,13 +488,17 @@ def main(argv=None) -> int:
         iterations=args.iterations, num_envs=args.num_envs,
         env=recipes.parse_overrides(args.env_overrides, ap.error),
         config=recipes.parse_overrides(args.config_overrides, ap.error),
-        device=args.device, eval_every=args.eval_every,
+        device=args.device if device is None else device,
+        eval_every=args.eval_every,
         eval_batch=args.eval_batch, sampler=args.sampler,
         sampler_kwargs=sampler_kwargs, metrics_json=args.metrics_json,
         checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every, restore=args.restore)
-    print(f"trained {out['recipe']} for {out['state'].step} iterations on "
-          f"{out['device']}")
+        checkpoint_every=args.checkpoint_every, restore=args.restore,
+        plan=args.plan, devices=args.devices, num_seeds=args.num_seeds,
+        log=(lambda *_: None) if quiet else print)
+    if not quiet:
+        print(f"trained {out['recipe']} for {out['state'].step} iterations "
+              f"on {out['device']}")
     return 0
 
 

@@ -1,10 +1,11 @@
-"""Sampling service of the port (one device): continuously batched
-engines over every servable env of the registry, behind a threaded front
-with deadlines, backpressure, quarantine and replay, and an HTTP endpoint.
+"""Sampling service of the port: continuously batched engines over every
+servable env of the registry, behind a threaded front with deadlines,
+backpressure, quarantine and replay, and an HTTP endpoint.
 
 - :class:`~repro_torch.serve.engine.SamplingEngine`: a lane pool per
   (env, policy), the KV-cache tier or the full-observation tier, dedup,
-  retry, drain-time validation, resize / prewarm / cancel;
+  retry, drain-time validation, resize / prewarm / cancel, sharded over a
+  ``data_parallel`` plan's devices;
 - :class:`~repro_torch.serve.scheduler.Scheduler`: requests to engines by
   (env, transforms, overrides, checkpoint, step), built from the registry;
 - :class:`~repro_torch.serve.front.ServeFront`: bounded admission queues

@@ -1,5 +1,4 @@
-"""Continuously batched sampling engine (port of ``repro.serve.engine``,
-single device).
+"""Continuously batched sampling engine (port of ``repro.serve.engine``).
 
 One engine owns a pool of ``num_lanes`` lanes, each carrying its own env
 state, KV cache rows, noise coordinates (request seed, sample index, step),
@@ -41,11 +40,26 @@ without touching a lane.  The key is the seed itself: the port's noise is
 a function of (seed, sample, step), so the seed is the request's whole
 noise stream (JAX keys on its split step keys).
 
-Left out (ROADMAP queue 1 item 13): execution plans and sharded pools;
-``plan`` takes only ``None`` or ``"single"``.
+Sharded lane pools: pass ``plan="data_parallel"`` (or a
+:class:`repro_torch.algo.plan.DataParallelPlan`) and the pool is cut into
+the plan's D shards, in this one process, as JAX's ``shard_map`` cuts it
+over a mesh: shard d owns the static-shape slice ``d`` of the lanes
+(:func:`repro_torch.distributed.sharding.shard_rows`) on device
+``plan.serve_devices()[d]``, and each block steps and refills every shard
+on its own device, with its own ``decode_step`` launch at the per-shard
+lane count; the finished counts are summed across shards.  ``num_lanes``
+is rounded up to a multiple of D.  Every per-lane operation is
+row-independent, so the samples are bitwise the single engine's for any
+shard count.  A device may repeat in the plan's list (``["cuda:0"] * 2``,
+``["cpu"] * 4``, ``cuda`` beside ``cuda:0``): the shards on the
+engine's device share its policy and env parameters; a shard on another
+device serves from copies of both, the caller's parameters moved there.
+The host-side bookkeeping (pending queue, drain, dedup) is the single
+pool's, over global lane indices.  Plans with a seed axis are refused.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from collections import OrderedDict, deque
@@ -56,8 +70,11 @@ import torch
 
 from ..core.rollout import _cache_engaged
 from ..core.types import NoiseSource, hash_gumbel, sample_masked
+from ..device import resolve_device
+from ..distributed.sharding import shard_rows
 from ..envs.base import Environment, select_state
 from ..envs.transforms import RewardExponent, TransformedParams
+from ..kernels.ops import _device_index
 from .errors import EngineFailure, LanePoisoned
 
 
@@ -83,6 +100,32 @@ class LaneState:
     log_r: torch.Tensor
 
 
+def _same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` is the current
+    card, so ``cuda`` and ``cuda:0`` can be one)."""
+    a, b = resolve_device(a), resolve_device(b)
+    if a.type == b.type == "cuda":
+        return _device_index(a) == _device_index(b)
+    return a == b
+
+
+def _moved(x, dev: torch.device):
+    """Env params ``x`` (a dataclass of tensors, nested dicts of them and
+    plain values) on ``dev``: every tensor copied there, a stored
+    ``torch.device`` replaced by ``dev``, other values as they are."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, torch.device):
+        return dev
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _moved(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, dict):
+        return {k: _moved(v, dev) for k, v in x.items()}
+    return x
+
+
 class _PendingSample(NamedTuple):
     request_id: int
     env_id: int
@@ -104,16 +147,6 @@ class EngineResult(NamedTuple):
     dedup: bool = False
 
 
-def check_plan(plan) -> None:
-    """The port runs one device: ``None`` and ``"single"`` pass, any other
-    plan raises."""
-    if plan is None or plan == "single":
-        return
-    raise ValueError(
-        f"the port serves on one device (plan 'single'); plan {plan!r} "
-        "is not ported (sharded lane pools are ROADMAP queue 1 item 13)")
-
-
 class SamplingEngine:
     """Sampling service over one (env, policy) pair on the device of
     ``env_params``.
@@ -128,7 +161,9 @@ class SamplingEngine:
     runs) injects failures at the ``engine_step``, ``latency`` and
     ``lane_state`` points; a failing block is retried up to
     ``max_step_retries`` times, ``retry_backoff_s`` doubling each time.
-    ``noise`` is the noise source (default :func:`hash_gumbel`)."""
+    ``noise`` is the noise source (default :func:`hash_gumbel`).  ``plan``
+    (``None`` / ``"single"``, ``"data_parallel"`` or a plan) shards the
+    lane pool (module docstring)."""
 
     def __init__(self, env: Environment, env_params, policy, *,
                  num_lanes: int = 16, use_cache: Union[bool, str] = "auto",
@@ -136,7 +171,12 @@ class SamplingEngine:
                  plan=None, dedup_cache_size: int = 0, fault_plan=None,
                  max_step_retries: int = 2, retry_backoff_s: float = 0.02,
                  noise: NoiseSource = hash_gumbel):
-        check_plan(plan)
+        from ..algo.plan import make_plan
+        self.plan = make_plan(plan if plan is not None else "single")
+        if self.plan.name not in ("single", "data_parallel"):
+            raise ValueError(
+                f"SamplingEngine supports plan 'single' or 'data_parallel', "
+                f"got {self.plan.name!r} (the lane pool has no seed axis)")
         capable = _cache_engaged(env, policy)
         if use_cache not in ("auto", True, False):
             raise ValueError(f"use_cache must be 'auto', True or False; "
@@ -153,7 +193,12 @@ class SamplingEngine:
         self.device = env_params.device
         self.policy = policy
         self.noise = noise
-        self.num_lanes = L = max(1, int(num_lanes))
+        devs = ([self.device] if self.plan.name == "single"
+                else self.plan.serve_devices())
+        #: per shard: (device, policy, env params) on that device
+        self._shard_ctx = [self._on_device(d) for d in devs]
+        self._shards = len(devs)
+        self.num_lanes = L = self._round_lanes(num_lanes)
         self.T = T = int(env.max_steps)
         # lane transitions per block before the host looks at the pool;
         # terminal lanes no-op, so parity does not depend on it
@@ -182,31 +227,54 @@ class SamplingEngine:
             "blocks": 0, "step_retries": 0, "step_failures": 0,
             "drain_skips": 0, "drain_packs": 0, "resizes": 0,
             "dedup_hits": 0, "dedup_joins": 0, "dedup_misses": 0}
-        self.lane = self._init_lane(L)
+        self.lanes = self._init_lanes(L)
 
-    def _params(self, beta: torch.Tensor) -> TransformedParams:
-        return TransformedParams(inner=self.inner_params,
+    def _on_device(self, dev):
+        """A shard's device, policy and env params: the engine's own when
+        ``dev`` is the engine's device (however it is spelled), else
+        copies of them on ``dev``."""
+        if _same_device(dev, self.device):
+            return self.device, self.policy, self.inner_params
+        dev = resolve_device(dev)
+        return (dev, copy.deepcopy(self.policy).to(dev),
+                _moved(self.inner_params, dev))
+
+    def _round_lanes(self, n: int) -> int:
+        """Round a lane count up to a multiple of the shard count (each
+        shard owns a static-shape slice of the pool)."""
+        d = self._shards
+        return ((max(1, int(n)) + d - 1) // d) * d
+
+    def _params(self, beta: torch.Tensor, d: int = 0) -> TransformedParams:
+        return TransformedParams(inner=self._shard_ctx[d][2],
                                  extra={"beta": beta})
 
-    def _init_lane(self, L: int) -> LaneState:
-        dev = self.device
+    def _init_lanes(self, L: int) -> List[LaneState]:
+        """The pool of ``L`` lanes as its shards' slices."""
+        return [self._init_lane(L // self._shards, d)
+                for d in range(self._shards)]
+
+    def _init_lane(self, L: int, d: int = 0) -> LaneState:
+        dev, policy, _ = self._shard_ctx[d]
         ones = torch.ones(L, dtype=torch.float32, device=dev)
         zeros = torch.zeros(L, dtype=torch.int64, device=dev)
-        _, state0 = self.env.reset(L, self._params(ones))
+        _, state0 = self.env.reset(L, self._params(ones, d))
         return LaneState(
             env_state=state0,
-            cache=self.policy.cache_init(L) if self.cached else {},
+            cache=policy.cache_init(L) if self.cached else {},
             prev_action=zeros, seed=zeros, env_id=zeros,
             request_id=torch.full((L,), -1, dtype=torch.int64, device=dev),
             t=zeros, logit_temp=ones, reward_beta=ones,
             log_r=torch.zeros(L, dtype=torch.float32, device=dev))
 
     # -- device work -----------------------------------------------------------
-    def _lane_step(self, lane: LaneState):
-        """Advance every live lane one transition; idle and terminal lanes
-        hold their state (their mask is all-legal, their action unused)."""
+    def _lane_step(self, lane: LaneState, d: int = 0):
+        """Advance every live lane of shard ``d`` one transition; idle and
+        terminal lanes hold their state (their mask is all-legal, their
+        action unused)."""
         env = self.env
-        ep = self._params(lane.reward_beta)
+        policy = self._shard_ctx[d][1]
+        ep = self._params(lane.reward_beta, d)
         state = lane.env_state
         fmask = env.forward_mask(state, ep)
         was_done = env.is_terminal(state, ep)
@@ -216,12 +284,12 @@ class SamplingEngine:
                             lane.t.clamp(0, self.T - 1), env.action_dim)
         if self.cached:
             token, pos, length = env.observe_last(state, ep, lane.prev_action)
-            actions, _, _, cache = self.policy.sample_cached(
+            actions, _, _, cache = policy.sample_cached(
                 lane.cache, token, pos, length, gumbel, safe_mask,
                 step=lane.t, logit_temp=lane.logit_temp)
             actions = actions.long()
         else:
-            out = self.policy.apply(env.observe(state, ep))
+            out = policy.apply(env.observe(state, ep))
             logits = out["logits"] * lane.logit_temp[:, None]
             actions, _ = sample_masked(logits, safe_mask, gumbel)
             cache = lane.cache
@@ -235,28 +303,40 @@ class SamplingEngine:
         return new_lane, live & done
 
     @torch.no_grad()
-    def _block(self, lane: LaneState):
-        """``steps_per_sync`` transitions; a lane finishes at most once per
-        occupancy, so OR-ing over the block is the exact set that finished,
-        and its count is computed here, beside the block's work."""
-        done_any = torch.zeros(self.num_lanes, dtype=torch.bool,
-                               device=self.device)
+    def _block(self, lane: LaneState, d: int = 0):
+        """``steps_per_sync`` transitions of shard ``d``; a lane finishes at
+        most once per occupancy, so OR-ing over the block is the exact set
+        that finished, and its count is computed here, beside the block's
+        work."""
+        done_any = torch.zeros(lane.t.shape[0], dtype=torch.bool,
+                               device=lane.t.device)
         for _ in range(self.steps_per_sync):
-            lane, newly_done = self._lane_step(lane)
+            lane, newly_done = self._lane_step(lane, d)
             done_any |= newly_done
         return lane, done_any, done_any.sum()
 
+    def _blocks(self, lanes: List[LaneState]):
+        """A block on every shard: the new shards, each shard's finished
+        mask and count, and the pool's count (summed on shard 0's
+        device)."""
+        out = [self._block(lane, d) for d, lane in enumerate(lanes)]
+        total = out[0][2]
+        for _, _, c in out[1:]:
+            total = total + c.to(total.device)
+        return ([o[0] for o in out], [(o[1], o[2]) for o in out], total)
+
     @torch.no_grad()
     def _refill(self, lane: LaneState, mask, seed, env_id, request_id,
-                logit_temp, reward_beta) -> LaneState:
-        """Reset the lanes under ``mask`` to fresh request state: a new reset
-        state and cache row, nothing of the previous occupant survives."""
-        L = self.num_lanes
-        _, state0 = self.env.reset(L, self._params(lane.reward_beta))
+                logit_temp, reward_beta, d: int = 0) -> LaneState:
+        """Reset the lanes of shard ``d`` under ``mask`` to fresh request
+        state: a new reset state and cache row, nothing of the previous
+        occupant survives."""
+        L = lane.t.shape[0]
+        _, state0 = self.env.reset(L, self._params(lane.reward_beta, d))
         env_state = select_state(mask, state0, lane.env_state)
         cache = lane.cache
         if self.cached:
-            cache0 = self.policy.cache_init(L)
+            cache0 = self._shard_ctx[d][1].cache_init(L)
             row = mask.view(1, L, *([1] * (lane.cache["k"].dim() - 2)))
             cache = {k: torch.where(row, cache0[k], lane.cache[k])
                      for k in lane.cache}
@@ -275,13 +355,21 @@ class SamplingEngine:
                           floats: np.ndarray) -> None:
         """Refill the lanes under ``mask`` from host rows: ``ints`` (3, L)
         seed, env_id, request_id; ``floats`` (2, L) logit_temp,
-        reward_beta (one copy each to the device)."""
-        dev = self.device
-        ints_d = torch.as_tensor(ints).to(dev)
-        floats_d = torch.as_tensor(floats).to(dev)
-        self.lane = self._refill(self.lane, torch.as_tensor(mask).to(dev),
-                                 ints_d[0], ints_d[1], ints_d[2],
-                                 floats_d[0], floats_d[1])
+        reward_beta (one copy each to each shard's device, of its
+        columns)."""
+        lanes = []
+        for d, lane in enumerate(self.lanes):
+            cols = self._lane_slice(d)
+            dev = self._shard_ctx[d][0]
+            ints_d = torch.as_tensor(ints[:, cols]).to(dev)
+            floats_d = torch.as_tensor(floats[:, cols]).to(dev)
+            lanes.append(self._refill(
+                lane, torch.as_tensor(mask[cols]).to(dev), ints_d[0],
+                ints_d[1], ints_d[2], floats_d[0], floats_d[1], d))
+        self.lanes = lanes
+
+    def _lane_slice(self, d: int) -> slice:
+        return shard_rows(d, self._shards, self.num_lanes)
 
     def _idle_rows(self):
         """Host rows of an idle refill: request id -1, temperatures 1."""
@@ -292,7 +380,9 @@ class SamplingEngine:
 
     def _lanes_of(self, rid: int) -> np.ndarray:
         """(L,) bool: the occupied lanes running request ``rid``."""
-        return (self.lane.request_id.cpu().numpy() == rid) & self._occupied
+        ids = np.concatenate([lane.request_id.cpu().numpy()
+                              for lane in self.lanes])
+        return (ids == rid) & self._occupied
 
     # -- pool sizing -------------------------------------------------------------
     def resize(self, num_lanes: int) -> bool:
@@ -301,7 +391,7 @@ class SamplingEngine:
         results survive (the parity contract does not depend on the lane
         count), but the pool must be idle: raises :class:`EngineFailure`
         if any lane is occupied."""
-        L = max(1, int(num_lanes))
+        L = self._round_lanes(num_lanes)
         if L == self.num_lanes:
             return False
         self._drain_pending()
@@ -309,7 +399,7 @@ class SamplingEngine:
             raise EngineFailure(
                 "cannot resize a lane pool with occupied lanes")
         self.num_lanes = L
-        self.lane = self._init_lane(L)
+        self.lanes = self._init_lanes(L)
         self._occupied = np.zeros(L, bool)
         self.counters["resizes"] += 1
         return True
@@ -322,16 +412,18 @@ class SamplingEngine:
         kernel library is built and loaded, and the allocator holds blocks
         of each size)."""
         orig = self.num_lanes
-        for L in sorted({max(1, int(s)) for s in sizes}):
+        for L in sorted({self._round_lanes(s) for s in sizes}):
             self.resize(L)
-            lane, done, _ = self._block(self.lane)
-            order = torch.argsort((~done).to(torch.int32), stable=True)
-            self.env.observe(lane.env_state,
-                             self._params(lane.reward_beta)
-                             ).index_select(0, order)
+            lanes, done, _ = self._blocks(self.lanes)
+            for d, (lane, (nd, _)) in enumerate(zip(lanes, done)):
+                order = torch.argsort((~nd).to(torch.int32), stable=True)
+                self.env.observe(lane.env_state,
+                                 self._params(lane.reward_beta, d)
+                                 ).index_select(0, order)
             self._refill_from_host(np.zeros(L, bool), *self._idle_rows())
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev, _, _ in self._shard_ctx:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         self.resize(orig)
 
     # -- request intake --------------------------------------------------------
@@ -399,22 +491,28 @@ class SamplingEngine:
         finished, else a gather of the finished rows."""
         if self._undrained is None:
             return 0
-        newly_done, cnt = self._undrained
+        per_shard, cnt = self._undrained
         self._undrained = None
         count = int(cnt)
         if count == 0:
             self.counters["drain_skips"] += 1
             return 0
         self.counters["drain_packs"] += 1
-        lane = self.lane
-        order = torch.argsort((~newly_done).to(torch.int32),
-                              stable=True)[:count]
-        obs = self.env.observe(lane.env_state,
-                               self._params(lane.reward_beta))
-        obs, log_r, rid, eid, steps = (
-            x.index_select(0, order).cpu().numpy()
-            for x in (obs, lane.log_r, lane.request_id, lane.env_id, lane.t))
-        order = order.cpu().numpy()
+        parts = []
+        for d, (lane, (newly_done, c)) in enumerate(zip(self.lanes,
+                                                        per_shard)):
+            n = count if self._shards == 1 else int(c)
+            if n == 0:
+                continue
+            order = torch.argsort((~newly_done).to(torch.int32),
+                                  stable=True)[:n]
+            obs = self.env.observe(lane.env_state,
+                                   self._params(lane.reward_beta, d))
+            parts.append([x.index_select(0, order).cpu().numpy() for x in (
+                obs, lane.log_r, lane.request_id, lane.env_id, lane.t)]
+                + [order.cpu().numpy() + self._lane_slice(d).start])
+        obs, log_r, rid, eid, steps, order = (
+            np.concatenate(cols) for cols in zip(*parts))
         rows = []
         for i in range(count):
             b, r = int(order[i]), int(rid[i])
@@ -474,10 +572,13 @@ class SamplingEngine:
     def _poison_occupied_lanes(self) -> None:
         """lane_state fault: every occupied lane's log-reward becomes NaN,
         which the drain must catch as :class:`LanePoisoned`."""
-        occ = torch.as_tensor(self._occupied).to(self.device)
-        self.lane = dataclasses.replace(
-            self.lane, log_r=torch.where(occ, float("nan"),
-                                         self.lane.log_r))
+        lanes = []
+        for d, lane in enumerate(self.lanes):
+            occ = torch.as_tensor(self._occupied[self._lane_slice(d)]).to(
+                lane.log_r.device)
+            lanes.append(dataclasses.replace(
+                lane, log_r=torch.where(occ, float("nan"), lane.log_r)))
+        self.lanes = lanes
 
     # -- drive -------------------------------------------------------------------
     def step(self) -> int:
@@ -505,7 +606,7 @@ class SamplingEngine:
                     if self._faults.fires("lane_state"):
                         self._poison_occupied_lanes()
                     self._faults.maybe_raise("engine_step")
-                lane, newly_done, cnt = self._block(self.lane)
+                lanes, newly_done, cnt = self._blocks(self.lanes)
                 break
             except Exception as e:
                 attempt += 1
@@ -516,7 +617,7 @@ class SamplingEngine:
                         f"engine step failed after {attempt} attempts "
                         f"({type(e).__name__}: {e})") from e
                 time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
-        self.lane = lane
+        self.lanes = lanes
         self._undrained = (newly_done, cnt)
         self.blocks_run += 1
         self.counters["blocks"] += 1
@@ -587,10 +688,11 @@ class SamplingEngine:
                     s._replace(request_id=new) if s.request_id == rid
                     else s for s in self._pending)
             if self._lanes_of(rid).any():
-                ids = self.lane.request_id
-                self.lane = dataclasses.replace(
-                    self.lane, request_id=torch.where(
-                        ids == rid, torch.full_like(ids, new), ids))
+                self.lanes = [dataclasses.replace(
+                    lane, request_id=torch.where(
+                        lane.request_id == rid,
+                        torch.full_like(lane.request_id, new),
+                        lane.request_id)) for lane in self.lanes]
             self.counters["cancelled"] += 1
             return {"collected": len(req["collected"]),
                     "num_samples": req["num_samples"],

@@ -1,5 +1,5 @@
 """Request scheduler: coalesces requests into engines (port of
-``repro.serve.scheduler``, one device).
+``repro.serve.scheduler``).
 
 Requests are grouped by their engine key ``(env, transforms, overrides,
 checkpoint, step)``, which pins the environment and policy an engine
@@ -35,21 +35,13 @@ from ..device import DeviceLike, resolve_device
 from ..envs.registry import make_env
 from .api import SampleRequest, SampleResult, result_from_engine, \
     validate_request
-from .engine import SamplingEngine, check_plan
+from .engine import SamplingEngine
 from .errors import BadRequest
 
 
 def _engine_key(req: SampleRequest) -> Tuple:
     return (req.env, tuple(req.transforms),
             tuple(sorted(req.overrides.items())), req.checkpoint, req.step)
-
-
-def check_devices(devices: Optional[int]) -> None:
-    """The port serves on one device: ``None`` and 1 pass."""
-    if devices is not None and int(devices) != 1:
-        raise ValueError(
-            f"the port serves on one device; devices={devices} needs a "
-            "sharded lane pool (ROADMAP queue 1 item 13)")
 
 
 class Scheduler:
@@ -63,24 +55,43 @@ class Scheduler:
     ``dedup_cache_size`` bounds each engine's LRU of results served to
     duplicate requests (0 turns dedup off; on by default, as in JAX).
     ``plan`` / ``devices`` (defaults from ``REPRO_SERVE_PLAN`` /
-    ``REPRO_SERVE_DEVICES``) accept only ``"single"`` and 1."""
+    ``REPRO_SERVE_DEVICES``, as in JAX) shard every engine's lane pool: a
+    ``"data_parallel"`` plan over ``devices`` shards, a count (on
+    ``cuda:0 .. cuda:D-1``, or D shards on the CPU when ``device`` is the
+    CPU) or a list of devices that may repeat
+    (:class:`repro_torch.algo.plan.DataParallelPlan`); one plan serves
+    every engine."""
 
     def __init__(self, num_lanes: int = 16, init_seed: int = 0,
                  device: DeviceLike = None, fault_plan=None,
                  max_step_retries: int = 2, retry_backoff_s: float = 0.02,
-                 plan=None, devices: Optional[int] = None,
+                 plan=None, devices=None,
                  dedup_cache_size: int = 64):
         if plan is None:
             plan = os.environ.get("REPRO_SERVE_PLAN") or None
         if devices is None and os.environ.get("REPRO_SERVE_DEVICES"):
             devices = int(os.environ["REPRO_SERVE_DEVICES"])
-        check_plan(plan)
-        check_devices(devices)
+        self._plan = None
+        dev = resolve_device(device)
+        if plan is not None:
+            from ..algo.plan import make_plan
+            if dev.type == "cpu" and plan == "data_parallel" and (
+                    devices is None or isinstance(devices, int)):
+                # the CPU has no device index: D shards all on it
+                devices = [dev] * (devices or 1)
+            self._plan = make_plan(plan, devices=devices)
+            if self._plan.name not in ("single", "data_parallel"):
+                raise ValueError(
+                    f"SamplingEngine supports plan 'single' or "
+                    f"'data_parallel', got {self._plan.name!r} (the lane "
+                    "pool has no seed axis)")
+            if self._plan.name == "data_parallel":
+                self._plan.serve_devices()      # the devices must exist
         self.plan_spec = plan
         self.devices = devices
         self.num_lanes = int(num_lanes)
         self.init_seed = int(init_seed)
-        self.device = resolve_device(device)
+        self.device = dev
         self.fault_plan = fault_plan
         self.max_step_retries = int(max_step_retries)
         self.retry_backoff_s = float(retry_backoff_s)
@@ -130,7 +141,7 @@ class Scheduler:
                 policy.weights_replaced()
             loaded_step = int(step)
         engine = SamplingEngine(env, env_params, policy,
-                                num_lanes=self.num_lanes,
+                                num_lanes=self.num_lanes, plan=self._plan,
                                 dedup_cache_size=self.dedup_cache_size,
                                 fault_plan=self.fault_plan,
                                 max_step_retries=self.max_step_retries,

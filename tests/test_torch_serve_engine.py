@@ -144,11 +144,22 @@ def test_tempered_full_obs_request_matches_a_one_lane_engine():
 
 
 def test_plans_other_than_single_are_refused():
+    """Only the plans with a seed axis are refused now, with JAX's message;
+    ``data_parallel`` shards the pool (over the CPU given as its devices:
+    the default devices are cards), rounding the lanes up to a multiple of
+    the shards; ``use_cache=True`` on an uncached env is refused."""
+    from repro_torch.algo.plan import DataParallelPlan, make_plan
     env = make_env("hypergrid", dim=2, side=6)
     ep = env.init(CPU)
     pol = recipes.get("hypergrid").make_policy(env, device=CPU)
     SamplingEngine(env, ep, pol, plan="single")
-    with pytest.raises(ValueError, match="item 13"):
-        SamplingEngine(env, ep, pol, plan="data_parallel")
+    for plan in (make_plan("vmap_seeds", num_seeds=2),
+                 make_plan("seeds_x_data", num_seeds=2,
+                           devices=["cpu"] * 2)):
+        with pytest.raises(ValueError, match="no seed axis"):
+            SamplingEngine(env, ep, pol, plan=plan)
+    eng = SamplingEngine(env, ep, pol, num_lanes=5,
+                         plan=DataParallelPlan(devices=["cpu"] * 2))
+    assert eng.num_lanes == 6 and [len(l.t) for l in eng.lanes] == [3, 3]
     with pytest.raises(ValueError, match="use_cache=True"):
         SamplingEngine(env, ep, pol, use_cache=True)

@@ -2,8 +2,8 @@
 ``tests/test_serve_scale.py`` (same names, bitseq n=8, k=2 on the CPU):
 the lean drain, cross-request dedup, lane-pool resizing and the front's
 autosizing.  The oracle is the port's ``forward_rollout``.  The sharded
-cases have no counterpart: the port refuses every plan but ``single``
-(ROADMAP queue 1 item 13), which the last tests pin.
+pool's cases are in ``tests/test_torch_serve_plan.py``; the last tests
+here pin the scheduler's and the CLI's plan settings.
 """
 import os
 import subprocess
@@ -259,27 +259,45 @@ def test_front_autosize_grows_then_shrinks(bitseq8_setup):
         front.shutdown(drain=True, timeout=60.0)
 
 
-# -- plans: only "single" ----------------------------------------------------------
+# -- plans ---------------------------------------------------------------------
 
 def test_scheduler_refuses_plans_other_than_single():
+    """The scheduler's plans: ``single``; ``data_parallel`` over D shards
+    (on the CPU device: D shards on the CPU) that every engine takes; a
+    device count without a plan stays single, as in JAX; a seed plan is
+    refused (the lane pool has no seed axis)."""
     s = Scheduler(plan="single", devices=1, device="cpu")
     assert s.plan_spec == "single" and s.devices == 1
-    with pytest.raises(ValueError, match="item 13"):
-        Scheduler(plan="data_parallel", device="cpu")
-    with pytest.raises(ValueError, match="item 13"):
-        Scheduler(devices=4, device="cpu")
+    dp = Scheduler(plan="data_parallel", devices=2, device="cpu",
+                   num_lanes=5)
+    req = SampleRequest(env="bitseq", overrides={"n": 8, "k": 2},
+                        num_samples=3, seed=4)
+    rid = dp.submit(req)
+    eng = dp.engine_for(req)
+    assert eng.plan.name == "data_parallel" and eng.num_lanes == 6
+    assert len(eng.lanes) == 2
+    single = Scheduler(device="cpu", num_lanes=5)
+    want = single.run([single.submit(req)])
+    got = dp.run([rid])
+    assert np.array_equal(np.asarray(got[rid].samples),
+                          np.asarray(next(iter(want.values())).samples))
+    assert Scheduler(devices=4, device="cpu")._plan is None
+    from repro_torch.algo.plan import VmapSeedsPlan
+    with pytest.raises(ValueError, match="no seed axis"):
+        Scheduler(plan=VmapSeedsPlan(2), device="cpu")
 
 
 @pytest.mark.parametrize("var,value", [("REPRO_SERVE_PLAN", "data_parallel"),
                                        ("REPRO_SERVE_DEVICES", "4")])
 def test_env_var_plan_defaults_are_refused(var, value):
-    """The environment variables supply the defaults, as in JAX; a plan
-    the port has not got fails the CLI with a message naming the roadmap
-    item (run in a child process with its own environment)."""
+    """The environment variables supply the defaults, as in JAX: the CLI
+    serves under them and exits 0 (a child process with its own
+    environment; on the CPU a data-parallel pool's shards all sit on the
+    CPU)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **{var: value})
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--env",
-         "bitseq", "--smoke", "--device", "cpu"], env=env,
-        capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
-    assert "item 13" in out.stderr
+         "bitseq", "--smoke", "--device", "cpu", "--num-samples", "3"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("log_r=") == 3
