@@ -335,13 +335,46 @@ printing one JSON line:
              cross cache compared too), the VLM with distinct t / h / w,
              the MoE's expert selections and kept masks equal on the card
              and the CPU;
+13. kernel (flash_attention_bwd, rwkv6_scan_bwd) - the two backward
+             kernels against their plain versions (``ref_flash_attention_bwd``,
+             ``ref_rwkv6_bwd``) at every shape the training phases launch,
+             at a D 128 dense (2, 2,048, 40/8) causal shape and Whisper's
+             (2, 448 / 1,500, 16/16, 64) cross-attention; each flash row
+             holds the forward kernel's out and lse to the plain ones
+             and runs the plain backward on that out and the plain lse;
+             the flash rows time ``F.scaled_dot_product_attention``'s
+             backward under the same mask as the library call;
+   lm_train_hold - one TB train step of Hymba-1.5B and rwkv6-1.6b cut to
+             2 full-width fp32 layers, on the card against the CPU from
+             the same parameters and ``synthetic_gfn_batch``: the loss
+             and every gradient leaf, then every updated parameter and
+             Adam moment against the CPU's chain on the card's gradients,
+             each within HOLD_TOL of the leaf's largest entry;
+   lm_train - one run of Hymba-1.5B whole (32 layers, bf16, remat full)
+             for 4 steps at the CLI's defaults (8 x 128), then 3 on at
+             2 x 4,096, then
+             rwkv6-1.6b whole for 3 at 2 x 4,096, through
+             ``launch.train``'s state and step: steps/s, tokens/s, peak
+             memory, every step's loss (finite) and launches (per layer:
+             the forwards twice, the backwards once), a step's idle share;
+   lm_converge - ``examples/lm_gfn_finetune.py``'s 25M model for 300 TB
+             steps through ``launch.train.train_loop``: the loss at steps
+             100 / 200 / 299 within max(3 x spread, 10 % of the mean) of
+             ``scripts/lm_train_reference.py``'s, and the example's own
+             bar (last loss below the first) met or missed as the
+             reference meets or misses it;
+   lm_checkpoint - a 2-layer full-width Hymba run through ``train_loop``
+             stopped after step 2 and resumed to 3, against the
+             uninterrupted run: every leaf within HOLD_TOL (and whether
+             bitwise);
    path_shapes - every shape at which the counted phases (serve, the
              training, eval and replay phases, cli, the plan phases, and
              the LM phases above: lm_decode, lm_prefill, dense_*,
-             command_r, dense_cut, rwkv_*, vlm_*, moe_*, encdec_*)
+             command_r, dense_cut, rwkv_*, vlm_*, moe_*, encdec_*,
+             lm_train*, lm_converge, lm_checkpoint)
              launched decode_step, decode_attention, traj_logprob,
-             subtb_loss, flash_attention or rwkv6_scan has a row of phase
-             3, held
+             subtb_loss, flash_attention, rwkv6_scan or their backward
+             kernels has a row of phase 3 or 13, held
              against the plain version; the line prints each shape's
              launches;
 
@@ -390,7 +423,8 @@ TRAIN_ITERS = 50
 TRAIN_LAUNCHES_PER_ITER = {"decode_attention": 45, "traj_logprob_fwd": 2,
                            "traj_logprob_bwd": 1, "decode_step": 0,
                            "subtb_loss_fwd": 0, "subtb_loss_bwd": 0,
-                           "flash_attention": 0, "rwkv6_scan": 0}
+                           "flash_attention": 0, "rwkv6_scan": 0,
+                           "flash_attention_bwd": 0, "rwkv6_scan_bwd": 0}
 #: hypergrid_subtb at full size: iterations, and evals at 0 and 49
 HYPERGRID_ITERS = 50
 HYPERGRID_EVAL_EVERY = 49
@@ -399,7 +433,9 @@ HYPERGRID_EVAL_EVERY = 49
 HYPERGRID_LAUNCHES_PER_ITER = {"decode_attention": 0, "traj_logprob_fwd": 0,
                                "traj_logprob_bwd": 0, "decode_step": 0,
                                "subtb_loss_fwd": 1, "subtb_loss_bwd": 1,
-                               "flash_attention": 0, "rwkv6_scan": 0}
+                               "flash_attention": 0, "rwkv6_scan": 0,
+                               "flash_attention_bwd": 0,
+                               "rwkv6_scan_bwd": 0}
 HYPERGRID_EVAL_LAUNCHES = {"traj_logprob_fwd": 2}
 #: the sequence-design recipes at full width: iterations of seqs_train,
 #: and each iteration's launches (read from the code: a cached exploring
@@ -703,7 +739,9 @@ def wrappers() -> dict:
             "subtb_loss_fwd": ops.subtb_loss,
             "subtb_loss_bwd": ops.subtb_loss_backward,
             "flash_attention": ops.flash_attention,
-            "rwkv6_scan": ops.rwkv6_scan}
+            "flash_attention_bwd": ops.flash_attention_backward,
+            "rwkv6_scan": ops.rwkv6_scan,
+            "rwkv6_scan_bwd": ops.rwkv6_scan_backward}
 
 
 def reset_launches() -> None:
@@ -759,7 +797,8 @@ def run_launches(eager: dict, captured) -> dict:
 #: check
 PATH_SHAPES = {name: collections.Counter() for name in (
     "decode_step", "decode_attention", "traj_logprob", "subtb_loss",
-    "flash_attention", "rwkv6_scan")}
+    "flash_attention", "rwkv6_scan", "flash_attention_bwd",
+    "rwkv6_scan_bwd")}
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -856,6 +895,48 @@ def recording_path_shapes():
         model_layers.ops = ops
 
 
+def flash_bwd_key(B, Sq, Skv, H, KVH, D, dtype, causal, window) -> tuple:
+    """A flash backward call's shape and arguments."""
+    return (B, Sq, Skv, H, KVH, D, str(dtype), bool(causal), int(window))
+
+
+@contextlib.contextmanager
+def recording_bwd_shapes():
+    """Record the shape of every backward kernel call autograd makes on a
+    CUDA tensor: the two autograd Functions' ``backward`` (which call the
+    backward wrappers, and count) are wrapped to read the call's shape
+    from its cotangents and the metadata ``setup_context`` keeps (never
+    ``ctx.saved_tensors``: under ``torch.utils.checkpoint`` those unpack
+    once)."""
+    from repro_torch.kernels import ops
+    real = {cls: cls.backward for cls in (ops._FlashAttention,
+                                          ops._Rwkv6Scan)}
+
+    def flash(ctx, dout, dlse):
+        if on_card(dout):
+            B, Sq, H, D = dout.shape
+            PATH_SHAPES["flash_attention_bwd"][flash_bwd_key(
+                B, Sq, ctx.kv_shape[0], H, ctx.kv_shape[1], D, dout.dtype,
+                ctx.causal, ctx.window)] += 1
+        return real[ops._FlashAttention](ctx, dout, dlse)
+
+    def scan(ctx, dout, dstate, dcarry):
+        if on_card(dout):
+            B, T, H, Dv = dout.shape
+            PATH_SHAPES["rwkv6_scan_bwd"][scan_key(
+                B, T, H, dstate.shape[2], Dv, dout.dtype, ctx.bonus,
+                ctx.has_state)] += 1
+        return real[ops._Rwkv6Scan](ctx, dout, dstate, dcarry)
+
+    ops._FlashAttention.backward = staticmethod(flash)
+    ops._Rwkv6Scan.backward = staticmethod(scan)
+    try:
+        yield
+    finally:
+        for cls, fn in real.items():
+            cls.backward = staticmethod(fn)
+
+
 @contextlib.contextmanager
 def recording_folded_shapes():
     """Record the shapes a seed plan launches the kernels at.  Under its
@@ -891,7 +972,8 @@ def recording_folded_shapes():
             setattr(ops, attr, fn)
 
 
-def check_path_shapes(rows, attn, traj, subtb, flash, scan) -> None:
+def check_path_shapes(rows, attn, traj, subtb, flash, scan, flash_bwd,
+                      scan_bwd) -> None:
     """Every shape the main path launched a kernel at has a row of that
     kernel's check (held against its plain version); fails otherwise.
     Prints each launched shape with its launches."""
@@ -906,7 +988,13 @@ def check_path_shapes(rows, attn, traj, subtb, flash, scan) -> None:
                    r["kv_len"]) for r in flash},
                "rwkv6_scan": {scan_key(r["B"], r["T"], r["H"], r["Dk"],
                                        r["Dv"], r["dtype"], r["bonus"],
-                                       r["state"]) for r in scan}}
+                                       r["state"]) for r in scan},
+               "flash_attention_bwd": {flash_bwd_key(
+                   r["B"], r["Sq"], r["Skv"], r["H"], r["KVH"], r["D"],
+                   r["dtype"], r["causal"], r["window"]) for r in flash_bwd},
+               "rwkv6_scan_bwd": {scan_key(r["B"], r["T"], r["H"], r["Dk"],
+                                           r["Dv"], r["dtype"], r["bonus"],
+                                           r["state"]) for r in scan_bwd}}
     unchecked = {k: sorted(set(v) - checked[k])
                  for k, v in PATH_SHAPES.items()}
     emit("path_shapes", launched={k: sorted([list(key), n] for key, n
@@ -1287,23 +1375,27 @@ def check_decode_step_lanes(device) -> dict:
 
 
 def timings(kernel, plain, library, match: str = "",
-            plain_iters: int = 20) -> dict:
+            plain_iters: int = 20, iters: int | None = None) -> dict:
     """Device time per call (``torch.profiler``, the kernels' own time) of
     the kernel, its plain version and the library call, so the three
     compare like for like; and each one's time per call between CUDA
     events over back-to-back calls (``*_wall_us``: host dispatch included,
     which for a chain of small ops is most of it).  ``match`` keeps the
     kernel's own device time apart from the small torch kernels its
-    wrapper launches (operand checks)."""
-    out = {"kernel_us": profiled_device_us(kernel, match=match),
-           "wrapper_us": cuda_time_us(kernel),
+    wrapper launches (operand checks); ``iters``, when given, is the
+    number of calls of the kernel and of the library call timed each way
+    (after 2 warm-up calls between the events)."""
+    prof = {} if iters is None else {"iters": iters}
+    wall = {} if iters is None else {"iters": iters, "warmup": 2}
+    out = {"kernel_us": profiled_device_us(kernel, match=match, **prof),
+           "wrapper_us": cuda_time_us(kernel, **wall),
            "plain_us": profiled_device_us(plain, iters=plain_iters),
            "plain_wall_us": cuda_time_us(plain, iters=5 * plain_iters // 2,
                                          warmup=max(1, plain_iters // 4)),
            "library_us": None, "library_wall_us": None}
     if library is not None:
-        out["library_us"] = profiled_device_us(library)
-        out["library_wall_us"] = cuda_time_us(library)
+        out["library_us"] = profiled_device_us(library, **prof)
+        out["library_wall_us"] = cuda_time_us(library, **wall)
     return out
 
 
@@ -5684,6 +5776,508 @@ def plan_serve_phase(device) -> dict:
     return launches
 
 
+# -- phase 13: LM training ---------------------------------------------------
+
+#: lm_train: one run of Hymba-1.5B whole, at the CLI's defaults (batch,
+#: seq, steps), then on at the scoring geometry, where the 2,048 window
+#: binds and the scan takes the chunk route over 64 chunks; rwkv6-1.6b
+#: whole at the latter
+LM_TRAIN_HYMBA = ((8, 128, 4), (2, 4096, 3))
+LM_TRAIN_RWKV = (2, 4096, 3)
+#: the CLI's learning rate (``launch.train``'s default)
+LM_TRAIN_LR = 3e-4
+#: lm_train_hold: 2 full-width fp32 layers, one step of this batch
+LM_TRAIN_HOLD = (1, 128)
+#: lm_converge: examples/lm_gfn_finetune.py's model_25m and settings
+LM_CONVERGE_STEPS, LM_CONVERGE_BATCH, LM_CONVERGE_SEQ = 300, 4, 96
+LM_CONVERGE_LR = 1e-4
+#: the JAX package's TB loss at those steps: mean and spread (largest -
+#: smallest) over seeds 0-3 of ``scripts/lm_train_reference.py`` on a CPU;
+#: the loss rises in every seed (step 0's mean 10.93), so the reference
+#: misses the example's own bar (last loss below the first)
+LM_CONVERGE_MEANS = {100: 7754.5916748046875, 200: 27466.24462890625,
+                     299: 55624.1474609375}
+LM_CONVERGE_SPREAD = {100: 1271.8447265625, 200: 1550.28515625,
+                      299: 1272.55859375}
+LM_CONVERGE_REFERENCE_BAR_MET = False
+#: lm_checkpoint: a 2-layer full-width Hymba at the CLI's batch, stopped
+#: after CKPT_CUT steps and resumed to CKPT_STEPS
+CKPT_CUT, CKPT_STEPS = 2, 3
+#: in the device-kernel names of the backward kernels
+FLASH_BWD_MATCH = "flash_bwd_"
+SCAN_BWD_MATCH = "rwkv6_scan_bwd"
+
+
+def model_25m():
+    """``examples/lm_gfn_finetune.py``'s ``model_25m`` (dense, 8 layers,
+    d_model 320, 5/1 heads of 64, d_ff 1,088, vocab 16,000, QKV bias,
+    bf16, remat none)."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(
+        name="gfn-lm-25m", family="dense", num_layers=8, d_model=320,
+        num_heads=5, num_kv_heads=1, head_dim=64, d_ff=1088,
+        vocab_size=16000, qkv_bias=True, remat="none")
+
+
+def check_flash_attention_bwd(B, Sq, Skv, H, KVH, D, *, causal, window,
+                              bf16, seed, device) -> dict:
+    """The forward kernel's out and lse (the log-sum-exp each query row
+    keeps for the backward) held to the plain forward's (out as the
+    forward rows hold it, lse at the fp32 tolerance); then the backward
+    kernel (three launches: delta, dq, dk/dv) on the kernel's out and lse
+    against the plain backward (dense, fp32) on the same out and the plain
+    lse, with the same q, k, v and a random cotangent; dq, dk, dv held
+    entry by entry as the forward's output is; a repeat is bitwise.  (Both
+    outs are bf16 roundings that may part by one ulp on an entry; a
+    backward from each parts by more than one ulp of dq's scale, so the
+    out is shared and held on its own.)  The library yardstick:
+    ``F.scaled_dot_product_attention``'s backward under the same boolean
+    mask, on (B, H, S, D) leaves (kv heads repeated beforehand)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (attention_mask, ref_flash_attention,
+                                         ref_flash_attention_bwd,
+                                         ref_flash_attention_lse)
+
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do = (torch.randn(shape, generator=g).to(device, dt)
+                   for shape in ((B, Sq, H, D), (B, Skv, KVH, D),
+                                 (B, Skv, KVH, D), (B, Sq, H, D)))
+    kw = dict(causal=causal, window=window)
+    out, lse = ops._flash_forward(q, k, v, causal, window, 0, Skv, True)
+    plain_out = ref_flash_attention(q, k, v, **kw)
+    plain_lse = ref_flash_attention_lse(q, k, **kw)
+    held = {"out": _held(out, plain_out, bf16),
+            "lse": _held(lse, plain_lse, False)}
+    del plain_out
+
+    def kernel():
+        return ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+
+    def plain():
+        return ref_flash_attention_bwd(q, k, v, out, do, plain_lse, **kw)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    held.update({n: _held(a, b, bf16)
+                 for n, a, b in zip(("dq", "dk", "dv"), got, want)})
+    bitwise = all(torch.equal(a, b) for a, b in zip(kernel(), got))
+    del want
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=0,
+                          kv_len=None, device=device)
+    G = H // KVH
+    lq = q.transpose(1, 2).contiguous().requires_grad_(True)
+    lk, lv = (x.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+              .requires_grad_(True) for x in (k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+    ldo = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+    pairs = int(mask.sum()) * B * H
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 4 * B * H * Sq)
+    row = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KVH": KVH, "D": D,
+           "dtype": str(dt), "causal": causal, "window": window,
+           "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()
+                           if n in ("dq", "dk", "dv")},
+           "held": held, "repeat_bitwise_equal": bitwise,
+           **timings(kernel, plain, library, match=FLASH_BWD_MATCH,
+                     plain_iters=5, iters=10),
+           "library_call": "backward of F.scaled_dot_product_attention("
+                           "bool mask), kv heads repeated",
+           "attended_pairs": pairs,
+           # 2.5 x the forward's 4 D flops a pair (S, dP, dV, dK, dQ)
+           **bound(nbytes, 10 * D * pairs,
+                   BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)}
+    emit("kernel", name="flash_attention_bwd", **row)
+    del lo, lq, lk, lv
+    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                             f"version at {(B, Sq, Skv, H, KVH, D)}: {held}, "
+                             f"repeat bitwise {bitwise}")
+    return row
+
+
+def check_rwkv6_scan_bwd(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
+                         device, decay="mild") -> dict:
+    """The backward kernel against its plain version (the exact reverse
+    recurrence in fp32) on :func:`scan_inputs` and random cotangents of
+    the output and the final state, from the chunk states the forward of
+    the route ``ops.scan_route`` picks keeps; dr, dk, dv held as the
+    forward's output is, dw, du and d(state) as fp32; a repeat is
+    bitwise.  No library call computes this recurrence."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_rwkv6_bwd
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    r, k, v, w, u, s0 = scan_inputs(B, T, H, Dk, Dv, bonus=bonus, state=state,
+                                    bf16=bf16, decay=decay, seed=seed,
+                                    device=device)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(B, T, H, Dv, generator=g).to(device, dt)
+    ds = torch.randn(B, H, Dk, Dv, generator=g).to(device)
+    _, _, carry = ops._scan_forward(r, k, v, w, u, s0, True)
+
+    def kernel():
+        return ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
+
+    def plain():
+        return ref_rwkv6_bwd(r, k, v, w, u, s0, do, ds)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    # the plain version is a chain of ~20 small launches a step: timed
+    # between CUDA events over this one call (profiling 10^5 launches
+    # costs many seconds to read back)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_us = start.elapsed_time(end) * 1e3
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    held = {n: _held(a, b, bf16 and n in ("dr", "dk", "dv"))
+            for n, a, b in zip(names, got, want) if b is not None}
+    bitwise = all(a is None or torch.equal(a, b)
+                  for a, b in zip(kernel(), got))
+    del want
+    # r, k, v, dO and w read; dr, dk, dv and dw written (u, du and the
+    # states are Dk x Dv per head)
+    el = r.element_size()
+    nbytes = el * (2 * r.numel() + v.numel() + do.numel()) \
+        + el * (2 * r.numel() + v.numel()) + 4 * 2 * w.numel()
+    row = {"B": B, "T": T, "H": H, "Dk": Dk, "Dv": Dv, "dtype": str(dt),
+           "bonus": bonus, "state": state, "decay": decay,
+           "forward_route": ops.scan_route(dt, T),
+           "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()},
+           "held": held, "repeat_bitwise_equal": bitwise,
+           "kernel_us": profiled_device_us(kernel, iters=10,
+                                           match=SCAN_BWD_MATCH),
+           "wrapper_us": cuda_time_us(kernel, iters=10, warmup=2),
+           "plain_us": plain_us, "plain_timed": "CUDA events, one call",
+           "library_us": None,
+           # a step: the state recomputed, G v, S dO, S G, G's update, G k
+           **bound(nbytes, 12 * Dk * Dv * B * T * H)}
+    emit("kernel", name="rwkv6_scan_bwd", **row)
+    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise:
+        raise AssertionError(f"rwkv6_scan_bwd disagrees with its plain "
+                             f"version at {(B, T, H, Dk, Dv)}: {held}, "
+                             f"repeat bitwise {bitwise}")
+    return row
+
+
+def train_state_on(params, opt_state, device):
+    """A copy of an LM training state on ``device`` (the hold's CPU
+    side)."""
+    import copy
+
+    from repro_torch.convert import opt_state_to
+    model = copy.deepcopy(params["model"]).to(device)
+    log_z = params["log_z"].detach().clone().to(device).requires_grad_(True)
+    return {"model": model, "log_z": log_z}, opt_state_to(opt_state, device)
+
+
+def _leaf_err(got, want) -> float:
+    """max |got - want| over max |want| (0 when both are all zeros)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return 0.0 if err == 0 else err / max(scale, 1e-30)
+
+
+def lm_train_hold(device) -> None:
+    """One TB train step of Hymba-1.5B and rwkv6-1.6b cut to
+    LM_TRAIN_HOLD's 2 full-width fp32 layers, on the card (kernels) and
+    on the CPU (plain versions), from the same parameters (drawn on the
+    card, log Z warm-started there, copied) and the same
+    ``synthetic_gfn_batch``.  The loss and every gradient leaf are held to
+    the CPU's; then the card's optimizer step (every updated parameter and
+    Adam moment, the second moment as its square root) to the CPU's chain
+    applied to the card's gradients from the same state.  Each within
+    HOLD_TOL of the leaf's largest entry, with no allowance: Adam's first
+    update is lr g / (|g| + 1e-8), so from each device's own gradients an
+    entry that the two round to either side of 0 would move 2 lr apart;
+    on one set of gradients a step that moved no parameter, or moved one
+    the wrong way, fails."""
+    from repro_torch.checkpoint.manager import lm_train_leaves
+    from repro_torch.data.tokens import synthetic_gfn_batch
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    cpu = torch.device("cpu")
+    B, S = LM_TRAIN_HOLD
+    for arch in ("hymba-1.5b", RWKV_ARCH):
+        cfg = lm_config(arch, num_layers=LM_HOLD_LAYERS, dtype="float32")
+        tcfg = steps.LMTrainConfig(lr=LM_TRAIN_LR)
+        tx = steps.make_optimizer(tcfg)
+        params, opt_state, _ = train.init_state(cfg, tcfg, seed=11,
+                                                device=device)
+        with torch.no_grad():
+            params["log_z"].copy_(train.pilot_log_z(params, cfg, B, S,
+                                                    seed=11, device=device))
+        sides = {"card": (params, opt_state, device),
+                 "cpu": train_state_on(params, opt_state, cpu) + (cpu,)}
+        out = {}
+        for side, (p, o, dev) in sides.items():
+            # step 1's batch: on the pilot's own batch (step 0) the warm
+            # start makes the mean TB residual, log Z's gradient, zero up
+            # to rounding
+            batch = synthetic_gfn_batch(cfg, B, S, seed=11, step=1,
+                                        device=dev)
+            # make_train_step's body, with its gradients kept and, on the
+            # CPU, the card's gradients stepped
+            leaves = steps.param_leaves(p)
+            total, metrics = steps.loss_fn(p, cfg, tcfg, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                total, list(leaves.values()), materialize_grads=True)))
+            stepped = grads if side == "card" else {
+                n: g.detach().cpu() for n, g in out["card"]["grads"].items()}
+            with torch.no_grad():
+                updates, o = tx.update(
+                    stepped, o, {n: t.detach() for n, t in leaves.items()})
+                adamw.apply_updates_(leaves, updates)
+            out[side] = {"loss": metrics["loss"].detach(), "grads": grads,
+                         "state": lm_train_leaves(p, o)}
+        card, host = out["card"], out["cpu"]
+        loss_err = _leaf_err(card["loss"], host["loss"])
+        grad_err = {n: _leaf_err(card["grads"][n], g)
+                    for n, g in host["grads"].items()}
+        state_err = {}
+        for n, t in host["state"].items():
+            c = card["state"][n]
+            if "/.nu/" in n:
+                c, t = c.sqrt(), t.sqrt()
+            state_err[n] = _leaf_err(c, t)
+        worst = max(list(grad_err.values()) + list(state_err.values())
+                    + [loss_err])
+        emit("lm_train_hold", model=cfg.name, layers=cfg.num_layers,
+             batch=B, seq=S, dtype="float32",
+             loss={"card": float(card["loss"]), "cpu": float(host["loss"])},
+             loss_err=loss_err, leaves=len(grad_err),
+             worst_grad=max(grad_err.items(), key=lambda kv: kv[1]),
+             worst_state=max(state_err.items(), key=lambda kv: kv[1]),
+             state_stepped_on="the card's gradients, both devices",
+             tol=f"{HOLD_TOL:g} of each leaf's largest entry")
+        if not worst <= HOLD_TOL:
+            raise AssertionError(f"lm_train_hold {arch}: card and CPU part "
+                                 f"by {worst} (> {HOLD_TOL})")
+        del params, opt_state, sides, out
+        free_card(device)
+
+
+def lm_train_start(cfg, device, seed: int = 0) -> dict:
+    """A fresh TB run of ``cfg`` through ``launch.train``'s ``init_state``
+    (as ``train_loop`` starts one): ``{"p", "o", "step", "t", "seed"}``
+    for :func:`lm_train_run`."""
+    from repro_torch.launch import steps, train
+
+    tcfg = steps.LMTrainConfig(lr=LM_TRAIN_LR)
+    params, opt_state, step = train.init_state(cfg, tcfg, seed=seed,
+                                               device=device)
+    return {"p": params, "o": opt_state, "step": step, "t": 0, "seed": seed}
+
+
+def lm_train_run(cfg, batch: int, seq: int, steps_: int, device,
+                 per_step: dict, profile: bool, state: dict) -> dict:
+    """``steps_`` more TB steps of ``state``'s run (:func:`lm_train_start`)
+    at ``batch`` x ``seq``, log Z first warm-started on this size's pilot
+    batch (as a run started at this size is): each step timed alone (host
+    clock around a synchronized step), its loss read, its launches counted
+    and held to ``per_step`` exactly; peak memory over these steps (the
+    run's state included); then, with ``profile``, one more step's device
+    idle share (:func:`profiled_step`).  Returns the phase's fields and
+    the steps' launches."""
+    from repro_torch.data.tokens import synthetic_gfn_batch
+    from repro_torch.launch import train
+
+    step, seed = state["step"], state["seed"]
+    with torch.no_grad():
+        state["p"]["log_z"].copy_(train.pilot_log_z(
+            state["p"], cfg, batch, seq, seed=seed, device=device))
+    torch.cuda.reset_peak_memory_stats(device)
+    times, losses, launches = [], [], []
+    total = {k: 0 for k in wrappers()}
+    for _ in range(steps_):
+        b = synthetic_gfn_batch(cfg, batch, seq, seed=seed, step=state["t"],
+                                device=device)
+        state["t"] += 1
+        reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state["p"], state["o"], m = step(state["p"], state["o"], b)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        launches.append({k: v for k, v in read_launches().items() if v})
+        _add(total, read_launches())
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {k: v for k, v in per_step.items() if v}
+    fields = {"model": cfg.name, "layers": cfg.num_layers, "batch": batch,
+              "seq": seq, "steps": steps_, "remat": cfg.remat,
+              "step_seconds": times, "loss": losses,
+              "steps_per_s": steps_ / sum(times),
+              "steady_steps_per_s": (steps_ - 1) / sum(times[1:])
+              if steps_ > 1 else None,
+              "tokens_per_s": batch * seq * steps_ / sum(times),
+              "peak_memory_gb": peak / 1e9,
+              "launches_per_step": launches[-1]}
+    if profile:
+        b = synthetic_gfn_batch(cfg, batch, seq, seed=seed, step=state["t"],
+                                device=device)
+        state["t"] += 1
+
+        def one():
+            state["p"], state["o"], _ = step(state["p"], state["o"], b)
+
+        f = profiled_step(one)
+        fields.update(device_idle_share=f["device_idle_share"],
+                      profiled_step_wall_us=f["wall_us"],
+                      profiled_step_busy_us=f["device_busy_us"],
+                      device_top=f["device_top"][:6])
+    if not all(math.isfinite(x) for x in losses) or any(
+            got != want for got in launches):
+        raise AssertionError(f"lm_train {cfg.name} ({batch} x {seq}): "
+                             f"losses {losses}; launches per step "
+                             f"{launches}, expected {want}")
+    return fields, total
+
+
+def lm_train_phase(device) -> dict:
+    """Hymba-1.5B whole, one run drawn once: LM_TRAIN_HYMBA's steps at
+    its first size, then on at its second (log Z warm-started anew); then
+    rwkv6-1.6b whole at LM_TRAIN_RWKV (see :func:`lm_train_run`): per
+    step, Hymba launches 64 flash and 64 scan forwards (each layer's
+    twice: remat full recomputes it in the backward) and 32 of each
+    backward; rwkv6 48 scan forwards and 24 backwards.  Returns the runs'
+    launches."""
+    def fwd(cfg):       # each layer's forwards a step: twice under remat
+        return cfg.num_layers * (2 if cfg.remat == "full" else 1)
+
+    total = {k: 0 for k in wrappers()}
+    hymba = lm_config("hymba-1.5b")
+    L = hymba.num_layers
+    run = lm_train_start(hymba, device)
+    for batch, seq, n in LM_TRAIN_HYMBA:
+        fields, launches = lm_train_run(
+            hymba, batch, seq, n, device,
+            {"flash_attention": fwd(hymba), "rwkv6_scan": fwd(hymba),
+             "flash_attention_bwd": L, "rwkv6_scan_bwd": L},
+            profile=seq == LM_TRAIN_HYMBA[-1][1], state=run)
+        emit("lm_train", **fields)
+        _add(total, launches)
+    del run
+    free_card(device)
+    rwkv = lm_config(RWKV_ARCH)
+    batch, seq, n = LM_TRAIN_RWKV
+    run = lm_train_start(rwkv, device)
+    fields, launches = lm_train_run(
+        rwkv, batch, seq, n, device,
+        {"rwkv6_scan": fwd(rwkv), "rwkv6_scan_bwd": rwkv.num_layers},
+        profile=True, state=run)
+    emit("lm_train", **fields)
+    _add(total, launches)
+    del run
+    free_card(device)
+    return total
+
+
+def lm_converge(device) -> dict:
+    """``examples/lm_gfn_finetune.py`` on the card: model_25m, 300 TB steps
+    of batch 4 x 96 at lr 1e-4 through ``launch.train.train_loop``; the
+    loss at steps 100, 200 and 299 within max(3 x the seeds' spread, 10 %
+    of the mean) of the JAX package's (``LM_CONVERGE_MEANS``), and the
+    example's bar (``losses[-1] < losses[0]``) met or missed as the
+    reference's is.  Returns the run's launches (remat none: 8 flash
+    forwards and 8 backwards a step, 8 forwards for the warm start)."""
+    from repro_torch.launch import train
+
+    cfg = model_25m()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train.train_loop(cfg, steps=LM_CONVERGE_STEPS,
+                           batch=LM_CONVERGE_BATCH, seq=LM_CONVERGE_SEQ,
+                           lr=LM_CONVERGE_LR, log_every=100, seed=0,
+                           device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = {h["step"]: h["loss"] for h in out["history"]}
+    band = {s: max(3 * LM_CONVERGE_SPREAD[s], 0.1 * m)
+            for s, m in LM_CONVERGE_MEANS.items()}
+    within = {s: abs(losses[s] - m) <= band[s]
+              for s, m in LM_CONVERGE_MEANS.items()}
+    bar = losses[LM_CONVERGE_STEPS - 1] < losses[0]
+    L = cfg.num_layers
+    want = {"flash_attention": L * (LM_CONVERGE_STEPS + 1),
+            "flash_attention_bwd": L * LM_CONVERGE_STEPS}
+    emit("lm_converge", model=cfg.name, steps=LM_CONVERGE_STEPS,
+         batch=LM_CONVERGE_BATCH, seq=LM_CONVERGE_SEQ, lr=LM_CONVERGE_LR,
+         loss=losses, reference_mean=LM_CONVERGE_MEANS,
+         reference_spread=LM_CONVERGE_SPREAD, band=band, within=within,
+         example_bar_met=bar,
+         reference_bar_met=LM_CONVERGE_REFERENCE_BAR_MET,
+         wall_s=wall, steps_per_s=LM_CONVERGE_STEPS / wall,
+         launches={k: v for k, v in launches.items() if v})
+    if not all(within.values()) or bar != LM_CONVERGE_REFERENCE_BAR_MET \
+            or {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"lm_converge: losses {losses} against the "
+                             f"reference's {LM_CONVERGE_MEANS} (band "
+                             f"{band}); example bar {bar}; launches "
+                             f"{launches}, expected {want}")
+    del out
+    free_card(device)
+    return launches
+
+
+def lm_checkpoint(device) -> dict:
+    """A 2-layer full-width bf16 Hymba through ``train_loop`` at the CLI's
+    batch: CKPT_STEPS steps straight, against CKPT_CUT steps (checkpoint
+    at the end) resumed to CKPT_STEPS; every leaf of the two final states
+    (``lm_train_leaves``) within HOLD_TOL of its largest entry, and
+    whether all are bitwise equal.  Returns the runs' launches."""
+    from repro_torch.checkpoint.manager import (CheckpointManager,
+                                                lm_train_leaves)
+    from repro_torch.launch import train
+
+    cfg = lm_config("hymba-1.5b", num_layers=LM_HOLD_LAYERS)
+    batch, seq, _ = LM_TRAIN_HYMBA[0]
+    kw = dict(batch=batch, seq=seq, seed=4, lr=LM_TRAIN_LR, device=device)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = train.train_loop(cfg, steps=CKPT_STEPS, **kw)
+        t0 = time.perf_counter()
+        train.train_loop(cfg, steps=CKPT_CUT, ckpt_dir=f"{tmp}/b", **kw)
+        cut_s = time.perf_counter() - t0
+        resumed = train.train_loop(cfg, steps=CKPT_STEPS,
+                                   ckpt_dir=f"{tmp}/b", **kw)
+        latest = CheckpointManager(f"{tmp}/b").latest_step()
+    a = lm_train_leaves(straight["params"], straight["opt_state"])
+    b = lm_train_leaves(resumed["params"], resumed["opt_state"])
+    errs = {n: _leaf_err(b[n], t) for n, t in a.items()}
+    bitwise = all(torch.equal(b[n], t) for n, t in a.items())
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    emit("lm_checkpoint", model=cfg.name, layers=cfg.num_layers,
+         batch=batch, seq=seq, cut=CKPT_CUT, steps=CKPT_STEPS,
+         leaves=len(errs), worst=worst, bitwise=bitwise,
+         resumed_history=resumed["history"], latest_step=latest,
+         cut_run_seconds=cut_s, tol=f"{HOLD_TOL:g} of each leaf's largest "
+                                    "entry")
+    if not worst[1] <= HOLD_TOL or latest != CKPT_STEPS \
+            or [h["step"] for h in resumed["history"]] != [CKPT_STEPS - 1]:
+        raise AssertionError(f"lm_checkpoint: the resumed run departs from "
+                             f"the straight one: {worst}, latest {latest}, "
+                             f"history {resumed['history']}")
+    launches = read_launches()
+    del straight, resumed, a, b
+    free_card(device)
+    return launches
+
+
 def single_nvcc_call_seconds(build) -> float:
     """The seconds of one ``nvcc -shared`` call over every kernel source
     (what the parallel build saves on)."""
@@ -6085,7 +6679,53 @@ def main() -> int:
     lm_family_hold("encdec_hold", lm_config(
         WHISPER_ARCH, num_layers=LM_HOLD_LAYERS,
         encoder_layers=LM_HOLD_LAYERS, dtype="float32"), device)
-    check_path_shapes(rows, attn, traj, subtb, flash, scan)
+    # LM training (phase 13): the backward kernels (and the forward rows
+    # the training phases add: Hymba at the CLI's 8 x 128, the holds' fp32
+    # 2 x 128, model_25m's 4 x 96) at every shape the phases launch, a D 128
+    # dense shape and Whisper's cross-attention; then the phases
+    free_card(device)
+    flash += [check_flash_attention(B, S, S, H, KVH, 64, causal=True,
+                                    window=w, bf16=bf16, seed=60 + i,
+                                    device=device)
+              for i, (B, S, H, KVH, w, bf16) in enumerate([
+                  (8, 128, 25, 5, 2048, True), (1, 128, 25, 5, 2048, False),
+                  (4, 96, 5, 1, 0, True)])]
+    # (rwkv6's hold, (1, 128, 32, 64/64) fp32 with u, has its row above)
+    scan += [check_rwkv6_scan(B, T, H, Dk, Dv, bonus=False, state=False,
+                              bf16=bf16, seed=20 + i, device=device)
+             for i, (B, T, H, Dk, Dv, bf16) in enumerate([
+                 (8, 128, 25, 16, 64, True), (1, 128, 25, 16, 64, False)])]
+    flash_bwd = [check_flash_attention_bwd(B, Sq, Skv, H, KVH, D,
+                                           causal=causal, window=w,
+                                           bf16=bf16, seed=70 + i,
+                                           device=device)
+                 for i, (B, Sq, Skv, H, KVH, D, causal, w, bf16) in
+                 enumerate([
+                     (8, 128, 128, 25, 5, 64, True, 2048, True),
+                     (2, 4096, 4096, 25, 5, 64, True, 2048, True),
+                     (1, 128, 128, 25, 5, 64, True, 2048, False),
+                     (4, 96, 96, 5, 1, 64, True, 0, True),
+                     (2, 2048, 2048, 40, 8, 128, True, 0, True),
+                     (2, WHISPER_SCORE_LEN, WHISPER_FRAMES, 16, 16, 64,
+                      False, 0, True)])]
+    scan_bwd = [check_rwkv6_scan_bwd(B, T, H, Dk, Dv, bonus=bonus,
+                                     state=False, bf16=bf16, seed=80 + i,
+                                     device=device, decay=decay)
+                for i, (B, T, H, Dk, Dv, bonus, bf16, decay) in enumerate([
+                    (8, 128, 25, 16, 64, False, True, "mild"),
+                    (2, 4096, 25, 16, 64, False, True, "mild"),
+                    (2, 4096, 32, 64, 64, True, True, "mild"),
+                    (1, 128, 25, 16, 64, False, False, "mild"),
+                    (1, 128, 32, 64, 64, True, False, "mild"),
+                    (2, 1000, 25, 16, 64, False, True, "strong")])]
+    free_card(device)
+    with recording_path_shapes(), recording_bwd_shapes():
+        lm_train_hold(device)
+        lm_train = lm_train_phase(device)
+        lm_conv = lm_converge(device)
+        lm_ckpt = lm_checkpoint(device)
+    check_path_shapes(rows, attn, traj, subtb, flash, scan, flash_bwd,
+                      scan_bwd)
 
     def entry(name, source, replaces, launches, rows, main):
         return {"name": name, "route": "cuda", "source": source,
@@ -6138,14 +6778,16 @@ def main() -> int:
               main_launches("subtb_loss_bwd"), [b for _, b in subtb],
               subtb[0][1]),
         # Hymba's, qwen2.5-32b's, command-r-35b's, the cut models', the
-        # VLM's and the MoEs' scoring passes, the cached S > 1 calls and
+        # VLM's and the MoEs' scoring passes, the cached S > 1 calls,
         # Whisper's encoder, decoder and cross-attention (decode and pass)
+        # and the LM training phases' forwards
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
               sum(p["flash_attention"] for p in (
                   prefill, dense_prefill, dense_cached, command_r,
                   dense_cut, vlm_prefill, moe_prefill, moe_a27,
-                  encdec_decode, encdec_prefill)), flash, flash[0]),
+                  encdec_decode, encdec_prefill, lm_train, lm_conv,
+                  lm_ckpt)), flash, flash[0]),
         # the scan's two routes (ops.scan_route): the step recurrence, on
         # decode's path (its row: a decode step), and the chunk kernels, on
         # the scoring pass's (its row: the scoring shape); Hymba's and
@@ -6157,13 +6799,26 @@ def main() -> int:
                        rwkv_prefill_scan)),
                    [r for r in scan if r["route"] == ["recurrence"]],
                    scan[1]), scan_route="recurrence"),
+        # (and the LM training phases' forwards: bf16 over T >= 64)
         dict(entry("rwkv6_chunk", csrc + "rwkv6_chunk.cu",
                    "src/repro/kernels/rwkv6_scan.py:73",
                    sum(p["chunk"] for p in (
                        decode_scan, prefill_scan, rwkv_decode_scan,
-                       rwkv_prefill_scan)),
+                       rwkv_prefill_scan))
+                   + lm_train["rwkv6_scan"] + lm_ckpt["rwkv6_scan"],
                    [r for r in scan if r["route"] == ["chunk"]], scan[0]),
               scan_route="chunk"),
+        # the LM training phases' backwards (JAX differentiates its jnp
+        # layers there); each row: Hymba's 2 x 4,096 training shape
+        entry("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+              "src/repro/models/layers.py:94",
+              sum(p["flash_attention_bwd"] for p in (lm_train, lm_conv,
+                                                     lm_ckpt)),
+              flash_bwd, flash_bwd[1]),
+        entry("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu",
+              "src/repro/models/layers.py:164",
+              sum(p["rwkv6_scan_bwd"] for p in (lm_train, lm_ckpt)),
+              scan_bwd, scan_bwd[1]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

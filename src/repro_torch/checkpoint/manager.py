@@ -17,7 +17,11 @@ and hands only the file writes to a thread.
 
 Trees are flat here: a mapping of flattened names (JAX's ``_flatten``:
 dataclass fields with a leading dot, ``.train/.params/log_z``) to
-tensors.  :mod:`repro_torch.algo.loop` names a training state's leaves.
+tensors.  :mod:`repro_torch.algo.loop` names a training state's leaves;
+:func:`lm_train_leaves` names an LM training state's, as
+``repro.launch.train`` saves its ``(params, opt_state)``: ``0/log_z``,
+``0/model/...``, ``1/1/.count``, ``1/1/.mu/...``.  A checkpoint written by
+either package's ``launch.train`` resumes in the other.
 """
 from __future__ import annotations
 
@@ -30,11 +34,22 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..optim.adamw import state_leaves
+
 #: flattened-name prefix of the policy params inside a training checkpoint
 #: (JAX's ``LoopState.train.params``)
 POLICY_PARAMS_PREFIX = ".train/.params"
 #: complete steps a directory keeps (JAX's ``keep=3``)
 KEEP = 3
+
+
+def lm_train_leaves(params, opt_state) -> Dict[str, torch.Tensor]:
+    """An LM training state ``(params, opt_state)`` (``{"model": ParamTree,
+    "log_z"}`` and the optimizer chain's tuple) by JAX's flattened names:
+    the params under ``0/``, the optimizer state under ``1/``.  The tensors
+    are the state's own: :meth:`CheckpointManager.restore` copies into
+    them in place."""
+    return {**state_leaves(params, "0"), **state_leaves(opt_state, "1")}
 
 
 def to_host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:

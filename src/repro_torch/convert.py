@@ -5,6 +5,11 @@
 leaf names the JAX checkpoint manager writes
 (``checkpoint/manager.py:45-52``): ``decoder/layer_0/q/w``, ``readout/b``,
 ``log_z``, or an LM's stacked ``layers/attn/wq``.
+``train_state_from_jax`` carries an LM training state across: JAX's
+``(params, opt_state)`` of ``repro.launch.steps`` (the chain's tuple with
+``AdamState(count, mu, nu)`` inside) becomes the port's (``{"model":
+ParamTree, "log_z"}``, the same tuple of ``repro_torch.optim.adamw``
+states), so a JAX-initialized state trains in the port.
 :meth:`repro_torch.core.policies.TransformerPolicy.load_params` and
 :func:`repro_torch.models.lm.load_params` take that dict; a JAX EB-GFN
 state's ``ebm_params`` gives ``{"J": ...}``, the coupling matrix of
@@ -13,10 +18,13 @@ bfloat16 included.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .nn.core import ParamTree
+from .optim.adamw import AdamState
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = ""
@@ -40,3 +48,52 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _nested(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: (_nested(v) if isinstance(v, Mapping)
+                else _to_tensor(np.array(v, copy=True)))
+            for k, v in tree.items()}
+
+
+def opt_state_from_jax(state: Any) -> Any:
+    """A JAX optimizer state (``repro.optim.adamw``'s: tuples, ``()``,
+    0-dim counts, ``AdamState`` with nested ``mu`` / ``nu``) as the port's:
+    the same tuples, ``AdamState`` with flat ``mu`` / ``nu`` dicts keyed by
+    leaf name, 0-dim tensors of the same dtypes.  Any named tuple with
+    the fields ``count``, ``mu``, ``nu`` is read as an Adam state."""
+    if getattr(state, "_fields", None) == ("count", "mu", "nu"):
+        return AdamState(_to_tensor(np.array(state.count, copy=True)),
+                         params_from_jax(state.mu), params_from_jax(state.nu))
+    if isinstance(state, tuple):
+        return tuple(opt_state_from_jax(s) for s in state)
+    return _to_tensor(np.array(state, copy=True))
+
+
+def train_state_from_jax(params: Mapping[str, Any],
+                         opt_state: Optional[Any] = None,
+                         device=None) -> Tuple[Dict[str, Any], Any]:
+    """JAX's LM ``(params, opt_state)`` (``jax.device_get`` of
+    ``repro.launch.steps.init_lm_params`` and ``tx.init``) as the port's,
+    on ``device``: ``({"model": ParamTree (leaves require grad), "log_z":
+    0-dim tensor requiring grad}, opt_state or None)``."""
+    model = ParamTree(_nested(params["model"]), requires_grad=True)
+    model.to(device)
+    log_z = _to_tensor(np.array(params["log_z"], copy=True)).to(device)
+    port = {"model": model, "log_z": log_z.requires_grad_(True)}
+    if opt_state is None:
+        return port, None
+    state = opt_state_from_jax(opt_state)
+    return port, opt_state_to(state, device)
+
+
+def opt_state_to(state: Any, device) -> Any:
+    """A port optimizer state (tuples, 0-dim counts, ``AdamState``) with
+    every tensor moved to ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, AdamState):
+        return AdamState(state.count.to(device),
+                         {n: t.to(device) for n, t in state.mu.items()},
+                         {n: t.to(device) for n, t in state.nu.items()})
+    return tuple(opt_state_to(s, device) for s in state)

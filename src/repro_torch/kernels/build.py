@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
            CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu",
            CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
-           CSRC / "rwkv6_scan.cu", CSRC / "rwkv6_chunk.cu")
+           CSRC / "rwkv6_scan.cu", CSRC / "rwkv6_chunk.cu",
+           CSRC / "flash_attention_bwd.cu", CSRC / "rwkv6_scan_bwd.cu")
 #: headers the sources include (hashed with them)
 HEADERS = (CSRC / "flash_attention.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,17 +89,27 @@ class SubtbArgs(ctypes.Structure):
 
 class FlashAttentionArgs(ctypes.Structure):
     """Mirror of ``FlashAttentionArgs`` in flash_attention.cuh."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "out")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "out",
+                                                 "lse")]
                 + [(n, ctypes.c_int) for n in (
                     "batch", "q_len", "kv_size", "num_heads", "num_kv_heads",
                     "head_dim", "causal", "window", "q_offset", "kv_len",
                     "bf16", "device")])
 
 
+class FlashAttentionBwdArgs(ctypes.Structure):
+    """Mirror of ``FlashAttentionBwdArgs`` in flash_attention_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "out", "dout", "lse", "delta", "dq", "dk", "dv")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "q_len", "kv_size", "num_heads", "num_kv_heads",
+                    "head_dim", "causal", "window", "bf16", "device")])
+
+
 class Rwkv6ScanArgs(ctypes.Structure):
     """Mirror of ``Rwkv6ScanArgs`` in rwkv6_scan.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "r", "k", "v", "w", "u", "state_in", "out", "state_out")]
+        "r", "k", "v", "w", "u", "state_in", "out", "state_out", "carry")]
                 + [(n, ctypes.c_int) for n in (
                     "batch", "steps", "num_heads", "dk", "dv", "bf16",
                     "device")])
@@ -111,6 +122,16 @@ class Rwkv6ChunkArgs(ctypes.Structure):
         "decay")]
                 + [(n, ctypes.c_int) for n in (
                     "batch", "steps", "num_heads", "dk", "dv", "device")])
+
+
+class Rwkv6ScanBwdArgs(ctypes.Structure):
+    """Mirror of ``Rwkv6ScanBwdArgs`` in rwkv6_scan_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "r", "k", "v", "w", "u", "carry", "dout", "dstate_out", "scratch",
+        "grad_r", "grad_k", "grad_v", "grad_w", "grad_u", "grad_state")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "steps", "num_heads", "dk", "dv", "bf16",
+                    "device")])
 
 
 def find_nvcc() -> str:
@@ -209,4 +230,10 @@ def _load(path: str) -> ctypes.CDLL:
     lib.repro_rwkv6_chunk.argtypes = [ctypes.POINTER(Rwkv6ChunkArgs),
                                       ctypes.c_void_p]
     lib.repro_rwkv6_chunk.restype = ctypes.c_int
+    lib.repro_flash_attention_bwd.argtypes = [
+        ctypes.POINTER(FlashAttentionBwdArgs), ctypes.c_void_p]
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    lib.repro_rwkv6_scan_bwd.argtypes = [ctypes.POINTER(Rwkv6ScanBwdArgs),
+                                         ctypes.c_void_p]
+    lib.repro_rwkv6_scan_bwd.restype = ctypes.c_int
     return lib

@@ -13,7 +13,8 @@
 // j < kv_len, and with `causal` j <= that position, with `window` > 0
 // j > position - window.  Scores q.k * (1 / sqrt(D)) and the softmax are
 // fp32; the output is in q's dtype (fp32 or bf16).  A row that attends no
-// key is written as zeros.
+// key is written as zeros.  With `lse` set (a forward whose backward
+// follows) each row's log-sum-exp m + log(l) is written too.
 //
 // Design.  One block of 256 threads per (64-row query tile, query head,
 // batch row).  The block keeps its query tile in shared memory (fp32) and
@@ -219,6 +220,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     if (row >= Sq) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((size_t)b * H + h) * Sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = og + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll

@@ -43,7 +43,9 @@
 //   fp32 accumulator: P V then carries P to about 16 bits, where P rounded
 //   once to bf16 would land outputs more than one bf16 ulp from the fp32
 //   plain version (tests/test_torch_flash_split.py shows both).
-// - Rows past Sq and columns past D are not stored.
+// - Rows past Sq and columns past D are not stored.  With `lse` set (a
+//   forward whose backward follows, flash_attention_bwd.cu) each row's
+//   log-sum-exp (m + log2 l) ln 2 is stored too, from one lane of its quad.
 //
 // What bounds it (H100 SXM data sheet: 989 TFLOP/s bf16 dense tensor cores,
 // 3.35 TB/s).  At the scoring pass's call, q (2, 4096, 25, 64) against k/v
@@ -510,7 +512,18 @@ __global__ void __launch_bounds__(Tiles<DP>::kThreads, 1)
   }
 
   // out = o / l; a row that attended no key has o = 0 and l = 0: zeros
-  const float d0 = fmaxf(quad_sum(l0), 1e-30f), d1 = fmaxf(quad_sum(l1), 1e-30f);
+  const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+  const float d0 = fmaxf(s0, 1e-30f), d1 = fmaxf(s1, 1e-30f);
+  if (a.lse != nullptr && (lane & 3) == 0) {
+    // log-sum-exp in natural units: ln(2^m l) = (m + log2 l) ln 2
+    float* lse = a.lse + ((size_t)b * H + h) * Sq;
+    if (row0 < Sq)
+      lse[row0] = s0 > 0.f ? (m0 + log2f(s0)) * 0.6931471805599453f
+                           : -INFINITY;
+    if (row0 + 8 < Sq)
+      lse[row0 + 8] = s1 > 0.f ? (m1 + log2f(s1)) * 0.6931471805599453f
+                               : -INFINITY;
+  }
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out);
   const size_t stride_row = (size_t)H * D;
   __nv_bfloat16* out0 = og + ((size_t)b * Sq + row0) * stride_row + (size_t)h * D;

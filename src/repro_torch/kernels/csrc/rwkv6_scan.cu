@@ -17,6 +17,9 @@
 // fp32; u: (H, Dk) fp32 or none; state: (B, H, Dk, Dv) fp32.  Writes o in
 // r's dtype and the final state in fp32.  The Pallas kernel starts from
 // zeros; the model always carries a state (decode runs this at T = 1).
+// With `carry` set (a forward whose backward follows, rwkv6_scan_bwd.cu) it
+// also writes the state entering every 64-step chunk, the layout of the
+// chunk kernel's carry.
 //
 // Design.  One block per (b, h) and tile of 32 state columns j; four
 // threads per column, on adjacent lanes, each keeping a quarter of the
@@ -50,6 +53,7 @@ struct Rwkv6ScanArgs {
   const float* state_in;  // (B, H, Dk, Dv) or null: zeros
   void* out;              // (B, T, H, Dv), r's dtype
   float* state_out;       // (B, H, Dk, Dv)
+  float* carry;           // (B, H, ceil(T / 64), Dk, Dv) or null
   int batch, steps, num_heads, dk, dv, bf16, device;
 };
 
@@ -105,8 +109,20 @@ __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(
   }
   const bool bonus = a.u != nullptr;
 
+  const int n_saved = (T + 2 * kChunk - 1) / (2 * kChunk);
   for (int t0 = 0; t0 < T; t0 += kChunk) {
     const int n = min(kChunk, T - t0);
+    if (a.carry != nullptr && live && t0 % (2 * kChunk) == 0) {
+      // the state entering this 64-step chunk, for the backward pass
+      float* dst = a.carry +
+                   ((((size_t)b * H + h) * n_saved + t0 / (2 * kChunk)) * Dk) *
+                       Dv;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = g * RPT + i;
+        if (row < Dk) dst[(size_t)row * Dv + j] = S[i];
+      }
+    }
     __syncthreads();  // the last chunk is read
     for (int idx = threadIdx.x; idx < kChunk * DK; idx += kThreads) {
       const int tt = idx / DK, i = idx % DK;

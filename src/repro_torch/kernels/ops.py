@@ -26,8 +26,9 @@ from typing import Dict, List, Mapping, Optional, Union
 import torch
 
 from .ref import (ref_decode_attention, ref_decode_step,
-                  ref_flash_attention, ref_rwkv6, ref_subtb,
-                  ref_subtb_backward, ref_traj_logprob,
+                  ref_flash_attention, ref_flash_attention_bwd,
+                  ref_flash_attention_lse, ref_rwkv6, ref_rwkv6_bwd,
+                  ref_subtb, ref_subtb_backward, ref_traj_logprob,
                   ref_traj_logprob_backward)
 
 #: keys of the stacked decoder weights the fused step takes
@@ -146,7 +147,9 @@ def captured_launches() -> Dict[str, int]:
             "subtb_loss_fwd": subtb_loss.captured,
             "subtb_loss_bwd": subtb_loss_backward.captured,
             "flash_attention": flash_attention.captured,
-            "rwkv6_scan": rwkv6_scan.captured}
+            "flash_attention_bwd": flash_attention_backward.captured,
+            "rwkv6_scan": rwkv6_scan.captured,
+            "rwkv6_scan_bwd": rwkv6_scan_backward.captured}
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
@@ -745,12 +748,19 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate through an op on these
+    operands (grad mode on, some operand requires grad)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """GQA streaming-softmax attention (port of
     ``repro.kernels.flash_attention.flash_attention_pallas``, with the jnp
-    layer's ``q_offset``).
+    layer's ``q_offset``), differentiable.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) with H % KVH == 0, all float32
     or all bfloat16.  Query row i sits at position ``q_offset + i``; key j
@@ -762,11 +772,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     alone: bfloat16 with D a multiple of 16 runs on the tensor cores (its
     operands 16-byte aligned), everything else on the SIMT kernel.
     ``flash_attention.launches`` counts every launch and
-    ``flash_attention.route_launches[route]`` each route's.  Forward only:
-    an operand that requires grad raises under grad mode (the backward
-    comes with LM training)."""
+    ``flash_attention.route_launches[route]`` each route's.
+
+    Gradients (q, k, v) come from :func:`flash_attention_backward`: when
+    autograd will differentiate the call, the forward also writes each
+    row's log-sum-exp for it (nothing more is written otherwise: the serve,
+    scoring and decode paths run as before).  A differentiated call with
+    ``q_offset != 0`` or ``kv_len < Skv`` raises NotImplementedError: only
+    cached decode passes those, and it never differentiates
+    (``ROADMAP.md``)."""
     op = "flash_attention"
-    _refuse_grad(op, q, k, v)
     dev = q.device
     if q.dtype not in _ATTN_DTYPES:
         raise TypeError(f"{op}: q has dtype {q.dtype}, expected float32 or "
@@ -785,32 +800,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0 or kv_len < 0:
         raise ValueError(f"{op}: window {window} and kv_len {kv_len} must "
                          "not be negative")
-    if dev.type == "cpu":
-        return ref_flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, kv_len=kv_len)
-    if dev.type != "cuda":
+    grad = _needs_grad(q, k, v)
+    if grad and (q_offset != 0 or kv_len < Skv):
+        raise NotImplementedError(
+            f"{op}: no gradient with q_offset {q_offset} or kv_len {kv_len} "
+            f"< {Skv} (cached decode); differentiate whole-sequence calls "
+            "only (ROADMAP.md)")
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: no kernel for device {dev}")
-    if D > 128:
-        raise ValueError(f"{op}: the kernel takes head dims up to 128, "
-                         f"got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be contiguous")
+    if dev.type == "cuda":
+        if D > 128:
+            raise ValueError(f"{op}: the kernel takes head dims up to 128, "
+                             f"got {D}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_contiguous():
+                raise ValueError(f"{op}: {name} must be contiguous")
+        if flash_route(q.dtype, D) == "wgmma" and any(
+                t.data_ptr() % 16 for t in (q, k, v) if t.numel()):
+            raise ValueError(f"{op}: the tensor-core kernel reads q, k, v "
+                             "through TMA and needs them on 16-byte "
+                             "boundaries")
+    if not grad:
+        return _flash_forward(q, k, v, bool(causal), window, q_offset, kv_len,
+                              False)[0]
+    return _FlashAttention.apply(q, k, v, bool(causal), window)[0]
 
-    route = flash_route(q.dtype, D)
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)
-                                if t.numel()):
-        raise ValueError(f"{op}: the tensor-core kernel reads q, k, v "
-                         "through TMA and needs them on 16-byte boundaries")
 
+def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
+                   kv_len: int, with_lse: bool):
+    """The checked forward: ``(out, lse)``, lse (B, H, Sq) float32 when
+    ``with_lse`` (for the backward pass) else None.  The kernel on CUDA,
+    the plain version on the CPU."""
+    op = "flash_attention"
+    dev = q.device
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    if dev.type == "cpu":
+        out = ref_flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, kv_len=kv_len)
+        lse = (ref_flash_attention_lse(q, k, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
+               if with_lse else None)
+        return out, lse
     from . import build
+    route = flash_route(q.dtype, D)
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+           if with_lse else None)
     if B * Sq * H == 0:
-        return out
+        return out, lse
     args = build.FlashAttentionArgs(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        lse=None if lse is None else lse.data_ptr(),
         batch=B, q_len=Sq, kv_size=Skv, num_heads=H, num_kv_heads=KVH,
-        head_dim=D, causal=int(bool(causal)), window=window,
+        head_dim=D, causal=int(causal), window=window,
         q_offset=q_offset, kv_len=kv_len,
         bf16=int(q.dtype == torch.bfloat16), device=_device_index(dev))
     lib = build.library()
@@ -822,7 +865,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"{op} kernel launch failed ({route} route): "
                            f"CUDA error {err}")
     _launched(flash_attention, route)
-    return out
+    return out, lse
+
+
+class _FlashAttention(_Function):
+    """:func:`flash_attention` under autograd (q_offset 0, every key
+    valid): the forward with its row log-sum-exp, the backward through
+    :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return _flash_forward(q, k, v, causal, window, 0, k.shape[1], True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.kv_shape = tuple(k.shape[1:3])     # (Skv, KVH), for recorders
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` (q_offset
+    0, every key valid) for the cotangent ``dout`` of its output ``out``,
+    given the forward's row log-sum-exp ``lse`` (B, H, Sq) float32: the
+    backward kernels (``flash_attention_bwd.cu``, three launches counted as
+    one in ``flash_attention_backward.launches``) on CUDA tensors, the plain
+    version :func:`repro_torch.kernels.ref.ref_flash_attention_bwd` on CPU
+    tensors.  q, k, v, out, dout contiguous and of one dtype (float32 or
+    bfloat16), D <= 128; the gradients come in that dtype, dk and dv summed
+    over each kv head's group of query heads."""
+    op = "flash_attention_backward"
+    dev = q.device
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{op}: q has dtype {q.dtype}, expected float32 or "
+                        "bfloat16")
+    for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        _require(name, op, t, q.dtype, dev, 4)
+    _require("lse", op, lse, torch.float32, dev, 3)
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, KVH, D) or tuple(v.shape) != tuple(k.shape) \
+            or KVH < 1 or H % KVH or tuple(out.shape) != tuple(q.shape) \
+            or tuple(dout.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"{op}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)} do not agree")
+    window = int(window)
+    if dev.type == "cpu":
+        return ref_flash_attention_bwd(q, k, v, out, dout, lse,
+                                       causal=bool(causal), window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    if D > 128:
+        raise ValueError(f"{op}: the kernel takes head dims up to 128, got "
+                         f"{D}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout), ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+    from . import build
+    dq = torch.zeros_like(q)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    if B * Sq * H == 0:
+        return dq, dk, dv
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    args = build.FlashAttentionBwdArgs(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        dout=dout.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), batch=B,
+        q_len=Sq, kv_size=Skv, num_heads=H, num_kv_heads=KVH, head_dim=D,
+        causal=int(bool(causal)), window=window,
+        bf16=int(q.dtype == torch.bfloat16), device=_device_index(dev))
+    err = build.library().repro_flash_attention_bwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    _launched(flash_attention_backward)
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = flash_attention_backward.captured = 0
 
 
 flash_attention.launches = flash_attention.captured = 0
@@ -851,7 +990,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                state: Optional[torch.Tensor] = None):
     """The RWKV6 wkv recurrence with an initial state (port of
     ``repro.kernels.rwkv6_scan.rwkv6_scan_pallas``, which starts from
-    zeros; the model carries its state, ``models/layers.py:164``).
+    zeros; the model carries its state, ``models/layers.py:164``),
+    differentiable.
 
     r/k: (B, T, H, Dk) and v: (B, T, H, Dv), all float32 or all bfloat16;
     w: (B, T, H, Dk) float32 or bfloat16, clipped to [1e-8, 1]; u: (H, Dk)
@@ -865,15 +1005,22 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and so stays exact at any decay, where the JAX chunk form (the Pallas
     kernel and ``repro.models.layers.chunked_linear_attention``) divides
     by the running product clamped at 1e-30 and departs from the
-    recurrence; the rest runs the step recurrence kernel.  On the CPU the plain version
-    :func:`repro_torch.kernels.ref.ref_rwkv6` runs (the JAX chunk form is
-    kept as ``ref.chunked_linear_attention_ref`` for the tests).
+    recurrence; the rest runs the step recurrence kernel.  On the CPU the
+    plain version :func:`repro_torch.kernels.ref.ref_rwkv6` runs (the JAX
+    chunk form is kept as ``ref.chunked_linear_attention_ref`` for the
+    tests).
     ``rwkv6_scan.launches`` counts every call that launched a kernel and
     ``rwkv6_scan.route_launches[route]`` each route's (the chunk route's
-    three kernels count as one).  Forward only, as
-    :func:`flash_attention`."""
+    three kernels count as one).
+
+    Gradients (r, k, v, w, u, state) come from :func:`rwkv6_scan_backward`
+    (Dk, Dv <= 64: a differentiated call past them raises on every
+    device): when autograd will differentiate the call, the
+    forward also keeps the state entering every 64-step chunk for it (the
+    chunk route's carry; the recurrence kernel writes the same).  Through
+    the clip, w's gradient is JAX's: 1/2 at w = 1e-8 or w = 1 exactly
+    (:func:`repro_torch.kernels.ref.clip_grad`)."""
     op = "rwkv6_scan"
-    _refuse_grad(op, r, k, v, w, u, state)
     dev = r.device
     if r.dtype not in _ATTN_DTYPES:
         raise TypeError(f"{op}: r has dtype {r.dtype}, expected float32 or "
@@ -902,40 +1049,57 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(state.shape) != (B, H, Dk, Dv):
             raise ValueError(f"{op}: state has shape {tuple(state.shape)}, "
                              f"expected {(B, H, Dk, Dv)}")
-    if dev.type == "cpu":
-        return ref_rwkv6(r, k, v, w, u, state)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: no kernel for device {dev}")
-    if Dk > 64:
-        raise ValueError(f"{op}: the kernel takes Dk <= 64, got {Dk}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        if not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be contiguous")
-    route = scan_route(r.dtype, T)
-    if route == "chunk" and r.dtype != torch.bfloat16:
-        raise ValueError(f"{op}: the chunk kernel takes bfloat16 r, k, v, "
-                         f"got {r.dtype}")
+    grad = _needs_grad(r, k, v, w, u, state)
+    if grad and (Dk > 64 or Dv > 64):
+        # on every device, so a CPU run refuses what the card would
+        raise ValueError(f"{op}: no gradient with Dk {Dk}, Dv {Dv}: the "
+                         "backward kernel takes Dk <= 64 and Dv <= 64")
+    if dev.type == "cuda":
+        if Dk > 64:
+            raise ValueError(f"{op}: the kernel takes Dk <= 64, got {Dk}")
+        for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+            if not t.is_contiguous():
+                raise ValueError(f"{op}: {name} must be contiguous")
+    if not grad:
+        return _scan_forward(r, k, v, w, u, state, False)[:2]
+    out, state_out, _ = _Rwkv6Scan.apply(r, k, v, w, u, state)
+    return out, state_out
 
+
+def _scan_forward(r, k, v, w, u, state, with_carry: bool):
+    """The checked forward: ``(o, state_out, carry)``; carry (B, H,
+    ceil(T / 64), Dk, Dv) float32, the state entering each 64-step chunk,
+    when ``with_carry`` on CUDA (for the backward kernel), else None."""
+    op = "rwkv6_scan"
+    dev = r.device
+    if dev.type == "cpu":
+        return ref_rwkv6(r, k, v, w, u, state) + (None,)
+    B, T, H, Dk = r.shape
+    Dv = v.shape[-1]
+    route = scan_route(r.dtype, T)
     from . import build
     w = w.to(torch.float32)
     u = None if u is None else u.to(torch.float32).contiguous()
     state = None if state is None else state.contiguous()
     out = torch.empty(B, T, H, Dv, dtype=r.dtype, device=dev)
     state_out = torch.empty(B, H, Dk, Dv, dtype=torch.float32, device=dev)
+    n = -(-T // SCAN_CHUNK)
+    carry = (torch.empty(B, H, n, Dk, Dv, dtype=torch.float32, device=dev)
+             if with_carry or route == "chunk" else None)
     common = dict(
         r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=w.data_ptr(),
         u=None if u is None else u.data_ptr(),
         state_in=None if state is None else state.data_ptr(),
-        out=out.data_ptr(), state_out=state_out.data_ptr(), batch=B,
+        out=out.data_ptr(), state_out=state_out.data_ptr(),
+        carry=None if carry is None else carry.data_ptr(), batch=B,
         steps=T, num_heads=H, dk=Dk, dv=Dv, device=_device_index(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "chunk":
-        n = -(-T // SCAN_CHUNK)
         # each chunk's own state, then the state entering it; its decay
-        carry = torch.empty(B, H, n, Dk, Dv, dtype=torch.float32, device=dev)
         decay = torch.empty(B, H, n, Dk, dtype=torch.float32, device=dev)
-        args = build.Rwkv6ChunkArgs(carry=carry.data_ptr(),
-                                    decay=decay.data_ptr(), **common)
+        args = build.Rwkv6ChunkArgs(decay=decay.data_ptr(), **common)
         err = build.library().repro_rwkv6_chunk(ctypes.byref(args), stream)
     else:
         args = build.Rwkv6ScanArgs(bf16=int(r.dtype == torch.bfloat16),
@@ -945,7 +1109,114 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{op} kernel launch failed ({route} route): "
                            f"CUDA error {err}")
     _launched(rwkv6_scan, route)
-    return out, state_out
+    return out, state_out, carry if with_carry else None
+
+
+class _Rwkv6Scan(_Function):
+    """:func:`rwkv6_scan` under autograd: the forward keeps its chunk
+    states, the backward runs :func:`rwkv6_scan_backward`."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, state):
+        return _scan_forward(r, k, v, w, u, state, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r, k, v, w, u, state = inputs
+        carry = output[2]
+        if carry is not None:
+            ctx.mark_non_differentiable(carry)
+        ctx.save_for_backward(r, k, v, w, u, state, carry)
+        ctx.bonus, ctx.has_state = u is not None, state is not None
+
+    @staticmethod
+    def backward(ctx, dout, dstate_out, _dcarry):
+        r, k, v, w, u, state, carry = ctx.saved_tensors
+        dr, dk, dv, dw, du, dstate = rwkv6_scan_backward(
+            r, k, v, w, u, state, carry, dout.contiguous(),
+            None if dstate_out is None else dstate_out.contiguous())
+        return dr, dk, dv, dw, du, None if state is None else dstate
+
+
+def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: Optional[torch.Tensor],
+                        state: Optional[torch.Tensor],
+                        carry: Optional[torch.Tensor], dout: torch.Tensor,
+                        dstate_out: Optional[torch.Tensor]):
+    """The gradients ``(dr, dk, dv, dw, du, dstate)`` of
+    :func:`rwkv6_scan` for the cotangents ``dout`` (B, T, H, Dv) of its
+    output and ``dstate_out`` (B, H, Dk, Dv) float32 of its final state
+    (None: zeros), in the dtypes of r, k, v, w, u (None without u) and
+    float32.  On CUDA tensors the backward kernel (``rwkv6_scan_bwd.cu``,
+    one launch, counted in ``rwkv6_scan_backward.launches``; Dk, Dv <= 64)
+    reads ``carry`` (B, H, ceil(T / 64), Dk, Dv), the state entering each
+    64-step chunk that the forward kept; on CPU tensors the plain version
+    :func:`repro_torch.kernels.ref.ref_rwkv6_bwd` recomputes the states
+    from ``state`` and ignores ``carry``.  Through the clip, w's gradient is
+    JAX's: 1/2 at w = 1e-8 or w = 1 exactly."""
+    op = "rwkv6_scan_backward"
+    dev = r.device
+    B, T, H, Dk = r.shape
+    Dv = v.shape[-1]
+    for name, t, shape in (("k", k, (B, T, H, Dk)), ("v", v, (B, T, H, Dv)),
+                           ("dout", dout, (B, T, H, Dv))):
+        _require(name, op, t, r.dtype, dev, 4)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if dstate_out is not None:
+        _require("dstate_out", op, dstate_out, torch.float32, dev, 4)
+        if tuple(dstate_out.shape) != (B, H, Dk, Dv):
+            raise ValueError(f"{op}: dstate_out has shape "
+                             f"{tuple(dstate_out.shape)}")
+    if dev.type == "cpu":
+        return ref_rwkv6_bwd(r, k, v, w, u, state, dout, dstate_out)
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {dev}")
+    if Dk > 64 or Dv > 64:
+        raise ValueError(f"{op}: the kernel takes Dk, Dv <= 64, got "
+                         f"{Dk}, {Dv}")
+    n = -(-T // SCAN_CHUNK)
+    if carry is None or tuple(carry.shape) != (B, H, n, Dk, Dv) \
+            or carry.dtype != torch.float32 or not carry.is_contiguous():
+        raise ValueError(f"{op}: carry must be the forward's (B, H, {n}, Dk, "
+                         "Dv) float32 chunk states")
+    for name, t in (("r", r), ("k", k), ("v", v), ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+    from . import build
+    wf = w.to(torch.float32).contiguous()
+    uf = None if u is None else u.to(torch.float32).contiguous()
+    dr, dk = torch.empty_like(r), torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dw = torch.empty(B, T, H, Dk, dtype=torch.float32, device=dev)
+    du = (None if u is None else
+          torch.empty(B, H, Dk, dtype=torch.float32, device=dev))
+    dstate = torch.empty(B, H, Dk, Dv, dtype=torch.float32, device=dev)
+    pad = lambda d: 16 if d <= 16 else 32 if d <= 32 else 64
+    scratch = torch.empty(B * H * SCAN_CHUNK * pad(Dk) * pad(Dv),
+                          dtype=torch.float32, device=dev)
+    args = build.Rwkv6ScanBwdArgs(
+        r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=wf.data_ptr(),
+        u=None if uf is None else uf.data_ptr(), carry=carry.data_ptr(),
+        dout=dout.data_ptr(),
+        dstate_out=None if dstate_out is None else dstate_out.data_ptr(),
+        scratch=scratch.data_ptr(), grad_r=dr.data_ptr(),
+        grad_k=dk.data_ptr(), grad_v=dv.data_ptr(), grad_w=dw.data_ptr(),
+        grad_u=None if du is None else du.data_ptr(),
+        grad_state=dstate.data_ptr(), batch=B, steps=T, num_heads=H, dk=Dk,
+        dv=Dv, bf16=int(r.dtype == torch.bfloat16),
+        device=_device_index(dev))
+    err = build.library().repro_rwkv6_scan_bwd(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    _launched(rwkv6_scan_backward)
+    return (dr, dk, dv, dw.to(w.dtype),
+            None if du is None else du.sum(0).to(u.dtype), dstate)
+
+
+rwkv6_scan_backward.launches = rwkv6_scan_backward.captured = 0
 
 
 rwkv6_scan.launches = rwkv6_scan.captured = 0

@@ -210,6 +210,23 @@ def attention_mask(q_len: int, kv_size: int, *, causal: bool, window: int,
     return mask
 
 
+def _attention_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                      window: int, q_offset: int, kv_len: Optional[int]):
+    """The float32 scores ``q.k / sqrt(D)`` (B, H, Sq, Skv), query head h
+    against kv head h // (H / KVH), masked to -1e30, and the (Sq, Skv)
+    mask of :func:`attention_mask`."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    kr = k.to(f32).repeat_interleave(H // KVH, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kr) / math.sqrt(D)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, device=q.device)
+    logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=f32,
+                                                    device=q.device))
+    return logits, mask
+
+
 def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: int = 0,
@@ -224,19 +241,60 @@ def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     oracle averages every key there, its chunked layer the keys of the
     chunks it saw; no caller makes such a row: on the causal path every row
     attends its own position)."""
+    H, KVH = q.shape[2], k.shape[2]
+    logits, mask = _attention_scores(q, k, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len)
+    a = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+    vr = v.to(torch.float32).repeat_interleave(H // KVH, dim=2)
+    return torch.einsum("bhqk,bkhd->bqhd", a, vr).to(q.dtype)
+
+
+def ref_flash_attention_lse(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0,
+                            kv_len: Optional[int] = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its attended scaled scores, (B, H,
+    Sq) float32, -inf for a row that attends no key: what the forward
+    kernels write into ``lse`` for the backward pass."""
+    logits, mask = _attention_scores(q, k, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len)
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.where(mask.any(-1), lse, float("-inf"))
+
+
+def ref_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True, window: int = 0):
+    """The backward pass of :func:`ref_flash_attention` (q_offset 0, every
+    key valid) in the dense form, the arithmetic of
+    ``flash_attention_bwd.cu``: from the forward's output ``out`` (B, Sq,
+    H, D) and row log-sum-exp ``lse`` (B, H, Sq) and the cotangent ``do``,
+    ``P = exp(s - lse)`` on the attended keys (0 elsewhere), ``Delta =
+    rowsum(do * out)``, ``dS = P (do.v - Delta)``; ``dq = dS k / sqrt(D)``,
+    ``dk = dS^T q / sqrt(D)`` and ``dv = P^T do``, dk and dv summed over
+    each kv head's group of query heads.  Everything in float32; returns
+    ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     f32 = torch.float32
+    logits, mask = _attention_scores(q, k, causal=causal, window=window,
+                                     q_offset=0, kv_len=None)
+    p = torch.where(mask, torch.exp(logits - lse.to(f32)[..., None]), 0.0)
+    dof = do.to(f32)
+    delta = (dof * out.to(f32)).sum(-1).permute(0, 2, 1)       # (B, H, Sq)
     kr = k.to(f32).repeat_interleave(G, dim=2)
     vr = v.to(f32).repeat_interleave(G, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kr) / math.sqrt(D)
-    mask = attention_mask(Sq, Skv, causal=causal, window=window,
-                          q_offset=q_offset, kv_len=kv_len, device=q.device)
-    logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=f32,
-                                                    device=q.device))
-    a = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
-    return torch.einsum("bhqk,bkhd->bqhd", a, vr).to(q.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta[..., None])
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f32)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Skv, KVH, G, D).sum(3)
+    dv = dv.reshape(B, Skv, KVH, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -272,6 +330,73 @@ def ref_rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (torch.stack(outs, 1) if outs
          else torch.zeros(B, 0, H, Dv, dtype=f32, device=r.device))
     return o.to(r.dtype), S
+
+
+def clip_grad(w: torch.Tensor) -> torch.Tensor:
+    """d clip(w, 1e-8, 1) / dw in float32, as JAX's ``jnp.clip`` gives it:
+    1 inside (1e-8, 1), 0 outside [1e-8, 1], and 1/2 at w = 1e-8 or w = 1
+    exactly (torch's ``clamp`` gives 1 on the bounds)."""
+    wf = w.to(torch.float32)
+    inside = ((wf > 1e-8) & (wf < 1.0)).to(torch.float32)
+    bound = ((wf == 1e-8) | (wf == 1.0)).to(torch.float32)
+    return inside + 0.5 * bound
+
+
+def ref_rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: Optional[torch.Tensor],
+                  state: Optional[torch.Tensor], do: torch.Tensor,
+                  dstate_out: Optional[torch.Tensor]):
+    """The backward pass of :func:`ref_rwkv6` by the reverse recurrence in
+    float32, the arithmetic of ``rwkv6_scan_bwd.cu``.  With ``c(w) =
+    clip(w, 1e-8, 1)`` and G_t the adjoint of S_t (G_T = ``dstate_out``,
+    zeros when None; ``G_{t-1} = c(w_t) G_t + r_t^T do_t``):
+    ``dr_t = S_{t-1} do_t + u k_t (v_t . do_t)``, ``dk_t = G_t v_t + r_t u
+    (v_t . do_t)``, ``dv_t = G_t^T k_t + (r_t . u . k_t) do_t``, ``dw_t =
+    rowsum(S_{t-1} * G_t) c'(w_t)`` (:func:`clip_grad`: JAX's 1/2 on the
+    bounds), ``du = sum_{b, t} r_t k_t (v_t . do_t)`` and ``dstate =
+    G_0``.  The states S_{t-1} are recomputed forward and kept (nothing is
+    divided by w).  Returns ``(dr, dk, dv, dw, du, dstate)`` in the dtypes
+    of r, k, v, w, u (None without u) and float32."""
+    B, T, H, Dk = r.shape
+    Dv = v.shape[-1]
+    f32 = torch.float32
+    rf, kf, vf, gf = r.to(f32), k.to(f32), v.to(f32), do.to(f32)
+    wc = w.to(f32).clamp(1e-8, 1.0)
+    S = (torch.zeros(B, H, Dk, Dv, dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    prev = []                                        # S_{t-1}
+    for t in range(T):
+        prev.append(S)
+        S = (wc[:, t][..., None] * S
+             + kf[:, t][..., None] * vf[:, t][..., None, :])
+    G = (torch.zeros(B, H, Dk, Dv, dtype=f32, device=r.device)
+         if dstate_out is None else dstate_out.to(f32))
+    vdo = (vf * gf).sum(-1)                          # (B, T, H)
+    uf = None if u is None else u.to(f32)
+    dr, dk, dv, dw = ([None] * T for _ in range(4))
+    for t in reversed(range(T)):
+        Sp = prev[t]
+        dr[t] = torch.einsum("bhij,bhj->bhi", Sp, gf[:, t])
+        dk[t] = torch.einsum("bhij,bhj->bhi", G, vf[:, t])
+        dv[t] = torch.einsum("bhij,bhi->bhj", G, kf[:, t])
+        dw[t] = (Sp * G).sum(-1)
+        if uf is not None:
+            dr[t] = dr[t] + uf * kf[:, t] * vdo[:, t, :, None]
+            dk[t] = dk[t] + rf[:, t] * uf * vdo[:, t, :, None]
+            dv[t] = dv[t] + (rf[:, t] * uf * kf[:, t]).sum(-1)[..., None] \
+                * gf[:, t]
+        G = (wc[:, t][..., None] * G
+             + rf[:, t][..., None] * gf[:, t][..., None, :])
+
+    def stack(xs, D):
+        return (torch.stack(xs, 1) if xs else
+                torch.zeros(B, 0, H, D, dtype=f32, device=r.device))
+
+    dwt = stack(dw, Dk) * clip_grad(w)
+    du = None if u is None else \
+        (rf * kf * vdo[..., None]).sum((0, 1)).to(u.dtype)
+    return (stack(dr, Dk).to(r.dtype), stack(dk, Dk).to(k.dtype),
+            stack(dv, Dv).to(v.dtype), dwt.to(w.dtype), du, G)
 
 
 def chunked_linear_attention_ref(r: torch.Tensor, k: torch.Tensor,

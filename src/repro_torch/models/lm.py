@@ -26,10 +26,13 @@ q_dim); Whisper's ``encoder/*`` leaves lead with ``encoder_layers``) -- so
 Entry points, as in JAX:
   forward_train(params, cfg, batch) -> per-token log-probs of the targets
       and the aux loss (the MoE's summed load-balancing loss, else 0); the
-      prompt-scoring pass.  Per layer it runs the flash-attention kernel
-      (dense, vlm, moe, hybrid; encdec: causal self-attention in encoder
-      and decoder, non-causal cross-attention) and the scan kernel (rwkv,
-      hybrid) over the whole sequence.
+      prompt-scoring pass, and under autograd the training pass (every
+      family differentiates; with ``remat="full"`` each layer runs under
+      ``torch.utils.checkpoint``, JAX's ``_maybe_remat``).  Per layer it
+      runs the flash-attention kernel (dense, vlm, moe, hybrid; encdec:
+      causal self-attention in encoder and decoder, non-causal
+      cross-attention) and the scan kernel (rwkv, hybrid) over the whole
+      sequence.
   init_cache(cfg, batch, max_len) / decode_step(params, cfg, tokens, cache)
       -> (logits, cache); one token.  Dense, vlm, moe and encdec attend
       their full-length cache in plain torch (``_decode_attention``, as in
@@ -64,6 +67,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..nn.core import ParamTree, Params, normal_init_sliced
 # loads params_from_jax(jax.device_get(repro.models.lm.init_params(...)))
@@ -543,30 +547,60 @@ def _cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict[str, Any]:
             "v": (enc_out @ p["xattn"]["wv"]).reshape(shape)}
 
 
+def _maybe_remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, one layer, as JAX's ``_maybe_remat`` wraps a layer:
+    with ``remat="full"`` and autograd recording, under
+    ``torch.utils.checkpoint`` (non-reentrant): the layer's activations are
+    dropped after the forward and recomputed in the backward, so the flash
+    and scan kernels run their forward twice and their backward once per
+    layer.  ``remat="dots"`` (keep the matmul outputs) raises when
+    differentiated: no config uses it.  Without autograd (scoring,
+    serving) the layer runs plainly."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' is not ported: no configuration uses it")
+    if cfg.remat == "full":
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 def backbone(params, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
              return_aux: bool = False):
     """The decoder blocks, layer by layer (training / scoring path, no
-    cache), then the final norm.  ``enc_out``: Whisper's encoder output,
-    whose cross-attention K/V each layer projects.  With ``return_aux``
-    returns (x, aux): the MoE's load-balancing losses summed over the
-    layers in float32, 0 for the other families."""
+    cache), then the final norm; each layer under :func:`_maybe_remat`.
+    ``enc_out``: Whisper's encoder output, whose cross-attention K/V each
+    layer projects.  With ``return_aux`` returns (x, aux): the MoE's
+    load-balancing losses summed over the layers in float32 (differentiable:
+    the objective adds them, as JAX's ``loss_fn``), 0 for the other
+    families."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
         if cfg.family in ("dense", "vlm"):
-            x, _ = dense_block_apply(p, x, cfg, positions)
+            x = _maybe_remat(
+                cfg, lambda x, p=p: dense_block_apply(p, x, cfg,
+                                                      positions)[0], x)
         elif cfg.family == "moe":
-            x, _, aux_l = moe_block_apply(p, x, cfg, positions,
-                                          attention_sublayer, rmsnorm)
+            x, aux_l = _maybe_remat(
+                cfg, lambda x, p=p: moe_block_apply(
+                    p, x, cfg, positions, attention_sublayer,
+                    rmsnorm)[::2], x)
             aux = aux + aux_l
         elif cfg.family == "rwkv":
-            x, _ = rwkv_block_apply(p, x, cfg)
+            x = _maybe_remat(
+                cfg, lambda x, p=p: rwkv_block_apply(p, x, cfg)[0], x)
         elif cfg.family == "hybrid":
-            x, _ = hybrid_block_apply(p, x, cfg, positions)
+            x = _maybe_remat(
+                cfg, lambda x, p=p: hybrid_block_apply(p, x, cfg,
+                                                       positions)[0], x)
         elif cfg.family == "encdec":
-            x, _ = encdec_dec_block_apply(p, x, cfg, positions,
-                                          _cross_kv(p, cfg, enc_out))
+            x = _maybe_remat(
+                cfg, lambda x, p=p: encdec_dec_block_apply(
+                    p, x, cfg, positions, _cross_kv(p, cfg, enc_out))[0], x)
         else:
             raise ValueError(cfg.family)
     x = rmsnorm(params["ln_f"], x)
@@ -600,8 +634,9 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     x = frames + _sinusoidal_pos(S, cfg.d_model, frames.dtype, frames.device)
     positions = torch.arange(S, device=frames.device)[None].expand(B, S)
     for i in range(cfg.encoder_layers):
-        x, _ = dense_block_apply(_layer(params["encoder"], i), x, cfg,
-                                 positions)
+        p = _layer(params["encoder"], i)
+        x = _maybe_remat(
+            cfg, lambda x, p=p: dense_block_apply(p, x, cfg, positions)[0], x)
     return rmsnorm(params["enc_ln_f"], x)
 
 
@@ -613,7 +648,9 @@ def chunked_target_logprobs(x: torch.Tensor, head: torch.Tensor,
                             targets: torch.Tensor,
                             chunk: int = 512) -> torch.Tensor:
     """log p(target_t) per position, (B, S) float32, without
-    materializing (S, V) logits: ``chunk`` positions at a time."""
+    materializing (S, V) logits: ``chunk`` positions at a time (under
+    autograd each chunk's float32 logits are kept for its backward, as
+    JAX's scan keeps its residuals)."""
     S = x.shape[1]
     out = []
     for s0 in range(0, S, chunk):
@@ -640,7 +677,9 @@ def forward_train(params, cfg: ModelConfig,
         x, positions = batch["embeds"], batch["position_ids"]
     else:
         tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        # F.embedding: its backward on CUDA sums repeated tokens in a
+        # fixed order (an indexed gather's would use atomics)
+        x = F.embedding(tokens.long(), params["embed"])
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if cfg.family == "encdec":

@@ -1,6 +1,7 @@
 """The port on a CUDA GPU: the hand-written kernels (decode step, decode
 attention, trajectory log-prob forward and backward, SubTB loss forward
-and backward, flash attention, the RWKV6 scan on both of its routes)
+and backward, flash attention and its backward, the RWKV6 scan on both of
+its routes and its backward)
 against their plain PyTorch versions, the serving engine on the card
 against ``forward_rollout``, two bitseq_tb training iterations, one
 full-size hypergrid_subtb iteration, one iteration of each sequence-design
@@ -1285,10 +1286,16 @@ def test_flash_attention_rows_without_keys_are_zero_on_cuda(cuda, dtype):
 
 
 def test_flash_attention_refuses_grad_and_strided_operands(cuda):
+    """A differentiated call with a q_offset or a kv_len short of Skv (only
+    cached decode passes those) raises; strided and misaligned operands
+    are refused."""
     q, k, v = (torch.randn(s, device=cuda) for s in
                ((1, 8, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16)))
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ops.flash_attention(q.clone().requires_grad_(True), k, v)
+    for kw in (dict(q_offset=3), dict(kv_len=5)):
+        with pytest.raises(NotImplementedError, match="no gradient"):
+            ops.flash_attention(q.clone().requires_grad_(True), k, v, **kw)
+    with torch.no_grad():
+        ops.flash_attention(q.clone().requires_grad_(True), k, v, kv_len=5)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, v)
@@ -1346,10 +1353,17 @@ def test_rwkv6_scan_kernel_matches_plain_version(cuda, case, monkeypatch):
 
 
 def test_rwkv6_scan_refuses_grad_on_cuda(cuda):
+    """The backward kernel takes Dv <= 64: a differentiated call past it
+    raises before the forward runs; the same call without grad runs."""
     r = torch.randn(1, 4, 2, 16, device=cuda)
     w = torch.full_like(r, 0.5)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, w)
+    v = torch.randn(1, 4, 2, 80, device=cuda)
+    before = ops.rwkv6_scan.launches
+    with pytest.raises(ValueError, match="Dv <= 64"):
+        ops.rwkv6_scan(r.clone().requires_grad_(True), r, v, w)
+    assert ops.rwkv6_scan.launches == before
+    with torch.no_grad():
+        ops.rwkv6_scan(r.clone().requires_grad_(True), r, v, w)
 
 
 def _scan_inputs(B, T, H, Dk, Dv, bonus, state, decay, device, seed):
@@ -1410,17 +1424,24 @@ def test_rwkv6_chunk_kernel_matches_plain_version(cuda, case, monkeypatch):
 
 def test_scan_route_rule_and_the_chunk_route_on_cuda(cuda):
     """bf16 at T >= 64 takes the chunk kernel, fp32 and T = 1 the
-    recurrence; the chunk route refuses grad and strided operands, and
-    leaves the state it is given as it was."""
+    recurrence; the chunk route differentiates (one forward, one backward
+    launch), refuses strided operands, and leaves the state it is given
+    as it was."""
     assert ops.scan_route(torch.bfloat16, 64) == "chunk"
     assert ops.scan_route(torch.bfloat16, 4096) == "chunk"
     assert ops.scan_route(torch.bfloat16, 1) == "recurrence"
     assert ops.scan_route(torch.float32, 4096) == "recurrence"
     r, k, v, w, u, s0 = _scan_inputs(1, 128, 2, 16, 64, True, True, "mild",
                                      cuda, seed=0)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ops.rwkv6_scan(r.float().requires_grad_(True).to(torch.bfloat16), k,
-                       v, w)
+    before = (ops.rwkv6_scan.route_launches["chunk"],
+              ops.rwkv6_scan_backward.launches)
+    rg = r.float().requires_grad_(True)
+    o, _ = ops.rwkv6_scan(rg.to(torch.bfloat16), k, v, w)
+    o.float().sum().backward()
+    assert (ops.rwkv6_scan.route_launches["chunk"],
+            ops.rwkv6_scan_backward.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert rg.grad is not None and bool(torch.isfinite(rg.grad).all())
     with pytest.raises(ValueError, match="v must be contiguous"):
         ops.rwkv6_scan(r, k, v.transpose(1, 2).contiguous().transpose(1, 2),
                        w)
@@ -1429,6 +1450,133 @@ def test_scan_route_rule_and_the_chunk_route_on_cuda(cuda):
     o, state_out = ops.rwkv6_scan(r, k, v, w, u, state)
     assert torch.equal(o, want[0]) and torch.equal(state_out, want[1])
     assert torch.equal(state, s0)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, KVH, D, causal, window, bf16)
+    (2, 128, 128, 4, 2, 64, True, 0, False),
+    (1, 100, 100, 8, 8, 32, True, 0, False),
+    (2, 64, 256, 4, 1, 128, False, 0, False),       # cross, D 128
+    (1, 256, 256, 4, 2, 64, True, 64, False),       # window
+    (1, 17, 33, 2, 1, 16, False, 0, False),         # ragged
+    (1, 70, 70, 3, 3, 24, True, 0, False),          # D 24
+    (2, 300, 300, 25, 5, 64, True, 100, True),      # Hymba's heads, wgmma
+    (2, 200, 200, 8, 2, 128, True, 0, True),        # dense D 128, wgmma
+    (2, 45, 150, 4, 4, 64, False, 0, True),         # Whisper's cross
+    (1, 64, 64, 2, 2, 24, True, 0, True),           # bf16, SIMT forward
+], ids=str)
+def test_flash_attention_backward_matches_plain_version(cuda, case):
+    """The backward kernel against ``ref_flash_attention_bwd`` on the same
+    q, k, v, out, lse and cotangent (and, in fp32, against autograd of the
+    dense plain version); the forward's lse against the plain one; one
+    forward and one backward launch counted; a repeat is bitwise."""
+    from repro_torch.kernels.ref import (ref_flash_attention_bwd,
+                                         ref_flash_attention_lse)
+    B, Sq, Skv, H, KVH, D, causal, window, bf16 = case
+    g = torch.Generator().manual_seed(Sq + D)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do = (torch.randn(shape, generator=g).to(cuda, dt) for shape in (
+        (B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D), (B, Sq, H, D)))
+    kw = dict(causal=causal, window=window)
+    out, lse = ops._flash_forward(q, k, v, causal, window, 0, Skv, True)
+    _close(lse, ref_flash_attention_lse(q, k, **kw), 1e-4)
+    before = ops.flash_attention_backward.launches
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_backward.launches == before + 1
+    want = ref_flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        if bf16:
+            _close_bf16(a, b)
+        else:
+            _close(a, b, 1e-4)
+    again = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # through autograd: one forward and one backward launch
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    fwd = ops.flash_attention.launches
+    bwd = ops.flash_attention_backward.launches
+    o = ops.flash_attention(qg, kg, vg, **kw)
+    torch.autograd.backward(o, do)
+    assert (ops.flash_attention.launches, ops.flash_attention_backward.launches
+            ) == (fwd + 1, bwd + 1)
+    assert torch.equal(o.detach(), out)
+    if not bf16:
+        qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+        ref_out = ref_flash_attention(qr, kr, vr, **kw)
+        dense = torch.autograd.grad(ref_out, (qr, kr, vr), do)
+        for a, b in zip((qg.grad, kg.grad, vg.grad), dense):
+            _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, H, Dk, Dv, bonus, state, decay, route)
+    (2, 64, 2, 16, 16, True, False, "mild", "recurrence"),
+    (1, 100, 3, 32, 32, True, True, "mild", "recurrence"),
+    (2, 130, 2, 16, 64, False, True, "strong", "recurrence"),
+    (1, 77, 4, 64, 64, True, True, "mild", "recurrence"),   # RWKV6's heads
+    (3, 33, 2, 8, 40, False, True, "strong", "recurrence"),  # odd sizes
+    (2, 300, 25, 16, 64, False, True, "mild", "chunk"),     # Hymba's heads
+    (2, 300, 25, 16, 64, False, False, "strong", "chunk"),
+    (2, 200, 4, 64, 64, True, True, "mild", "chunk"),       # RWKV6's heads
+    (2, 200, 4, 64, 64, True, True, "strong", "chunk"),
+    (1, 1000, 5, 16, 64, True, True, "mild", "chunk"),      # ragged T
+], ids=str)
+def test_rwkv6_scan_backward_matches_plain_version(cuda, case, monkeypatch):
+    """The backward kernel against ``ref_rwkv6_bwd`` (the exact reverse
+    recurrence) at mild and strong decays, from the chunk states either
+    forward route keeps; bf16 on the chunk route, fp32 and bf16 on the
+    recurrence; one backward launch; a repeat is bitwise."""
+    from repro_torch.kernels.ref import ref_rwkv6_bwd
+    B, T, H, Dk, Dv, bonus, state, decay, route = case
+    r, k, v, w, u, s0 = _scan_inputs(B, T, H, Dk, Dv, bonus, state, decay,
+                                     cuda, seed=T + Dk)
+    if route == "recurrence" and T % 2:
+        r, k, v = r.float(), k.float(), v.float()
+    monkeypatch.setattr(ops, "scan_route", lambda dtype, steps: route)
+    g = torch.Generator().manual_seed(7)
+    do = torch.randn(B, T, H, Dv, generator=g).to(cuda, r.dtype)
+    ds = torch.randn(B, H, Dk, Dv, generator=g).to(cuda)
+    _, _, carry = ops._scan_forward(r, k, v, w, u, s0, True)
+    before = ops.rwkv6_scan_backward.launches
+    got = ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan_backward.launches == before + 1
+    want = ref_rwkv6_bwd(r, k, v, w, u, s0, do, ds)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.bfloat16:
+            _close_bf16(a, b)
+        else:
+            _close(a, b, 1e-4)
+    again = ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rwkv6_scan_backward_through_the_clip_on_cuda(cuda):
+    """dw at w = 1 and w = 1e-8 exactly is half the unclipped gradient
+    (JAX's jnp.clip), 0 past the bounds; autograd reaches every operand."""
+    from repro_torch.kernels.ref import ref_rwkv6_bwd
+    r, k, v, w, u, s0 = _scan_inputs(1, 70, 2, 16, 64, True, True, "mild",
+                                     cuda, seed=3)
+    r, k, v = r.float(), k.float(), v.float()
+    w = w.clone()
+    w[0, ::4] = 1.0
+    w[0, 1::4] = 1e-8
+    w[0, 2::8] = 1.5
+    ins = [x.clone().requires_grad_(True) for x in (r, k, v, w, u, s0)]
+    o, S = ops.rwkv6_scan(*ins)
+    g = torch.Generator().manual_seed(1)
+    do = torch.randn(o.shape, generator=g).to(cuda)
+    (o * do).sum().add_(S.sum()).backward()
+    want = ref_rwkv6_bwd(r, k, v, w, u, s0, do, torch.ones_like(S))
+    for x, b in zip(ins, want):
+        _close(x.grad, b, 1e-4)
+    assert float(ins[3].grad[0, 2::8].abs().max()) == 0.0
 
 
 def test_hymba_smoke_on_cuda_matches_the_cpu(cuda, monkeypatch):

@@ -165,8 +165,15 @@ def test_layer_runs_the_wrapper_and_refuses_grad():
     o, S = layers.chunked_linear_attention(*args)
     o2, S2 = ops.rwkv6_scan(*args)
     assert torch.equal(o, o2) and torch.equal(S, S2)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ops.rwkv6_scan(args[0].clone().requires_grad_(), *args[1:])
+    # differentiable now; a call past the backward kernel's Dv <= 64
+    # refuses grad on every device
+    wide = _t(np.zeros((1, 9, 2, 80), np.float32))
+    with pytest.raises(ValueError, match="no gradient"):
+        ops.rwkv6_scan(args[0].clone().requires_grad_(), args[1], wide,
+                       args[3])
+    with torch.no_grad():
+        ops.rwkv6_scan(args[0].clone().requires_grad_(), args[1], wide,
+                       args[3])
     with pytest.raises(ValueError, match="state has shape"):
         ops.rwkv6_scan(*args[:5], args[5][:, :1])
 
