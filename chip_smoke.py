@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent`` names a checkout of the parent commit: its decode_step,
-decode_attention, traj_logprob backward and subtb_loss kernels are built
-beside this tree's and timed on the same inputs (each of those rows prints
-``parent_kernel_us``).
+decode_attention, traj_logprob backward, subtb_loss and the two backward
+kernels of LM training (flash attention's and the wkv scan's, both on the
+fp32 cores there) are built beside this tree's and timed on the same
+inputs (each of those rows prints ``parent_kernel_us``).
 
 Run from a checkout of the repository on a machine with a CUDA GPU.  It
 imports nothing of JAX or of the JAX package ``repro``.  Phases, each
@@ -343,7 +344,12 @@ printing one JSON line:
              holds the forward kernel's out and lse to the plain ones
              and runs the plain backward on that out and the plain lse;
              the flash rows time ``F.scaled_dot_product_attention``'s
-             backward under the same mask as the library call;
+             backward under the same mask as the library call; each row
+             names the route it took (``ops.flash_bwd_route``: the
+             tensor-core kernels for bf16 at D % 16 == 0, else SIMT;
+             ``ops.scan_bwd_route``: the chunk-parallel kernels for bf16
+             at T >= 64, else the step recurrence), which must be the
+             rule's, and with ``--parent`` the parent's time;
    lm_train_hold - one TB train step of Hymba-1.5B and rwkv6-1.6b cut to
              2 full-width fp32 layers, on the card against the CPU from
              the same parameters and ``synthetic_gfn_batch``: the loss
@@ -356,7 +362,8 @@ printing one JSON line:
              rwkv6-1.6b whole for 3 at 2 x 4,096, through
              ``launch.train``'s state and step: steps/s, tokens/s, peak
              memory, every step's loss (finite) and launches (per layer:
-             the forwards twice, the backwards once), a step's idle share;
+             the forwards twice, the backwards once, each backward on the
+             tensor-core or chunk route), a step's idle share;
    lm_converge - ``examples/lm_gfn_finetune.py``'s 25M model for 300 TB
              steps through ``launch.train.train_loop``: the loss at steps
              100 / 200 / 299 within max(3 x spread, 10 % of the mean) of
@@ -366,7 +373,7 @@ printing one JSON line:
    lm_checkpoint - a 2-layer full-width Hymba run through ``train_loop``
              stopped after step 2 and resumed to 3, against the
              uninterrupted run: every leaf within HOLD_TOL (and whether
-             bitwise);
+             bitwise), every backward on the tensor-core / chunk route;
    path_shapes - every shape at which the counted phases (serve, the
              training, eval and replay phases, cli, the plan phases, and
              the LM phases above: lm_decode, lm_prefill, dense_*,
@@ -378,7 +385,10 @@ printing one JSON line:
              against the plain version; the line prints each shape's
              launches;
 
-then a ``kernels`` line, the card's ``nvidia-smi`` line, and the last line
+then a ``kernels`` line (the two backwards once per route: the
+tensor-core flash and chunk-parallel scan backwards with the training
+steps' launches, the SIMT and step-recurrence ones with the fp32 training
+hold's), the card's ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; so does a machine without CUDA, or a directory without the
 repository's ``src/repro_torch``.
@@ -752,6 +762,19 @@ def reset_launches() -> None:
                                           ops.flash_attention.route_launches}
     ops.rwkv6_scan.route_launches = {r: 0 for r in
                                      ops.rwkv6_scan.route_launches}
+    for w in (ops.flash_attention_backward, ops.rwkv6_scan_backward):
+        w.route_launches = {r: 0 for r in w.route_launches}
+
+
+def bwd_route_launches() -> dict:
+    """Launches of each backward route since the last reset, keyed
+    ``"<kernel>/<route>"`` (``ops.flash_bwd_route``: wgmma / simt;
+    ``ops.scan_bwd_route``: chunk / recurrence)."""
+    from repro_torch.kernels import ops
+    return {f"{name}/{r}": n for name, w in (
+        ("flash_attention_bwd", ops.flash_attention_backward),
+        ("rwkv6_scan_bwd", ops.rwkv6_scan_backward))
+        for r, n in w.route_launches.items()}
 
 
 def flash_routes() -> dict:
@@ -1050,6 +1073,11 @@ def device_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+class ProfilerLost(AssertionError):
+    """``torch.profiler`` recorded none of a call's kernels in
+    PROFILE_TRIES windows."""
+
+
 def profiled_rows(fn, iters: int = 50, match: str = "") -> list:
     """``device_rows`` of ``iters`` calls of ``fn`` whose name holds
     ``match``.  Now and then the profiler hands back no kernel records for
@@ -1057,31 +1085,44 @@ def profiled_rows(fn, iters: int = 50, match: str = "") -> list:
     (seen as a library call read at a third of the launch floor).  A
     window in which some kernel was not recorded a whole number of times
     per call is profiled again; after PROFILE_TRIES windows the one with
-    the most records counts (fails if none recorded any)."""
+    the most records counts (raises ProfilerLost, naming what the last
+    window did record, if none recorded any)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    best = []
+    best, seen = [], []
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [r for r in device_rows(prof) if match in r[0]]
+        seen = device_rows(prof)
+        rows = [r for r in seen if match in r[0]]
         if rows and all(n % iters == 0 for _, _, n in rows):
             return rows
         if sum(n for _, _, n in rows) > sum(n for _, _, n in best):
             best = rows
     if not best:
-        raise AssertionError(f"torch.profiler recorded no device time in "
-                             f"{PROFILE_TRIES} tries")
+        raise ProfilerLost(f"torch.profiler recorded no device time of "
+                           f"{match!r} in {PROFILE_TRIES} tries; the last "
+                           f"window recorded {[r[0][:60] for r in seen[:5]]}")
     return best
 
 
 def profiled_device_us(fn, iters: int = 50, match: str = "") -> float:
     """Mean device time of the CUDA kernels ``fn`` launches whose name
-    holds ``match``, summed from ``torch.profiler``."""
-    return sum(t for _, t, _ in profiled_rows(fn, iters, match)) / iters
+    holds ``match``, summed from ``torch.profiler``.  Where the profiler
+    records none of them (`ProfilerLost`), the time between CUDA events
+    over ``iters`` calls instead (the wrapper's own small kernels
+    included), with a ``profiler_fallback`` line naming the call."""
+    try:
+        rows = profiled_rows(fn, iters, match)
+    except ProfilerLost as lost:
+        us = cuda_time_us(fn, iters=iters, warmup=2)
+        emit("profiler_fallback", match=match, iters=iters,
+             cuda_event_us=us, reason=str(lost))
+        return us
+    return sum(t for _, t, _ in rows) / iters
 
 
 def profiled_kernels(fn, iters: int = 50) -> dict:
@@ -1136,18 +1177,8 @@ def spilling(lines: list) -> list:
 #: the kernels' sources rebuilt from a checkout of the parent commit
 #: (``--parent``) to time them beside this tree's in the same run
 PARENT_SOURCES = ("decode_step.cu", "decode_attention.cu", "traj_logprob.cu",
-                  "subtb_loss.cu")
-
-
-class ParentSubtbArgs(ctypes.Structure):
-    """Mirror of the parent's ``SubtbArgs`` (its subtb_loss.cu): this
-    tree's without ``table``, the scratch weight table it filled past
-    ``repro_subtb_smem_states()`` states."""
-    _fields_ = ([(n, ctypes.c_void_p)
-                 for n in ("phi", "length", "g", "loss", "dphi", "table")]
-                + [(n, ctypes.c_longlong) for n in ("phi_sb", "phi_st")]
-                + [("lam", ctypes.c_float)]
-                + [(n, ctypes.c_int) for n in ("batch", "states", "device")])
+                  "subtb_loss.cu", "flash_attention_bwd.cu",
+                  "rwkv6_scan_bwd.cu")
 
 
 def parent_library(parent: Path):
@@ -1175,11 +1206,20 @@ def parent_library(parent: Path):
     lib.repro_traj_logprob_bwd.argtypes = [
         ctypes.POINTER(build.TrajLogprobArgs), ctypes.c_void_p]
     lib.repro_traj_logprob_bwd.restype = ctypes.c_int
+    # the parent's operand structs are this tree's (its subtb_loss.cu,
+    # flash_attention_bwd.cu and rwkv6_scan_bwd.cu take this tree's
+    # SubtbArgs, FlashAttentionBwdArgs and Rwkv6ScanBwdArgs field for field)
     for fn in (lib.repro_subtb_fwd, lib.repro_subtb_bwd):
-        fn.argtypes = [ctypes.POINTER(ParentSubtbArgs), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(build.SubtbArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.repro_subtb_smem_states.argtypes = []
-    lib.repro_subtb_smem_states.restype = ctypes.c_int
+    # the parent's backward kernels (both on the fp32 cores, one route
+    # each)
+    lib.repro_flash_attention_bwd.argtypes = [
+        ctypes.POINTER(build.FlashAttentionBwdArgs), ctypes.c_void_p]
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    lib.repro_rwkv6_scan_bwd.argtypes = [
+        ctypes.POINTER(build.Rwkv6ScanBwdArgs), ctypes.c_void_p]
+    lib.repro_rwkv6_scan_bwd.restype = ctypes.c_int
     return lib, named_ptxas(proc.stdout + proc.stderr)
 
 
@@ -1642,17 +1682,13 @@ def row_err_over_scale(got, want) -> float:
 
 
 def parent_subtb_us(parent, fn, phi, length, lam, device, **ptrs) -> float:
-    """Device time of one of the parent's SubTB kernels on these inputs,
-    with the scratch table it takes past its shared-memory size."""
+    """Device time of one of the parent's SubTB kernels on these inputs."""
+    from repro_torch.kernels import build
     B, T1 = phi.shape
-    table = None
-    if T1 > parent.repro_subtb_smem_states():
-        table = torch.empty(T1, device=device)
     length32 = length.to(torch.int32).contiguous()
-    args = ParentSubtbArgs(
+    args = build.SubtbArgs(
         phi=phi.data_ptr(), length=length32.data_ptr(),
         **{k: v.data_ptr() for k, v in ptrs.items()},
-        table=None if table is None else table.data_ptr(),
         phi_sb=phi.stride(0), phi_st=phi.stride(1), lam=lam, batch=B,
         states=T1, device=device.index or 0)
     return profiled_device_us(parent_call(fn, args, device), match="subtb")
@@ -5803,9 +5839,14 @@ LM_CONVERGE_REFERENCE_BAR_MET = False
 #: lm_checkpoint: a 2-layer full-width Hymba at the CLI's batch, stopped
 #: after CKPT_CUT steps and resumed to CKPT_STEPS
 CKPT_CUT, CKPT_STEPS = 2, 3
-#: in the device-kernel names of the backward kernels
+#: in the device-kernel names of the backward kernels: every flash
+#: backward kernel of both routes (``flash_bwd_*``, ``flash_bwd_wgmma_*``)
+#: and the parent's; the scan backward's by route (``rwkv6_scan_bwd_kernel``
+#: the recurrence, the parent's too; the chunk route's
+#: ``rwkv6_chunk_state_kernel`` in its adjoint form, then
+#: ``rwkv6_chunk_bwd_*``: a backward row runs no forward kernel)
 FLASH_BWD_MATCH = "flash_bwd_"
-SCAN_BWD_MATCH = "rwkv6_scan_bwd"
+SCAN_BWD_MATCH = {"recurrence": "rwkv6_scan_bwd", "chunk": "rwkv6_chunk"}
 
 
 def model_25m():
@@ -5820,14 +5861,19 @@ def model_25m():
 
 
 def check_flash_attention_bwd(B, Sq, Skv, H, KVH, D, *, causal, window,
-                              bf16, seed, device) -> dict:
+                              bf16, seed, device, parent=None) -> dict:
     """The forward kernel's out and lse (the log-sum-exp each query row
     keeps for the backward) held to the plain forward's (out as the
     forward rows hold it, lse at the fp32 tolerance); then the backward
-    kernel (three launches: delta, dq, dk/dv) on the kernel's out and lse
-    against the plain backward (dense, fp32) on the same out and the plain
-    lse, with the same q, k, v and a random cotangent; dq, dk, dv held
-    entry by entry as the forward's output is; a repeat is bitwise.  (Both
+    kernels of the route ``ops.flash_bwd_route`` picks (three launches
+    either way: the tensor-core route's prep, dq, dk/dv; the SIMT route's
+    delta, dq, dk/dv), which the row names and must be the rule's, on the
+    kernel's out and lse against the plain backward (dense, fp32) on the
+    same out and the plain lse, with the same q, k, v and a random
+    cotangent; dq, dk, dv held entry by entry as the forward's output is;
+    a repeat is bitwise.  With ``parent`` (:func:`parent_library`) the
+    parent's backward (the SIMT kernels) is timed on the same inputs
+    (``parent_kernel_us``).  (Both
     outs are bf16 roundings that may part by one ulp on an entry; a
     backward from each parts by more than one ulp of dq's scale, so the
     out is shared and held on its own.)  The library yardstick:
@@ -5859,8 +5905,11 @@ def check_flash_attention_bwd(B, Sq, Skv, H, KVH, D, *, causal, window,
     def plain():
         return ref_flash_attention_bwd(q, k, v, out, do, plain_lse, **kw)
 
+    before = dict(ops.flash_attention_backward.route_launches)
     got = kernel()
     torch.cuda.synchronize()
+    route = [r for r, n in ops.flash_attention_backward.route_launches.items()
+             if n != before[r]]
     want = plain()
     held.update({n: _held(a, b, bf16)
                  for n, a, b in zip(("dq", "dk", "dv"), got, want)})
@@ -5878,11 +5927,29 @@ def check_flash_attention_bwd(B, Sq, Skv, H, KVH, D, *, causal, window,
     def library():
         return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
 
+    parent_us = None
+    if parent is not None:
+        from repro_torch.kernels import build
+        bufs = [torch.zeros_like(t) for t in (q, k, v)]
+        delta = torch.empty(B, H, Sq, dtype=torch.float32, device=device)
+        args = build.FlashAttentionBwdArgs(
+            q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+            out=out.data_ptr(), dout=do.data_ptr(), lse=lse.data_ptr(),
+            delta=delta.data_ptr(), dq=bufs[0].data_ptr(),
+            dk=bufs[1].data_ptr(), dv=bufs[2].data_ptr(), batch=B, q_len=Sq,
+            kv_size=Skv, num_heads=H, num_kv_heads=KVH, head_dim=D,
+            causal=int(causal), window=window, bf16=int(bf16),
+            device=device.index or 0)
+        parent_us = profiled_device_us(
+            parent_call(parent.repro_flash_attention_bwd, args, device),
+            iters=10, match=FLASH_BWD_MATCH)
+        del bufs
     pairs = int(mask.sum()) * B * H
     nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
               + 4 * B * H * Sq)
     row = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KVH": KVH, "D": D,
            "dtype": str(dt), "causal": causal, "window": window,
+           "route": route, "parent_kernel_us": parent_us,
            "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()
                            if n in ("dq", "dk", "dv")},
            "held": held, "repeat_bitwise_equal": bitwise,
@@ -5896,21 +5963,25 @@ def check_flash_attention_bwd(B, Sq, Skv, H, KVH, D, *, causal, window,
                    BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)}
     emit("kernel", name="flash_attention_bwd", **row)
     del lo, lq, lk, lv
-    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise:
+    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise \
+            or route != [ops.flash_bwd_route(dt, D)]:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain "
                              f"version at {(B, Sq, Skv, H, KVH, D)}: {held}, "
-                             f"repeat bitwise {bitwise}")
+                             f"repeat bitwise {bitwise}, route {route}")
     return row
 
 
 def check_rwkv6_scan_bwd(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
-                         device, decay="mild") -> dict:
-    """The backward kernel against its plain version (the exact reverse
-    recurrence in fp32) on :func:`scan_inputs` and random cotangents of
-    the output and the final state, from the chunk states the forward of
-    the route ``ops.scan_route`` picks keeps; dr, dk, dv held as the
-    forward's output is, dw, du and d(state) as fp32; a repeat is
-    bitwise.  No library call computes this recurrence."""
+                         device, decay="mild", parent=None) -> dict:
+    """The backward kernels of the route ``ops.scan_bwd_route`` picks (the
+    row names it, and it must be the rule's) against their plain version
+    (the exact reverse recurrence in fp32) on :func:`scan_inputs` and
+    random cotangents of the output and the final state, from the chunk
+    states the forward of the route ``ops.scan_route`` picks keeps; dr,
+    dk, dv held as the forward's output is, dw, du and d(state) as fp32; a
+    repeat is bitwise.  No library call computes this recurrence.  With
+    ``parent`` the parent's backward (the step recurrence) is timed on the
+    same inputs (``parent_kernel_us``)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_rwkv6_bwd
 
@@ -5929,8 +6000,11 @@ def check_rwkv6_scan_bwd(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
     def plain():
         return ref_rwkv6_bwd(r, k, v, w, u, s0, do, ds)
 
+    before = dict(ops.rwkv6_scan_backward.route_launches)
     got = kernel()
     torch.cuda.synchronize()
+    route = [x for x, n in ops.rwkv6_scan_backward.route_launches.items()
+             if n != before[x]]
     # the plain version is a chain of ~20 small launches a step: timed
     # between CUDA events over this one call (profiling 10^5 launches
     # costs many seconds to read back)
@@ -5946,6 +6020,32 @@ def check_rwkv6_scan_bwd(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
     bitwise = all(a is None or torch.equal(a, b)
                   for a, b in zip(kernel(), got))
     del want
+    parent_us = None
+    if parent is not None:
+        from repro_torch.kernels import build
+        pad = lambda d: 16 if d <= 16 else 32 if d <= 32 else 64
+        bufs = {n: torch.empty_like(t) for n, t in (("r", r), ("k", k),
+                                                    ("v", v))}
+        dw = torch.empty(B, T, H, Dk, dtype=torch.float32, device=device)
+        du = torch.empty(B, H, Dk, dtype=torch.float32, device=device)
+        dstate = torch.empty(B, H, Dk, Dv, dtype=torch.float32,
+                             device=device)
+        scratch = torch.empty(B * H * ops.SCAN_CHUNK * pad(Dk) * pad(Dv),
+                              dtype=torch.float32, device=device)
+        wf = w.to(torch.float32).contiguous()
+        args = build.Rwkv6ScanBwdArgs(
+            r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=wf.data_ptr(),
+            u=None if u is None else u.data_ptr(), carry=carry.data_ptr(),
+            dout=do.data_ptr(), dstate_out=ds.data_ptr(),
+            scratch=scratch.data_ptr(), grad_r=bufs["r"].data_ptr(),
+            grad_k=bufs["k"].data_ptr(), grad_v=bufs["v"].data_ptr(),
+            grad_w=dw.data_ptr(), grad_u=du.data_ptr(),
+            grad_state=dstate.data_ptr(), batch=B, steps=T, num_heads=H,
+            dk=Dk, dv=Dv, bf16=int(bf16), device=device.index or 0)
+        parent_us = profiled_device_us(
+            parent_call(parent.repro_rwkv6_scan_bwd, args, device), iters=10,
+            match=SCAN_BWD_MATCH["recurrence"])
+        del bufs, dw, du, dstate, scratch
     # r, k, v, dO and w read; dr, dk, dv and dw written (u, du and the
     # states are Dk x Dv per head)
     el = r.element_size()
@@ -5953,21 +6053,23 @@ def check_rwkv6_scan_bwd(B, T, H, Dk, Dv, *, bonus, state, bf16, seed,
         + el * (2 * r.numel() + v.numel()) + 4 * 2 * w.numel()
     row = {"B": B, "T": T, "H": H, "Dk": Dk, "Dv": Dv, "dtype": str(dt),
            "bonus": bonus, "state": state, "decay": decay,
-           "forward_route": ops.scan_route(dt, T),
+           "forward_route": ops.scan_route(dt, T), "route": route,
            "max_abs_err": {n: h["max_abs_err"] for n, h in held.items()},
            "held": held, "repeat_bitwise_equal": bitwise,
-           "kernel_us": profiled_device_us(kernel, iters=10,
-                                           match=SCAN_BWD_MATCH),
+           "kernel_us": profiled_device_us(
+               kernel, iters=10, match=SCAN_BWD_MATCH[route[0]]),
+           "parent_kernel_us": parent_us,
            "wrapper_us": cuda_time_us(kernel, iters=10, warmup=2),
            "plain_us": plain_us, "plain_timed": "CUDA events, one call",
            "library_us": None,
            # a step: the state recomputed, G v, S dO, S G, G's update, G k
            **bound(nbytes, 12 * Dk * Dv * B * T * H)}
     emit("kernel", name="rwkv6_scan_bwd", **row)
-    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise:
+    if not all(h["excess"] <= 1 for h in held.values()) or not bitwise \
+            or route != [ops.scan_bwd_route(dt, T)]:
         raise AssertionError(f"rwkv6_scan_bwd disagrees with its plain "
                              f"version at {(B, T, H, Dk, Dv)}: {held}, "
-                             f"repeat bitwise {bitwise}")
+                             f"repeat bitwise {bitwise}, route {route}")
     return row
 
 
@@ -6088,10 +6190,11 @@ def lm_train_run(cfg, batch: int, seq: int, steps_: int, device,
     at ``batch`` x ``seq``, log Z first warm-started on this size's pilot
     batch (as a run started at this size is): each step timed alone (host
     clock around a synchronized step), its loss read, its launches counted
-    and held to ``per_step`` exactly; peak memory over these steps (the
-    run's state included); then, with ``profile``, one more step's device
-    idle share (:func:`profiled_step`).  Returns the phase's fields and
-    the steps' launches."""
+    (each backward's by route too, :func:`bwd_route_launches`) and held to
+    ``per_step`` exactly; peak memory over these steps (the run's state
+    included); then, with ``profile``, one more step's device idle share
+    (:func:`profiled_step`).  Returns the phase's fields and the steps'
+    launches (the backwards' routes included)."""
     from repro_torch.data.tokens import synthetic_gfn_batch
     from repro_torch.launch import train
 
@@ -6101,7 +6204,7 @@ def lm_train_run(cfg, batch: int, seq: int, steps_: int, device,
             state["p"], cfg, batch, seq, seed=seed, device=device))
     torch.cuda.reset_peak_memory_stats(device)
     times, losses, launches = [], [], []
-    total = {k: 0 for k in wrappers()}
+    total = {k: 0 for k in list(wrappers()) + list(bwd_route_launches())}
     for _ in range(steps_):
         b = synthetic_gfn_batch(cfg, batch, seq, seed=seed, step=state["t"],
                                 device=device)
@@ -6113,8 +6216,9 @@ def lm_train_run(cfg, batch: int, seq: int, steps_: int, device,
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
-        launches.append({k: v for k, v in read_launches().items() if v})
-        _add(total, read_launches())
+        counts = {**read_launches(), **bwd_route_launches()}
+        launches.append({k: v for k, v in counts.items() if v})
+        _add(total, counts)
     peak = torch.cuda.max_memory_allocated(device)
     want = {k: v for k, v in per_step.items() if v}
     fields = {"model": cfg.name, "layers": cfg.num_layers, "batch": batch,
@@ -6153,12 +6257,13 @@ def lm_train_phase(device) -> dict:
     rwkv6-1.6b whole at LM_TRAIN_RWKV (see :func:`lm_train_run`): per
     step, Hymba launches 64 flash and 64 scan forwards (each layer's
     twice: remat full recomputes it in the backward) and 32 of each
-    backward; rwkv6 48 scan forwards and 24 backwards.  Returns the runs'
-    launches."""
+    backward, all on the tensor-core flash backward and the chunk-parallel
+    scan backward (bf16, D 64, T >= 64); rwkv6 48 scan forwards and 24
+    backwards, all on the chunk route.  Returns the runs' launches."""
     def fwd(cfg):       # each layer's forwards a step: twice under remat
         return cfg.num_layers * (2 if cfg.remat == "full" else 1)
 
-    total = {k: 0 for k in wrappers()}
+    total = {k: 0 for k in list(wrappers()) + list(bwd_route_launches())}
     hymba = lm_config("hymba-1.5b")
     L = hymba.num_layers
     run = lm_train_start(hymba, device)
@@ -6166,7 +6271,8 @@ def lm_train_phase(device) -> dict:
         fields, launches = lm_train_run(
             hymba, batch, seq, n, device,
             {"flash_attention": fwd(hymba), "rwkv6_scan": fwd(hymba),
-             "flash_attention_bwd": L, "rwkv6_scan_bwd": L},
+             "flash_attention_bwd": L, "rwkv6_scan_bwd": L,
+             "flash_attention_bwd/wgmma": L, "rwkv6_scan_bwd/chunk": L},
             profile=seq == LM_TRAIN_HYMBA[-1][1], state=run)
         emit("lm_train", **fields)
         _add(total, launches)
@@ -6177,7 +6283,8 @@ def lm_train_phase(device) -> dict:
     run = lm_train_start(rwkv, device)
     fields, launches = lm_train_run(
         rwkv, batch, seq, n, device,
-        {"rwkv6_scan": fwd(rwkv), "rwkv6_scan_bwd": rwkv.num_layers},
+        {"rwkv6_scan": fwd(rwkv), "rwkv6_scan_bwd": rwkv.num_layers,
+         "rwkv6_scan_bwd/chunk": rwkv.num_layers},
         profile=True, state=run)
     emit("lm_train", **fields)
     _add(total, launches)
@@ -6193,7 +6300,8 @@ def lm_converge(device) -> dict:
     of the mean) of the JAX package's (``LM_CONVERGE_MEANS``), and the
     example's bar (``losses[-1] < losses[0]``) met or missed as the
     reference's is.  Returns the run's launches (remat none: 8 flash
-    forwards and 8 backwards a step, 8 forwards for the warm start)."""
+    forwards and 8 backwards a step, the backwards on the tensor-core
+    route, 8 forwards for the warm start)."""
     from repro_torch.launch import train
 
     cfg = model_25m()
@@ -6205,7 +6313,7 @@ def lm_converge(device) -> dict:
                            device=device)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = {**read_launches(), **bwd_route_launches()}
     losses = {h["step"]: h["loss"] for h in out["history"]}
     band = {s: max(3 * LM_CONVERGE_SPREAD[s], 0.1 * m)
             for s, m in LM_CONVERGE_MEANS.items()}
@@ -6214,7 +6322,8 @@ def lm_converge(device) -> dict:
     bar = losses[LM_CONVERGE_STEPS - 1] < losses[0]
     L = cfg.num_layers
     want = {"flash_attention": L * (LM_CONVERGE_STEPS + 1),
-            "flash_attention_bwd": L * LM_CONVERGE_STEPS}
+            "flash_attention_bwd": L * LM_CONVERGE_STEPS,
+            "flash_attention_bwd/wgmma": L * LM_CONVERGE_STEPS}
     emit("lm_converge", model=cfg.name, steps=LM_CONVERGE_STEPS,
          batch=LM_CONVERGE_BATCH, seq=LM_CONVERGE_SEQ, lr=LM_CONVERGE_LR,
          loss=losses, reference_mean=LM_CONVERGE_MEANS,
@@ -6267,12 +6376,20 @@ def lm_checkpoint(device) -> dict:
          resumed_history=resumed["history"], latest_step=latest,
          cut_run_seconds=cut_s, tol=f"{HOLD_TOL:g} of each leaf's largest "
                                     "entry")
+    launches = {**read_launches(), **bwd_route_launches()}
+    # bf16, D 64, T 128: every backward on the tensor-core flash route and
+    # the chunk-parallel scan route
+    routed = (launches["flash_attention_bwd/wgmma"]
+              == launches["flash_attention_bwd"] > 0
+              and launches["rwkv6_scan_bwd/chunk"]
+              == launches["rwkv6_scan_bwd"] > 0)
     if not worst[1] <= HOLD_TOL or latest != CKPT_STEPS \
-            or [h["step"] for h in resumed["history"]] != [CKPT_STEPS - 1]:
+            or [h["step"] for h in resumed["history"]] != [CKPT_STEPS - 1] \
+            or not routed:
         raise AssertionError(f"lm_checkpoint: the resumed run departs from "
                              f"the straight one: {worst}, latest {latest}, "
-                             f"history {resumed['history']}")
-    launches = read_launches()
+                             f"history {resumed['history']}; backward "
+                             f"routes {launches}")
     del straight, resumed, a, b
     free_card(device)
     return launches
@@ -6295,9 +6412,9 @@ def main() -> int:
     parser.add_argument(
         "--parent", type=Path, default=None,
         help="a checkout of the parent commit: its decode_step, "
-             "decode_attention, traj_logprob backward and subtb_loss "
-             "kernels are built and timed beside this tree's on the same "
-             "inputs (parent_kernel_us)")
+             "decode_attention, traj_logprob backward, subtb_loss and "
+             "flash / scan backward kernels are built and timed beside this "
+             "tree's on the same inputs (parent_kernel_us)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6695,10 +6812,14 @@ def main() -> int:
                               bf16=bf16, seed=20 + i, device=device)
              for i, (B, T, H, Dk, Dv, bf16) in enumerate([
                  (8, 128, 25, 16, 64, True), (1, 128, 25, 16, 64, False)])]
+    # (each bf16 row with D % 16 == 0 on the tensor-core backward, each
+    # bf16 scan row with T >= 64 on the chunk-parallel one; the last rows
+    # the new routes' edges: a window edge at D 128 over a ragged Sq, one
+    # step past a chunk at strong decay with u)
     flash_bwd = [check_flash_attention_bwd(B, Sq, Skv, H, KVH, D,
                                            causal=causal, window=w,
                                            bf16=bf16, seed=70 + i,
-                                           device=device)
+                                           device=device, parent=parent)
                  for i, (B, Sq, Skv, H, KVH, D, causal, w, bf16) in
                  enumerate([
                      (8, 128, 128, 25, 5, 64, True, 2048, True),
@@ -6707,20 +6828,25 @@ def main() -> int:
                      (4, 96, 96, 5, 1, 64, True, 0, True),
                      (2, 2048, 2048, 40, 8, 128, True, 0, True),
                      (2, WHISPER_SCORE_LEN, WHISPER_FRAMES, 16, 16, 64,
-                      False, 0, True)])]
+                      False, 0, True),
+                     (1, 300, 300, 8, 2, 128, True, 100, True)])]
     scan_bwd = [check_rwkv6_scan_bwd(B, T, H, Dk, Dv, bonus=bonus,
                                      state=False, bf16=bf16, seed=80 + i,
-                                     device=device, decay=decay)
+                                     device=device, decay=decay,
+                                     parent=parent)
                 for i, (B, T, H, Dk, Dv, bonus, bf16, decay) in enumerate([
                     (8, 128, 25, 16, 64, False, True, "mild"),
                     (2, 4096, 25, 16, 64, False, True, "mild"),
                     (2, 4096, 32, 64, 64, True, True, "mild"),
                     (1, 128, 25, 16, 64, False, False, "mild"),
                     (1, 128, 32, 64, 64, True, False, "mild"),
-                    (2, 1000, 25, 16, 64, False, True, "strong")])]
+                    (2, 1000, 25, 16, 64, False, True, "strong"),
+                    (1, 65, 32, 64, 64, True, True, "strong")])]
     free_card(device)
     with recording_path_shapes(), recording_bwd_shapes():
+        reset_launches()
         lm_train_hold(device)
+        hold_routes = bwd_route_launches()      # fp32: the SIMT routes
         lm_train = lm_train_phase(device)
         lm_conv = lm_converge(device)
         lm_ckpt = lm_checkpoint(device)
@@ -6809,16 +6935,34 @@ def main() -> int:
                    [r for r in scan if r["route"] == ["chunk"]], scan[0]),
               scan_route="chunk"),
         # the LM training phases' backwards (JAX differentiates its jnp
-        # layers there); each row: Hymba's 2 x 4,096 training shape
-        entry("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
-              "src/repro/models/layers.py:94",
-              sum(p["flash_attention_bwd"] for p in (lm_train, lm_conv,
-                                                     lm_ckpt)),
-              flash_bwd, flash_bwd[1]),
-        entry("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu",
-              "src/repro/models/layers.py:164",
-              sum(p["rwkv6_scan_bwd"] for p in (lm_train, lm_ckpt)),
-              scan_bwd, scan_bwd[1]),
+        # layers there), each on two routes (ops.flash_bwd_route,
+        # ops.scan_bwd_route): the bf16 training steps' tensor-core flash
+        # and chunk-parallel scan backwards (each row: Hymba's 2 x 4,096
+        # training shape), and the fp32 training hold's SIMT flash and
+        # step-recurrence scan backwards (each row: the hold's shape)
+        dict(entry("flash_attention_bwd_wgmma",
+                   csrc + "flash_attention_bwd_wgmma.cu",
+                   "src/repro/models/layers.py:94",
+                   sum(p["flash_attention_bwd/wgmma"] for p in (
+                       lm_train, lm_conv, lm_ckpt)),
+                   [r for r in flash_bwd if r["route"] == ["wgmma"]],
+                   flash_bwd[1]), bwd_route="wgmma"),
+        dict(entry("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+                   "src/repro/models/layers.py:94",
+                   hold_routes["flash_attention_bwd/simt"],
+                   [r for r in flash_bwd if r["route"] == ["simt"]],
+                   flash_bwd[2]), bwd_route="simt"),
+        dict(entry("rwkv6_chunk_bwd", csrc + "rwkv6_chunk_bwd.cu",
+                   "src/repro/models/layers.py:164",
+                   sum(p["rwkv6_scan_bwd/chunk"] for p in (lm_train,
+                                                          lm_ckpt)),
+                   [r for r in scan_bwd if r["route"] == ["chunk"]],
+                   scan_bwd[1]), bwd_route="chunk"),
+        dict(entry("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu",
+                   "src/repro/models/layers.py:164",
+                   hold_routes["rwkv6_scan_bwd/recurrence"],
+                   [r for r in scan_bwd if r["route"] == ["recurrence"]],
+                   scan_bwd[3]), bwd_route="recurrence"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,11 @@ SOURCES = (CSRC / "decode_step.cu", CSRC / "decode_attention.cu",
            CSRC / "traj_logprob.cu", CSRC / "subtb_loss.cu",
            CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
            CSRC / "rwkv6_scan.cu", CSRC / "rwkv6_chunk.cu",
-           CSRC / "flash_attention_bwd.cu", CSRC / "rwkv6_scan_bwd.cu")
+           CSRC / "flash_attention_bwd.cu", CSRC / "rwkv6_scan_bwd.cu",
+           CSRC / "flash_attention_bwd_wgmma.cu", CSRC / "rwkv6_chunk_bwd.cu")
 #: headers the sources include (hashed with them)
-HEADERS = (CSRC / "flash_attention.cuh",)
+HEADERS = (CSRC / "flash_attention.cuh", CSRC / "flash_attention_bwd.cuh",
+           CSRC / "flash_wgmma_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
@@ -98,7 +100,8 @@ class FlashAttentionArgs(ctypes.Structure):
 
 
 class FlashAttentionBwdArgs(ctypes.Structure):
-    """Mirror of ``FlashAttentionBwdArgs`` in flash_attention_bwd.cu."""
+    """Mirror of ``FlashAttentionBwdArgs`` in flash_attention_bwd.cuh (both
+    backward routes)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "q", "k", "v", "out", "dout", "lse", "delta", "dq", "dk", "dv")]
                 + [(n, ctypes.c_int) for n in (
@@ -132,6 +135,16 @@ class Rwkv6ScanBwdArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "batch", "steps", "num_heads", "dk", "dv", "bf16",
                     "device")])
+
+
+class Rwkv6ChunkBwdArgs(ctypes.Structure):
+    """Mirror of ``Rwkv6ChunkBwdArgs`` in rwkv6_chunk_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "r", "k", "v", "w", "u", "carry", "dout", "dstate_out", "gstate",
+        "decay", "grad_r", "grad_k", "grad_v", "grad_w", "grad_u",
+        "grad_state")]
+                + [(n, ctypes.c_int) for n in (
+                    "batch", "steps", "num_heads", "dk", "dv", "device")])
 
 
 def find_nvcc() -> str:
@@ -227,13 +240,17 @@ def _load(path: str) -> ctypes.CDLL:
     lib.repro_rwkv6_scan.argtypes = [ctypes.POINTER(Rwkv6ScanArgs),
                                      ctypes.c_void_p]
     lib.repro_rwkv6_scan.restype = ctypes.c_int
-    lib.repro_rwkv6_chunk.argtypes = [ctypes.POINTER(Rwkv6ChunkArgs),
-                                      ctypes.c_void_p]
-    lib.repro_rwkv6_chunk.restype = ctypes.c_int
-    lib.repro_flash_attention_bwd.argtypes = [
-        ctypes.POINTER(FlashAttentionBwdArgs), ctypes.c_void_p]
-    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    for fn in (lib.repro_rwkv6_chunk, lib.repro_rwkv6_chunk_adjoint):
+        fn.argtypes = [ctypes.POINTER(Rwkv6ChunkArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.repro_flash_attention_bwd,
+               lib.repro_flash_attention_bwd_wgmma):
+        fn.argtypes = [ctypes.POINTER(FlashAttentionBwdArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.repro_rwkv6_scan_bwd.argtypes = [ctypes.POINTER(Rwkv6ScanBwdArgs),
                                          ctypes.c_void_p]
     lib.repro_rwkv6_scan_bwd.restype = ctypes.c_int
+    lib.repro_rwkv6_chunk_bwd.argtypes = [ctypes.POINTER(Rwkv6ChunkBwdArgs),
+                                          ctypes.c_void_p]
+    lib.repro_rwkv6_chunk_bwd.restype = ctypes.c_int
     return lib

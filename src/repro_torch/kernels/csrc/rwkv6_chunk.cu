@@ -386,7 +386,11 @@ __device__ void diag_block(Smem<DK>& sm, int t0, bool bonus) {
   __syncwarp();
 }
 
-template <int DK, bool VEC>
+// ADJ: the backward's pass over a chunk's own adjoint
+// (rwkv6_chunk_bwd.cu, `repro_rwkv6_chunk_adjoint`), called with k = r and
+// v = dO: sum_s (r_s 2^{L_s})^T dO_s, the adjoint entering the chunk from
+// zero at its end (every exponent L_s <= 0); the decay is the same.
+template <int DK, bool VEC, bool ADJ>
 __global__ void __launch_bounds__(kThreads) rwkv6_chunk_state_kernel(
     const Rwkv6ChunkArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -413,7 +417,8 @@ __global__ void __launch_bounds__(kThreads) rwkv6_chunk_state_kernel(
     a_frag(
         [&](int row, int col) {
           const int d = 16 * mt + row, s = s0 + col;
-          return f32(sm.k[s][d]) * exp2f(sm.L[kChunk][d] - sm.L[s + 1][d]);
+          return f32(sm.k[s][d]) *
+                 exp2f(ADJ ? sm.L[s][d] : sm.L[kChunk][d] - sm.L[s + 1][d]);
         },
         hi, lo);
 #pragma unroll
@@ -597,15 +602,21 @@ __global__ void __launch_bounds__(kThreads) rwkv6_chunk_out_kernel(
   }
 }
 
+// The three kernels of a chunked scan; with `adjoint`, the state pass
+// alone in its ADJ form.
 template <int DK, bool VEC>
-int launch(const Rwkv6ChunkArgs& a, cudaStream_t s) {
+int launch(const Rwkv6ChunkArgs& a, cudaStream_t s, bool adjoint) {
   const int n = (a.steps + kChunk - 1) / kChunk;
   const size_t smem = sizeof(Smem<DK>), state_smem = kStateSmem<DK>;
   static bool attrs = false;
   if (!attrs) {
     cudaError_t err = cudaFuncSetAttribute(
-        rwkv6_chunk_state_kernel<DK, VEC>,
+        rwkv6_chunk_state_kernel<DK, VEC, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(rwkv6_chunk_state_kernel<DK, VEC, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)state_smem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(rwkv6_chunk_out_kernel<DK, VEC>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -615,8 +626,15 @@ int launch(const Rwkv6ChunkArgs& a, cudaStream_t s) {
   }
   const dim3 grid((unsigned)(a.batch * a.num_heads * n),
                   (a.dv + kCols - 1) / kCols);
+  if (adjoint) {
+    if (n > 0)
+      rwkv6_chunk_state_kernel<DK, VEC, true>
+          <<<grid, kThreads, state_smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
   if (n > 0) {
-    rwkv6_chunk_state_kernel<DK, VEC><<<grid, kThreads, state_smem, s>>>(a);
+    rwkv6_chunk_state_kernel<DK, VEC, false>
+        <<<grid, kThreads, state_smem, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -630,14 +648,28 @@ int launch(const Rwkv6ChunkArgs& a, cudaStream_t s) {
 }
 
 template <int DK>
-int dispatch(const Rwkv6ChunkArgs& a, cudaStream_t s) {
+int dispatch(const Rwkv6ChunkArgs& a, cudaStream_t s, bool adjoint) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const bool vec = a.dk % 8 == 0 && a.dv % 8 == 0 && aligned(a.r) &&
                    aligned(a.k) && aligned(a.v) && aligned(a.w) &&
                    aligned(a.carry);
-  return vec ? launch<DK, true>(a, s) : launch<DK, false>(a, s);
+  return vec ? launch<DK, true>(a, s, adjoint)
+             : launch<DK, false>(a, s, adjoint);
+}
+
+int checked_dispatch(const Rwkv6ChunkArgs& a, void* stream, bool adjoint) {
+  if (a.batch < 0 || a.steps < 0 || a.num_heads < 1 || a.dk < 1 ||
+      a.dk > 64 || a.dv < 1 || (a.dv + kCols - 1) / kCols > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.batch == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.dk <= 16) return dispatch<16>(a, s, adjoint);
+  if (a.dk <= 32) return dispatch<32>(a, s, adjoint);
+  return dispatch<64>(a, s, adjoint);
 }
 
 }  // namespace
@@ -648,17 +680,16 @@ extern "C" {
 // cudaError_t (0 = success).  Dk above 64 and negative sizes are refused
 // (cudaErrorInvalidValue).
 int repro_rwkv6_chunk(const Rwkv6ChunkArgs* args, void* stream) {
-  const Rwkv6ChunkArgs& a = *args;
-  if (a.batch < 0 || a.steps < 0 || a.num_heads < 1 || a.dk < 1 ||
-      a.dk > 64 || a.dv < 1 || (a.dv + kCols - 1) / kCols > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(a.device);
-  if (err != cudaSuccess) return (int)err;
-  if (a.batch == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.dk <= 16) return dispatch<16>(a, s);
-  if (a.dk <= 32) return dispatch<32>(a, s);
-  return dispatch<64>(a, s);
+  return checked_dispatch(*args, stream, false);
+}
+
+// The first pass of the chunk-parallel backward (rwkv6_chunk_bwd.cu): the
+// state kernel in its ADJ form, with k = r and v = dO, writing each
+// chunk's own adjoint (from zero at its end) into `carry` and its decay
+// into `decay`; r, out, state_in, state_out and u are not read.  Returns a
+// cudaError_t, refusing what `repro_rwkv6_chunk` refuses.
+int repro_rwkv6_chunk_adjoint(const Rwkv6ChunkArgs* args, void* stream) {
+  return checked_dispatch(*args, stream, true);
 }
 
 }  // extern "C"

@@ -895,19 +895,36 @@ class _FlashAttention(_Function):
         return dq, dk, dv, None, None
 
 
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA backward kernels :func:`flash_attention_backward` launches
+    for operands of ``dtype`` and head dim ``head_dim`` (<= 128):
+    ``"wgmma"``, the tensor-core kernels (``flash_attention_bwd_wgmma.cu``),
+    for bfloat16 with ``head_dim`` a multiple of 16, the forward's
+    tensor-core rule (every training shape of the LM tier); else
+    ``"simt"``, the kernels on the fp32 cores (``flash_attention_bwd.cu``),
+    which keep fp32 operands in fp32."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` (q_offset
     0, every key valid) for the cotangent ``dout`` of its output ``out``,
-    given the forward's row log-sum-exp ``lse`` (B, H, Sq) float32: the
-    backward kernels (``flash_attention_bwd.cu``, three launches counted as
-    one in ``flash_attention_backward.launches``) on CUDA tensors, the plain
-    version :func:`repro_torch.kernels.ref.ref_flash_attention_bwd` on CPU
-    tensors.  q, k, v, out, dout contiguous and of one dtype (float32 or
-    bfloat16), D <= 128; the gradients come in that dtype, dk and dv summed
-    over each kv head's group of query heads."""
+    given the forward's row log-sum-exp ``lse`` (B, H, Sq) float32: on CUDA
+    tensors the backward kernels of the route :func:`flash_bwd_route` picks
+    by dtype and D alone (three launches either way, counted as one in
+    ``flash_attention_backward.launches`` and in its route's
+    ``flash_attention_backward.route_launches[route]``); on CPU tensors the
+    plain version :func:`repro_torch.kernels.ref.ref_flash_attention_bwd`.
+    q, k, v, out, dout contiguous and of one dtype (float32 or bfloat16),
+    D <= 128; the tensor-core route reads q, k, v on 16-byte boundaries (as
+    the forward's does) and copies a ``dout`` that is not.  The gradients
+    come in that dtype, dk and dv summed over each kv head's group of query
+    heads."""
     op = "flash_attention_backward"
     dev = q.device
     if q.dtype not in _ATTN_DTYPES:
@@ -939,29 +956,48 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                     ("dout", dout), ("lse", lse)):
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
+    route = flash_bwd_route(q.dtype, D)
+    if route == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k, v) if t.numel()):
+            raise ValueError(f"{op}: the tensor-core kernel reads q, k, v "
+                             "through TMA and needs them on 16-byte "
+                             "boundaries")
+        if dout.data_ptr() % 16:
+            dout = dout.clone()
     from . import build
-    dq = torch.zeros_like(q)
-    dk = torch.zeros_like(k)
-    dv = torch.zeros_like(v)
     if B * Sq * H == 0:
-        return dq, dk, dv
-    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if route == "wgmma":
+        # every entry is written by the kernels; the scratch holds Delta
+        # and lse in log2 units over rows padded to 64
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        rows = -(-Sq // 64) * 64
+        scratch = torch.empty(2, B, H, rows, dtype=torch.float32,
+                              device=dev)
+    else:
+        dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+        scratch = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
     args = build.FlashAttentionBwdArgs(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
-        dout=dout.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dout=dout.data_ptr(), lse=lse.data_ptr(), delta=scratch.data_ptr(),
         dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), batch=B,
         q_len=Sq, kv_size=Skv, num_heads=H, num_kv_heads=KVH, head_dim=D,
         causal=int(bool(causal)), window=window,
         bf16=int(q.dtype == torch.bfloat16), device=_device_index(dev))
-    err = build.library().repro_flash_attention_bwd(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    launch = (lib.repro_flash_attention_bwd_wgmma if route == "wgmma"
+              else lib.repro_flash_attention_bwd)
+    err = launch(ctypes.byref(args),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
-    _launched(flash_attention_backward)
+        raise RuntimeError(f"{op} kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
+    _launched(flash_attention_backward, route)
     return dq, dk, dv
 
 
 flash_attention_backward.launches = flash_attention_backward.captured = 0
+flash_attention_backward.route_launches = {"wgmma": 0, "simt": 0}
 
 
 flash_attention.launches = flash_attention.captured = 0
@@ -1138,6 +1174,20 @@ class _Rwkv6Scan(_Function):
         return dr, dk, dv, dw, du, None if state is None else dstate
 
 
+def scan_bwd_route(dtype: torch.dtype, steps: int) -> str:
+    """The CUDA backward kernels :func:`rwkv6_scan_backward` launches for
+    r/k/v of ``dtype`` over ``steps`` steps: ``"chunk"``, the
+    chunk-parallel kernels (``rwkv6_chunk_bwd.cu``, after the adjoint form
+    of ``rwkv6_chunk.cu``'s state pass), for bfloat16 with at
+    least one full chunk of :data:`SCAN_CHUNK` steps, the forward's chunk
+    rule (every training shape of the LM tier); else ``"recurrence"``, the
+    step recurrence walked back per (batch row, head)
+    (``rwkv6_scan_bwd.cu``), which keeps fp32 operands in fp32."""
+    if dtype == torch.bfloat16 and steps >= SCAN_CHUNK:
+        return "chunk"
+    return "recurrence"
+
+
 def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         w: torch.Tensor, u: Optional[torch.Tensor],
                         state: Optional[torch.Tensor],
@@ -1147,10 +1197,13 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`rwkv6_scan` for the cotangents ``dout`` (B, T, H, Dv) of its
     output and ``dstate_out`` (B, H, Dk, Dv) float32 of its final state
     (None: zeros), in the dtypes of r, k, v, w, u (None without u) and
-    float32.  On CUDA tensors the backward kernel (``rwkv6_scan_bwd.cu``,
-    one launch, counted in ``rwkv6_scan_backward.launches``; Dk, Dv <= 64)
-    reads ``carry`` (B, H, ceil(T / 64), Dk, Dv), the state entering each
-    64-step chunk that the forward kept; on CPU tensors the plain version
+    float32.  On CUDA tensors the backward kernels of the route
+    :func:`scan_bwd_route` picks by dtype and T alone (one call counted in
+    ``rwkv6_scan_backward.launches`` and in its route's
+    ``rwkv6_scan_backward.route_launches[route]``; Dk, Dv <= 64) read
+    ``carry`` (B, H, ceil(T / 64), Dk, Dv), the state entering each 64-step
+    chunk that the forward of either route kept; on CPU tensors the plain
+    version
     :func:`repro_torch.kernels.ref.ref_rwkv6_bwd` recomputes the states
     from ``state`` and ignores ``carry``.  Through the clip, w's gradient is
     JAX's: 1/2 at w = 1e-8 or w = 1 exactly."""
@@ -1190,33 +1243,70 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk = torch.empty_like(r), torch.empty_like(k)
     dv = torch.empty_like(v)
     dw = torch.empty(B, T, H, Dk, dtype=torch.float32, device=dev)
-    du = (None if u is None else
-          torch.empty(B, H, Dk, dtype=torch.float32, device=dev))
     dstate = torch.empty(B, H, Dk, Dv, dtype=torch.float32, device=dev)
-    pad = lambda d: 16 if d <= 16 else 32 if d <= 32 else 64
-    scratch = torch.empty(B * H * SCAN_CHUNK * pad(Dk) * pad(Dv),
-                          dtype=torch.float32, device=dev)
-    args = build.Rwkv6ScanBwdArgs(
-        r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=wf.data_ptr(),
-        u=None if uf is None else uf.data_ptr(), carry=carry.data_ptr(),
-        dout=dout.data_ptr(),
-        dstate_out=None if dstate_out is None else dstate_out.data_ptr(),
-        scratch=scratch.data_ptr(), grad_r=dr.data_ptr(),
-        grad_k=dk.data_ptr(), grad_v=dv.data_ptr(), grad_w=dw.data_ptr(),
-        grad_u=None if du is None else du.data_ptr(),
-        grad_state=dstate.data_ptr(), batch=B, steps=T, num_heads=H, dk=Dk,
-        dv=Dv, bf16=int(r.dtype == torch.bfloat16),
-        device=_device_index(dev))
-    err = build.library().repro_rwkv6_scan_bwd(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    route = scan_bwd_route(r.dtype, T)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "chunk":
+        # pass 1, each chunk's own adjoint and its decay, is the forward's
+        # state pass in its adjoint form (k = r, v = dO); passes 2-4 then
+        # overwrite gstate with the adjoint at each chunk's end and walk
+        # it; du per chunk, summed below in a fixed order
+        lib = build.library()
+        gstate = torch.empty(B, H, n, Dk, Dv, dtype=torch.float32,
+                             device=dev)
+        decay = torch.empty(B, H, n, Dk, dtype=torch.float32, device=dev)
+        du = (None if u is None else
+              torch.empty(B, H, n, Dk, dtype=torch.float32, device=dev))
+        local = build.Rwkv6ChunkArgs(
+            r=r.data_ptr(), k=r.data_ptr(), v=dout.data_ptr(),
+            w=wf.data_ptr(), carry=gstate.data_ptr(),
+            decay=decay.data_ptr(), batch=B, steps=T, num_heads=H, dk=Dk,
+            dv=Dv, device=_device_index(dev))
+        err = lib.repro_rwkv6_chunk_adjoint(ctypes.byref(local), stream)
+        if err != 0:
+            raise RuntimeError(f"{op} kernel launch failed (chunk route, "
+                               f"pass 1): CUDA error {err}")
+        args = build.Rwkv6ChunkBwdArgs(
+            r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=wf.data_ptr(),
+            u=None if uf is None else uf.data_ptr(), carry=carry.data_ptr(),
+            dout=dout.data_ptr(),
+            dstate_out=None if dstate_out is None else dstate_out.data_ptr(),
+            gstate=gstate.data_ptr(), decay=decay.data_ptr(),
+            grad_r=dr.data_ptr(), grad_k=dk.data_ptr(), grad_v=dv.data_ptr(),
+            grad_w=dw.data_ptr(), grad_u=None if du is None else du.data_ptr(),
+            grad_state=dstate.data_ptr(), batch=B, steps=T, num_heads=H,
+            dk=Dk, dv=Dv, device=_device_index(dev))
+        err = lib.repro_rwkv6_chunk_bwd(ctypes.byref(args), stream)
+        du_sum = (0, 2)
+    else:
+        du = (None if u is None else
+              torch.empty(B, H, Dk, dtype=torch.float32, device=dev))
+        pad = lambda d: 16 if d <= 16 else 32 if d <= 32 else 64
+        scratch = torch.empty(B * H * SCAN_CHUNK * pad(Dk) * pad(Dv),
+                              dtype=torch.float32, device=dev)
+        args = build.Rwkv6ScanBwdArgs(
+            r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), w=wf.data_ptr(),
+            u=None if uf is None else uf.data_ptr(), carry=carry.data_ptr(),
+            dout=dout.data_ptr(),
+            dstate_out=None if dstate_out is None else dstate_out.data_ptr(),
+            scratch=scratch.data_ptr(), grad_r=dr.data_ptr(),
+            grad_k=dk.data_ptr(), grad_v=dv.data_ptr(), grad_w=dw.data_ptr(),
+            grad_u=None if du is None else du.data_ptr(),
+            grad_state=dstate.data_ptr(), batch=B, steps=T, num_heads=H,
+            dk=Dk, dv=Dv, bf16=int(r.dtype == torch.bfloat16),
+            device=_device_index(dev))
+        err = build.library().repro_rwkv6_scan_bwd(ctypes.byref(args), stream)
+        du_sum = 0
     if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
-    _launched(rwkv6_scan_backward)
+        raise RuntimeError(f"{op} kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
+    _launched(rwkv6_scan_backward, route)
     return (dr, dk, dv, dw.to(w.dtype),
-            None if du is None else du.sum(0).to(u.dtype), dstate)
+            None if du is None else du.sum(du_sum).to(u.dtype), dstate)
 
 
 rwkv6_scan_backward.launches = rwkv6_scan_backward.captured = 0
+rwkv6_scan_backward.route_launches = {"chunk": 0, "recurrence": 0}
 
 
 rwkv6_scan.launches = rwkv6_scan.captured = 0

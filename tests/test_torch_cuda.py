@@ -1,7 +1,7 @@
 """The port on a CUDA GPU: the hand-written kernels (decode step, decode
 attention, trajectory log-prob forward and backward, SubTB loss forward
-and backward, flash attention and its backward, the RWKV6 scan on both of
-its routes and its backward)
+and backward, flash attention and the RWKV6 scan, each forward and
+backward on both of its routes)
 against their plain PyTorch versions, the serving engine on the card
 against ``forward_rollout``, two bitseq_tb training iterations, one
 full-size hypergrid_subtb iteration, one iteration of each sequence-design
@@ -1464,6 +1464,15 @@ def test_scan_route_rule_and_the_chunk_route_on_cuda(cuda):
     (2, 200, 200, 8, 2, 128, True, 0, True),        # dense D 128, wgmma
     (2, 45, 150, 4, 4, 64, False, 0, True),         # Whisper's cross
     (1, 64, 64, 2, 2, 24, True, 0, True),           # bf16, SIMT forward
+    # the tensor-core backward (bf16, D % 16 == 0): Whisper's cross
+    # lengths, ragged Sq, window edges at D 64 and 128, D 16 and 48
+    (1, 448, 1500, 4, 4, 64, False, 0, True),
+    (2, 100, 100, 5, 1, 64, True, 0, True),
+    (1, 256, 256, 5, 1, 64, True, 64, True),
+    (1, 300, 300, 4, 2, 128, True, 37, True),
+    (1, 130, 130, 4, 4, 128, False, 0, True),
+    (1, 64, 64, 2, 1, 16, True, 0, True),
+    (1, 70, 90, 2, 1, 48, False, 0, True),
 ], ids=str)
 def test_flash_attention_backward_matches_plain_version(cuda, case):
     """The backward kernel against ``ref_flash_attention_bwd`` on the same
@@ -1522,6 +1531,13 @@ def test_flash_attention_backward_matches_plain_version(cuda, case):
     (2, 200, 4, 64, 64, True, True, "mild", "chunk"),       # RWKV6's heads
     (2, 200, 4, 64, 64, True, True, "strong", "chunk"),
     (1, 1000, 5, 16, 64, True, True, "mild", "chunk"),      # ragged T
+    # the chunk-parallel backward (bf16, T >= 64): one chunk, one step
+    # past it, Hymba's ragged strong-decay row, rwkv6's 4,096 steps with u
+    (2, 64, 3, 16, 64, False, True, "strong", "chunk"),
+    (1, 65, 3, 64, 64, True, True, "strong", "chunk"),
+    (2, 1000, 25, 16, 64, False, False, "strong", "chunk"),
+    (1, 4096, 2, 64, 64, True, True, "mild", "chunk"),
+    (2, 130, 3, 24, 40, True, True, "strong", "chunk"),     # odd Dk, Dv
 ], ids=str)
 def test_rwkv6_scan_backward_matches_plain_version(cuda, case, monkeypatch):
     """The backward kernel against ``ref_rwkv6_bwd`` (the exact reverse
@@ -1555,6 +1571,75 @@ def test_rwkv6_scan_backward_matches_plain_version(cuda, case, monkeypatch):
             _close(a, b, 1e-4)
     again = ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_backward_row_with_no_key(cuda):
+    """Causal with a window and Sq > Skv, on the tensor-core backward: rows
+    55.. attend no key (lse = -inf); their dq is exactly 0 and the rest is
+    held to the plain version."""
+    from repro_torch.kernels.ref import ref_flash_attention_bwd
+    g = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    q, do = (torch.randn(1, 100, 2, 64, generator=g).to(cuda, bf)
+             for _ in range(2))
+    k, v = (torch.randn(1, 40, 1, 64, generator=g).to(cuda, bf)
+            for _ in range(2))
+    out, lse = ops._flash_forward(q, k, v, True, 16, 0, 40, True)
+    assert bool(torch.isinf(lse[:, :, 55:]).all())
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, causal=True,
+                                       window=16)
+    assert float(got[0][:, 55:].float().abs().max()) == 0.0
+    want = ref_flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                   window=16)
+    for a, b in zip(got, want):
+        _close_bf16(a, b)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 24, "simt"), (torch.float32, 64, "simt")])
+def test_flash_attention_backward_takes_its_route(cuda, dtype, D, route):
+    """``ops.flash_bwd_route`` picks the kernel by dtype and D alone: one
+    call counts one launch on that route, none on the other, and a repeat
+    is bitwise equal."""
+    g = torch.Generator().manual_seed(D)
+    q, do = (torch.randn(2, 150, 4, D, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 150, 2, D, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    out, lse = ops._flash_forward(q, k, v, True, 0, 0, 150, True)
+    before = dict(ops.flash_attention_backward.route_launches)
+    got = ops.flash_attention_backward(q, k, v, out, do, lse)
+    again = ops.flash_attention_backward(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    after = ops.flash_attention_backward.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: 2 * (r == route) for r in after}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,T,route", [
+    (torch.bfloat16, 64, "chunk"), (torch.bfloat16, 300, "chunk"),
+    (torch.bfloat16, 63, "recurrence"), (torch.float32, 300, "recurrence")])
+def test_rwkv6_scan_backward_takes_its_route(cuda, dtype, T, route):
+    """``ops.scan_bwd_route`` picks the kernel by dtype and T alone: one
+    call counts one launch on that route, none on the other, and a repeat
+    is bitwise equal (strong decays, u, a state)."""
+    r, k, v, w, u, s0 = _scan_inputs(2, T, 3, 64, 64, True, True, "strong",
+                                     cuda, seed=T)
+    r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+    g = torch.Generator().manual_seed(3)
+    do = torch.randn(2, T, 3, 64, generator=g).to(cuda, dtype)
+    ds = torch.randn(2, 3, 64, 64, generator=g).to(cuda)
+    _, _, carry = ops._scan_forward(r, k, v, w, u, s0, True)
+    before = dict(ops.rwkv6_scan_backward.route_launches)
+    got = ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
+    again = ops.rwkv6_scan_backward(r, k, v, w, u, s0, carry, do, ds)
+    torch.cuda.synchronize()
+    after = ops.rwkv6_scan_backward.route_launches
+    assert {x: after[x] - before[x] for x in after} == {
+        x: 2 * (x == route) for x in after}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_rwkv6_scan_backward_through_the_clip_on_cuda(cuda):
